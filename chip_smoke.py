@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``tensorframes_tpu_torch/csrc`` with
-``nvcc``, then runs the port's main path through its public entry points
-and checks every result:
+``nvcc`` (one process per source, all at once), then runs the port's main
+paths through its public entry points and checks every result:
 
 1. the README example: ``map_blocks(x + 3)`` over 10 rows, exact;
 2. the reference's end-to-end workload: ``map_blocks(z = x + x)`` over a
@@ -14,14 +14,25 @@ and checks every result:
    int64 key with 100,000 distinct values, against numpy f64 to rtol 1e-12;
 3. the k-means centre update: ``aggregate({"f": "sum"})`` over a 2M x 64
    f32 vector column grouped by 1,024 keys, against numpy f64 to rtol 1e-5;
-4. each kernel against its plain PyTorch version on the card, over dtypes,
-   segment counts, widths, dropped ids, an empty input and a ragged tail,
-   twice for bit-identity; then, at the main path's shapes, held against
-   the plain version and itself again and timed beside the plain version,
-   one library call and the memory-bandwidth bound.
+4. the transformer LM at the JAX package's default width (vocab 32,000,
+   d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
+   seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
+   [8, 2048] tokens, 6 flash-attention launches per forward, one sequence
+   held against the same model on the CPU with the plain attention;
+5. ``generate_via_frame`` over 16 prompts of 128 tokens in 2 partitions,
+   16 new tokens, greedy: bit-equal to ``generate`` on the same prompts; a
+   sampled run reproduces itself;
+6. each kernel against its plain PyTorch version on the card: segment_sum
+   over dtypes, segment counts, widths, dropped ids, an empty input and a
+   ragged tail; flash_attention over f32/bf16/f16, causal or not, sequence
+   lengths, Sq != Sk and head dims; each case twice for bit-identity. Then,
+   at the main paths' shapes, each kernel held against the plain version
+   and itself again and timed beside the plain version, one library call
+   and its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during phases 1-3, the card's name and power
+with each kernel's launches during its main path (phases 1-3 for
+segment_sum, phase 4 for flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
 It refuses to run without CUDA. Data is random from fixed seeds.
@@ -29,12 +40,16 @@ It refuses to run without CUDA. Data is random from fixed seeds.
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory bandwidth (NVIDIA data sheet)
+# H100 SXM dense peaks (NVIDIA data sheet): FP32 outside the tensor cores,
+# bf16/f16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 
 
 def emit(obj) -> None:
@@ -224,6 +239,292 @@ def time_segment_sum(np, torch, segment_reduce, n, d, s, dtype, flush,
                        "accumulation-dtype output"}
 
 
+def random_lm_params(np, cfg, seed: int) -> dict:
+    """Transformer weights in the JAX package's pytree layout and scale
+    (``TransformerLM.init``: normal times ``sqrt(1/fan_in)``, ``embed``
+    also times ``sqrt(d_model)``), drawn from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    D, H, Dh, F, V = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
+                      cfg.vocab_size)
+
+    def dense(shape, fan_in):
+        return rng.standard_normal(shape, dtype=np.float32) \
+            * np.float32(np.sqrt(1.0 / fan_in))
+
+    ones = np.ones((D,), np.float32)
+    layers = [{"ln1": ones, "wq": dense((D, H, Dh), D),
+               "wk": dense((D, H, Dh), D), "wv": dense((D, H, Dh), D),
+               "wo": dense((H, Dh, D), D), "ln2": ones,
+               "w1": dense((D, F), D), "w2": dense((F, D), F)}
+              for _ in range(cfg.n_layers)]
+    return {"embed": dense((V, D), D) * np.float32(np.sqrt(D)),
+            "layers": layers, "ln_f": ones, "head": dense((D, V), D)}
+
+
+def device_breakdown(torch, fn, top=6) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity):
+    its wall time up to a synchronize, the device's busy time (the kernels'
+    summed time on the one stream), the idle share, and the device time of
+    the ``top`` kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) * 1e-6
+    assert busy > 0, "the profiler saw no device time"
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "top_kernels_ms": {e.key[:80]: e.self_device_time_total * 1e-3
+                               for e in kernels[:top]},
+            "flash_attention_ms": sum(
+                e.self_device_time_total for e in kernels
+                if "flash_fwd_kernel" in e.key) * 1e-3}
+
+
+def phase_transformer_score(np, torch, fa, models, state, batch=8, seq=2048,
+                            seed=6, cfg=None) -> dict:
+    """Full-width scoring on the card: ``apply`` five times (once under the
+    profiler) and ``loss`` once over [batch, seq] tokens, each forward
+    launching the flash kernel once per layer; then sequence 0's logits and
+    loss against the same weights on the CPU (plain attention) to rtol/atol
+    1e-4: f32 products summed in other orders by cuBLAS, the kernel and the
+    CPU, through 6 layers."""
+    cfg = cfg or models.TransformerConfig()
+    params = random_lm_params(np, cfg, seed)
+    t0 = time.perf_counter()
+    model = state["model"] = models.TransformerLM(cfg)
+    model.load_state_dict(models.params_from_jax(params))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq))).to(model.device)
+    targets = torch.roll(tokens, -1, dims=1)
+    torch.cuda.reset_peak_memory_stats()
+
+    def forward(fn):
+        before = fa.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = fa.launches - before
+        assert got == cfg.n_layers, \
+            f"a forward launched flash_attention {got} times, not {cfg.n_layers}"
+        return out, wall
+
+    with torch.no_grad():
+        logits, first_s = forward(lambda: model.apply(tokens))
+        assert tuple(logits.shape) == (batch, seq, cfg.vocab_size), \
+            logits.shape
+        assert logits.dtype == torch.float32
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        walls = [forward(lambda: model.apply(tokens))[1] for _ in range(3)]
+        profiled, _ = forward(lambda: device_breakdown(
+            torch, lambda: model.apply(tokens)))
+        loss, loss_s = forward(lambda: model.loss(tokens, targets))
+        loss = float(loss)
+        peak = torch.cuda.max_memory_allocated()
+
+        cpu = models.TransformerLM(cfg, device="cpu")
+        cpu.load_state_dict(models.params_from_jax(params))
+        t0 = time.perf_counter()
+        ref = cpu.apply(tokens[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+        ref_loss = float(cpu._xent(ref, targets[:1].cpu()))
+        got = logits[:1].cpu()
+        got_loss = float(model._xent(logits[:1], targets[:1]))
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        assert abs(got_loss - ref_loss) <= 1e-4 * abs(ref_loss), \
+            (got_loss, ref_loss)
+    assert np.isfinite(loss)
+    wall = sum(walls) / len(walls)
+    return {"config": {"vocab": cfg.vocab_size, "d_model": cfg.d_model,
+                       "heads": cfg.n_heads, "layers": cfg.n_layers,
+                       "d_ff": cfg.d_ff, "dtype": str(cfg.dtype)},
+            "params": sum(p.numel() for p in model.parameters()),
+            "tokens": [batch, seq], "load_weights_wall_s": load_s,
+            "first_forward_wall_s": first_s, "forward_wall_s": wall,
+            "forward_walls_s": walls, "tokens_per_s": batch * seq / wall,
+            "loss_wall_s": loss_s, "loss": loss,
+            "max_memory_allocated_bytes": peak,
+            "cpu_reference_wall_s": cpu_s,
+            "seq0_logits_max_abs_err": float((got - ref).abs().max()),
+            "seq0_loss": got_loss, "seq0_loss_cpu": ref_loss,
+            "forward_profile": profiled}
+
+
+def phase_generate_via_frame(ttf, np, torch, state, n=16, s0=128, new=16,
+                             parts=2, seed=8) -> dict:
+    """Greedy decoding through the frame engine, bit-equal to ``generate``
+    on each block's prompts (the same batches); a sampled run twice from
+    one seed gives the same tokens."""
+    model = state["model"]
+    rng = np.random.default_rng(seed)
+    vocab = model.config.vocab_size
+    prompts = rng.integers(0, vocab, (n, s0))  # int64 cells, as users hold
+    df = ttf.analyze(ttf.frame({"prompt": prompts}, num_partitions=parts))
+
+    def completions(**kw):
+        out = model.generate_via_frame(df, max_new_tokens=new, **kw)
+        blocks = [b.columns["completion"] for b in out.blocks()]
+        return out, blocks
+
+    t0 = time.perf_counter()
+    out, blocks = completions()
+    frame_s = time.perf_counter() - t0
+    comp = np.concatenate(blocks)
+    field = out.schema["completion"]
+    assert field.dtype.name == "int" and comp.dtype == np.int32, field
+    assert comp.shape == (n, s0 + new), comp.shape
+    np.testing.assert_array_equal(comp[:, :s0], prompts)
+    t0, row = time.perf_counter(), 0
+    for blk in blocks:
+        direct = model.generate(
+            torch.from_numpy(prompts[row:row + len(blk)]).to(model.device),
+            new)
+        np.testing.assert_array_equal(blk, direct.cpu().numpy())
+        row += len(blk)
+    direct_s = time.perf_counter() - t0
+
+    sampled = [np.concatenate(completions(
+        temperature=1.0, rng=torch.Generator().manual_seed(7))[1])
+        for _ in range(2)]
+    np.testing.assert_array_equal(sampled[0], sampled[1])
+    assert ((sampled[0] >= 0) & (sampled[0] < vocab)).all()
+    np.testing.assert_array_equal(sampled[0][:, :s0], prompts)
+    assert not np.array_equal(sampled[0][:, s0:], comp[:, s0:]), \
+        "sampling at temperature 1 gave the greedy tokens"
+    return {"prompts": n, "prompt_len": s0, "new_tokens": new,
+            "partitions": parts, "generate_via_frame_wall_s": frame_s,
+            "generate_direct_wall_s": direct_s,
+            "new_tokens_per_s": n * new / frame_s}
+
+
+# flash_attention against its f64 plain version: f32 to 2e-5 (the JAX
+# tests' bound, tests/test_kernels.py): f32 FMAs summed in another order;
+# bf16 and f16 to 1e-2: f32 arithmetic, then one rounding of the output to
+# 8 (bf16) or 11 (f16) bits, 4e-3 relative at most
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
+
+
+def flash_check(torch, fa, q, k, v, causal) -> float:
+    """The kernel twice on the card (bit-identical) against the plain
+    version on the same inputs widened to f64, to ``FLASH_TOL``. Returns
+    the max abs error."""
+    b, sq, h, d = q.shape
+    name = str(q.dtype).replace("torch.", "")
+    what = f"{name} causal={causal} B={b} Sq={sq} Sk={k.shape[1]} H={h} D={d}"
+    got = fa.flash_attention_cuda(q, k, v, causal)
+    again = fa.flash_attention_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape, what
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8)), \
+        f"not bit-identical: {what}"
+    ref = fa.flash_attention_reference(q.double(), k.double(), v.double(),
+                                       causal)
+    tol = FLASH_TOL[name]
+    torch.testing.assert_close(got.double(), ref, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what}: {m}")
+    return float((got.double() - ref).abs().max())
+
+
+def phase_flash_checks(np, torch, fa) -> dict:
+    rng = np.random.default_rng(9)
+    bhs = ((1, 1), (2, 3), (1, 4), (3, 2))
+    worst, cases = {}, 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dtype).replace("torch.", "")
+        for causal in (False, True):
+            shapes = [(s, s, d) for s in (8, 21, 37, 1000, 2048)
+                      for d in (8, 16, 64, 128)]
+            shapes += [(24, 40, 8), (24, 40, 64), (1, 2048, 64),
+                       (40, 24, 16)]
+            for i, (sq, sk, d) in enumerate(shapes):
+                b, h = bhs[i % len(bhs)]
+                q, k, v = (torch.from_numpy(rng.standard_normal(
+                    (b, s, h, d))).to("cuda", dtype) for s in (sq, sk, sk))
+                err = flash_check(torch, fa, q, k, v, causal)
+                worst[name] = max(worst.get(name, 0.0), err)
+                cases += 1
+    # the public entry point makes strided inputs contiguous for the kernel
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, 33, 16)))
+               .float().to("cuda").transpose(1, 2) for _ in range(3))
+    torch.testing.assert_close(
+        fa.flash_attention(q, k, v, causal=True),
+        fa.flash_attention_reference(q, k, v, causal=True),
+        rtol=2e-5, atol=2e-5)
+    return {"cases": cases + 1, "max_abs_err": worst}
+
+
+def time_flash(np, torch, fa, dtype, flush, b=8, s=2048, h=8, d=64,
+               reps=20) -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` at the
+    transformer's shape, causal. The kernel is first held against the f64
+    plain version and a second run of itself on these inputs (flash_check).
+    The bound counts the score pairs the causal mask keeps: 4 * d flops
+    each."""
+    import torch.nn.functional as F
+
+    name = str(dtype).replace("torch.", "")
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d),
+                                                    dtype=np.float32))
+               .to("cuda", dtype) for _ in range(3))
+    err = flash_check(torch, fa, q, k, v, True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, D] views
+    ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, True),
+                 reps, flush)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
+        q, k, v, True), reps, flush)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps, flush)
+    pairs = s * (s + 1) // 2  # top-left causal, Sq == Sk
+    flops = 4 * d * pairs * b * h
+    nbytes = 4 * b * s * h * d * q.element_size()
+    t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / HBM_BYTES_PER_S
+    return {"shape": {"B": b, "S": s, "H": h, "D": d, "dtype": name,
+                      "causal": True},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "library_ms": library_ms,
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True) on [B, H, S, D] views"}
+
+
+def run_path(torch, phases, counters) -> dict:
+    """Run one main path's phases with every kernel's launch count set to
+    0 just before and read just after; each phase reports its own counts
+    and the engine's host spans. Returns the path's counts."""
+    from tensorframes_tpu_torch.utils import tracing
+
+    for mod in counters.values():
+        mod.launches = 0
+    tracing.enable()
+    for name, run in phases:
+        tracing.timings.reset()
+        t0 = time.perf_counter()
+        before = {k: m.launches for k, m in counters.items()}
+        info = run()
+        torch.cuda.synchronize()
+        emit({"phase": name, "ok": True, "wall_s": time.perf_counter() - t0,
+              "launches": {k: m.launches - before[k]
+                           for k, m in counters.items()},
+              **info, "spans": tracing.timings.snapshot()})
+    tracing.disable()
+    return {k: m.launches for k, m in counters.items()}
+
+
 def main() -> int:
     import torch
 
@@ -234,8 +535,9 @@ def main() -> int:
     import numpy as np
 
     import tensorframes_tpu_torch as ttf
+    from tensorframes_tpu_torch import models
     from tensorframes_tpu_torch.ops import _build, segment_reduce
-    from tensorframes_tpu_torch.utils import tracing
+    fa = importlib.import_module("tensorframes_tpu_torch.ops.flash_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -244,33 +546,39 @@ def main() -> int:
           f"cuda {torch.version.cuda}", file=sys.stderr)
 
     t0 = time.perf_counter()
-    _build.load("segment_sum")
-    emit({"phase": "build", "ok": True, "kernels": ["segment_sum"],
+    kernels = ("segment_sum", "flash_attention")
+    _build.build(*kernels)
+    emit({"phase": "build", "ok": True, "kernels": list(kernels),
           "wall_s": time.perf_counter() - t0})
 
-    # phases 1-3 are the main path: the launch counts are read around them,
-    # and each phase reports the engine's host spans (where its time went)
-    tracing.enable()
-    segment_reduce.launches = 0
-    for name, run in (("readme_x_plus_3", lambda: phase_readme(ttf, np)),
-                      ("reference_workload_20M",
-                       lambda: phase_reference_workload(ttf, np, torch)),
-                      ("kmeans_centre_update_2Mx64",
-                       lambda: phase_kmeans(ttf, np))):
-        tracing.timings.reset()
-        t0, before = time.perf_counter(), segment_reduce.launches
-        info = run()
-        torch.cuda.synchronize()
-        emit({"phase": name, "ok": True, "wall_s": time.perf_counter() - t0,
-              "segment_sum_launches": segment_reduce.launches - before,
-              **info, "spans": tracing.timings.snapshot()})
-    tracing.disable()
-    main_path_launches = segment_reduce.launches
-    assert main_path_launches > 0, "aggregate never launched segment_sum"
+    # the main paths: each kernel's launches are counted from 0 around each
+    counters = {"segment_sum": segment_reduce, "flash_attention": fa}
+    frame_path = run_path(torch, (
+        ("readme_x_plus_3", lambda: phase_readme(ttf, np)),
+        ("reference_workload_20M",
+         lambda: phase_reference_workload(ttf, np, torch)),
+        ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np))),
+        counters)
+    assert frame_path["segment_sum"] > 0, \
+        "aggregate never launched segment_sum"
+    state = {}
+    lm_path = run_path(torch, (
+        ("transformer_score_8x2048",
+         lambda: phase_transformer_score(np, torch, fa, models, state)),
+        ("transformer_generate_via_frame",
+         lambda: phase_generate_via_frame(ttf, np, torch, state))),
+        counters)
+    assert lm_path["flash_attention"] > 0, \
+        "the transformer never launched flash_attention"
+    del state
 
     t0 = time.perf_counter()
     info = phase_kernel_checks(np, torch, segment_reduce)
     emit({"phase": "kernel_vs_plain", "ok": True,
+          "wall_s": time.perf_counter() - t0, **info})
+    t0 = time.perf_counter()
+    info = phase_flash_checks(np, torch, fa)
+    emit({"phase": "flash_attention_vs_plain", "ok": True,
           "wall_s": time.perf_counter() - t0, **info})
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -279,16 +587,26 @@ def main() -> int:
               time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
                                1024, torch.float32, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
+    flash_shapes = [time_flash(np, torch, fa, dt, flush)
+                    for dt in (torch.float32, torch.bfloat16)]
+    emit({"phase": "flash_attention_timing", "ok": True,
+          "shapes": flash_shapes})
 
-    head = shapes[0]
-    emit({"kernels": [{
-        "name": "segment_sum", "route": "cuda",
-        "source": "tensorframes_tpu_torch/csrc/segment_sum.cu",
-        "replaces": "tensorframes_tpu/ops/segment_reduce.py:75",
-        "launches": main_path_launches,
-        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
-        "at": head["shape"], "by_shape": shapes}]})
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    emit({"kernels": [
+        {"name": "segment_sum", "route": "cuda",
+         "source": "tensorframes_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "tensorframes_tpu/ops/segment_reduce.py:75",
+         "launches": frame_path["segment_sum"],
+         **{k: shapes[0][k] for k in keys},
+         "at": shapes[0]["shape"], "by_shape": shapes},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "tensorframes_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "tensorframes_tpu/ops/flash_attention.py:122",
+         "launches": lm_path["flash_attention"],
+         **{k: flash_shapes[0][k] for k in keys},
+         "at": flash_shapes[0]["shape"], "by_shape": flash_shapes}]})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,6 +5,9 @@ frame, run PyTorch functions over its blocks with ``map_blocks``,
 ``map_rows``, ``filter_rows``, ``reduce_blocks``, ``reduce_rows`` and keyed
 ``aggregate``, and collect rows. Keyed float sums run through a
 hand-written CUDA kernel (``ops/segment_reduce.py``, ``csrc/segment_sum.cu``).
+``models`` holds the decoder-only transformer LM, whose attention runs
+through a second one (``ops/flash_attention.py``,
+``csrc/flash_attention.cu``).
 
 The entry points run on ``cuda`` unless the caller asks for the CPU, with
 :func:`set_default_device` or ``executor=BlockExecutor(device="cpu")``.
@@ -29,6 +32,7 @@ from .api import (
 )
 from . import interop
 from . import ops
+from . import models
 
 __all__ = [
     "Shape",
@@ -57,6 +61,7 @@ __all__ = [
     "utils",
     "interop",
     "ops",
+    "models",
     "set_default_device",
     "default_device",
     "__version__",

@@ -15,9 +15,14 @@ infers each output's dtype and shape **without running it on data**:
   rows but not at 2, so it is ``Unknown`` too, as the JAX package's
   symbolic shapes have it. A program that cannot run at that size, or
   changes rank there, leaves the two large probes to decide;
-- when an op has no meta kernel, or an output shape depends on the data
-  (``x[x > 0]``), capture falls back to the same probes run for real on
-  small CPU tensors of ones.
+- when a meta probe fails (an op with no meta kernel, or a program that
+  mixes its inputs with tensors it closes over, such as a model's weights
+  on the GPU), the same probes run on fake tensors
+  (``FakeTensorMode(allow_non_fake_inputs=True)``): closed-over tensors
+  become fake too, so shapes propagate across devices and nothing runs;
+- when an output shape depends on the data (``x[x > 0]``), or an op has no
+  fake kernel either, capture falls back to the same probes run for real
+  on small CPU tensors of ones.
 
 Outputs are sorted by name, the engine's output-column ordering contract.
 StableHLO serialization has no counterpart in this package yet.
@@ -25,11 +30,13 @@ StableHLO serialization has no counterpart in this package yet.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from . import dtypes as _dt
 from .shape import Shape, Unknown
@@ -246,10 +253,16 @@ def _probe_dims(specs: Sequence[TensorSpec], share_lead_symbol: bool
 def _run_probe(dict_fn: Callable, specs: Sequence[TensorSpec],
                shapes: Sequence[Tuple[int, ...]], device: str
                ) -> Dict[str, torch.Tensor]:
-    make = torch.empty if device == "meta" else torch.ones
-    feeds = {s.name: make(sh, dtype=_dt.device_dtype(s.dtype), device=device)
-             for s, sh in zip(specs, shapes)}
-    with torch.no_grad():
+    """One probe on ``meta``, ``fake`` (CPU fake tensors) or real ``cpu``
+    tensors of ones."""
+    fake = device == "fake"
+    make = torch.ones if device == "cpu" else torch.empty
+    mode = FakeTensorMode(allow_non_fake_inputs=True) if fake \
+        else contextlib.nullcontext()
+    with mode, torch.no_grad():
+        feeds = {s.name: make(sh, dtype=_dt.device_dtype(s.dtype),
+                              device="cpu" if fake else device)
+                 for s, sh in zip(specs, shapes)}
         return dict_fn(feeds)
 
 
@@ -262,17 +275,19 @@ def _run_probes(dict_fn: Callable, specs: Sequence[TensorSpec],
 def _infer_outputs(dict_fn: Callable, specs: Sequence[TensorSpec],
                    share_lead_symbol: bool,
                    output_shapes: Optional[Mapping[str, Shape]]) -> List[TensorSpec]:
-    """Output specs from the probes on meta tensors, or on small real CPU
-    tensors when a meta probe fails (no meta kernel, data-dependent
-    shape). A failure of a large real probe is an error of the
-    computation; a failure of the small one only drops it."""
+    """Output specs from the probes on meta tensors, else on fake tensors,
+    else on small real CPU tensors (see the module docstring). A failure
+    of a large real probe is an error of the computation; a failure of the
+    small one only drops it."""
     first, second, small = _probe_dims(specs, share_lead_symbol)
-    device = "meta"
-    try:
-        out_a, out_b = _run_probes(dict_fn, specs, (first, second), device)
-    except Exception:  # noqa: BLE001 - any meta failure retries on the CPU
-        device = "cpu"
-        out_a, out_b = _run_probes(dict_fn, specs, (first, second), device)
+    for device in ("meta", "fake", "cpu"):
+        try:
+            out_a, out_b = _run_probes(dict_fn, specs, (first, second),
+                                       device)
+            break
+        except Exception:  # noqa: BLE001 - the next kind of probe decides
+            if device == "cpu":
+                raise
     try:
         out_s = _run_probe(dict_fn, specs, small, device)
     except Exception:  # noqa: BLE001 - a program may need more rows than 2

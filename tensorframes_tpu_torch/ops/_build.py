@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` at
 the root of the checkout, and loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited source builds anew. Building happens at
-first use, never at import.
+first use, never at import; :func:`build` compiles several sources at once.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["load"]
+__all__ = ["build", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -39,25 +39,45 @@ def _nvcc() -> str:
         "package's CUDA kernels are built from source at first use")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if need be. Raises with
-    the compiler's output if ``nvcc`` fails."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
+def _library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
-    if not out.exists():
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(*names: str) -> Dict[str, ctypes.CDLL]:
+    """The kernel libraries ``names``, each built first if need be: one
+    ``nvcc`` per source, all started together. Raises with the compiler's
+    output if one fails (after every ``nvcc`` has ended)."""
+    jobs = []
+    for name in names:
+        out = _library_path(name)
+        if name in _loaded or out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, tmp, out, proc in jobs:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src.name} (exit "
-                               f"{proc.returncode}):\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, out)
-    lib = _loaded[name] = ctypes.CDLL(str(out))
-    return lib
+            failed.append(f"nvcc failed to build {name}.cu (exit "
+                          f"{proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+    return {name: _loaded[name] for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built first if need be."""
+    lib = _loaded.get(name)
+    return lib if lib is not None else build(name)[name]

@@ -1,11 +1,15 @@
-"""The port on the GPU: the CUDA ``segment_sum`` kernel against its plain
-version, and keyed ``aggregate`` on the card against the JAX package on
-the CPU. Every test here needs an NVIDIA GPU (marker ``cuda``) and skips
-without one; run them on a machine with the card:
+"""The port on the GPU: the CUDA ``segment_sum`` and ``flash_attention``
+kernels against their plain versions, and keyed ``aggregate`` and the
+transformer LM on the card against the JAX package on the CPU. Every test
+here needs an NVIDIA GPU (marker ``cuda``) and skips without one; run them
+on a machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import importlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +17,14 @@ import torch
 
 import tensorframes_tpu as jtf
 import tensorframes_tpu_torch as ttf
+from tensorframes_tpu.models.transformer import (
+    TransformerConfig as JaxConfig, TransformerLM as JaxLM)
+from tensorframes_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                           params_from_jax)
 from tensorframes_tpu_torch.ops import segment_reduce
 from torch_parity import assert_frames_match, to_port
+
+fa = importlib.import_module("tensorframes_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +124,91 @@ def test_six_ops_on_the_card_match_the_jax_package(cuda):
         assert_frames_match(jtf.aggregate({"x": comb}, j.group_by("k")),
                             ttf.aggregate({"x": comb}, t.group_by("k")),
                             rtol=1e-12)
+
+
+# flash_attention against its plain version widened to f64: f32 to 2e-5
+# (the JAX kernel tests' bound); bf16 and f16 to 1e-2 (f32 arithmetic, one
+# rounding of the output to 8 or 11 bits)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_TOL), ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 8, 8, 1, 8), (2, 37, 37, 3, 16),
+                                         (1, 24, 40, 2, 64),
+                                         (1, 40, 24, 2, 128),
+                                         (2, 300, 300, 2, 64)])
+def test_flash_kernel_matches_plain_and_is_deterministic(cuda, dtype, causal,
+                                                         b, sq, sk, h, d):
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d))).to(
+        cuda, dtype) for s in (sq, sk, sk))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches - before == 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    ref = fa.flash_attention_reference(q.double(), k.double(), v.double(),
+                                       causal=causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.double(), ref, rtol=tol, atol=tol)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.ones((1, 4, 2, 8), device=cuda)
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        fa.flash_attention_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        fa.flash_attention(q, q.half(), q)
+    wide = torch.ones((1, 4, 2, 129), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.ones((1, 2, 4, 8), device=cuda).transpose(1, 2)
+        fa.flash_attention_cuda(strided, strided, strided)
+    with pytest.raises(ValueError, match=r"\[B, Sq, H, D\]"):
+        fa.flash_attention_cuda(q, torch.ones((1, 4, 3, 8), device=cuda), q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="Unknown flash_attention impl"):
+        fa.flash_attention(q, q, q, impl="xla")
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fa.flash_attention(q.requires_grad_(), q, q)
+    # the public entry point makes strided inputs contiguous for the kernel
+    s = torch.randn((1, 2, 5, 8), device=cuda).transpose(1, 2)
+    torch.testing.assert_close(fa.flash_attention(s, s, s, causal=True),
+                               fa.flash_attention_reference(s, s, s, True),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_transformer_on_the_card_matches_the_jax_package(cuda):
+    small = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64)
+    jm = JaxLM(JaxConfig(**small))
+    params = jm.init(jax.random.PRNGKey(1))
+    tm = TransformerLM(TransformerConfig(**small))
+    assert tm.device.type == "cuda"
+    tm.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    toks = np.random.default_rng(0).integers(0, 64, (2, 12)).astype(np.int32)
+    before = fa.launches
+    logits = tm.apply(torch.from_numpy(toks))
+    assert fa.launches - before == 2  # one per layer
+    np.testing.assert_allclose(logits.cpu().numpy(),
+                               np.asarray(jm.apply(params, jnp.asarray(toks))),
+                               rtol=2e-4, atol=2e-4)
+    tgt = np.roll(toks, -1, axis=1)
+    np.testing.assert_allclose(
+        float(tm.loss(torch.from_numpy(toks), torch.from_numpy(tgt))),
+        float(jm.loss(params, jnp.asarray(toks), jnp.asarray(tgt))),
+        rtol=2e-4, atol=2e-4)
+    prompt = toks[:, :5]
+    want = np.asarray(jm.generate(params, jnp.asarray(prompt), 6))
+    np.testing.assert_array_equal(
+        tm.generate(torch.from_numpy(prompt), 6).cpu().numpy(), want)
+    df = ttf.analyze(ttf.frame({"prompt": prompt.astype(np.int64)},
+                               num_partitions=2))
+    comp = np.concatenate([b.columns["completion"] for b in
+                           tm.generate_via_frame(df, 6).blocks()])
+    np.testing.assert_array_equal(comp, want)

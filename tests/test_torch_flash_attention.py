@@ -1,0 +1,134 @@
+"""The port's flash_attention (its plain version, on the CPU) against the
+JAX package's flash_attention through XLA and the Pallas interpreter.
+
+Inputs are drawn with numpy from a seed and handed to both packages.
+Tolerance 2e-5 in f32, the JAX kernel tests' own (tests/test_kernels.py);
+bf16 outputs are compared in f32 to 1e-2 (one rounding to 8 bits of
+mantissa, after f32 sums taken in another order). The CUDA kernel itself
+runs only on a GPU: tests/test_torch_cuda.py and chip_smoke.py hold it
+against flash_attention_reference there.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from tensorframes_tpu.ops import flash_attention as jax_flash_attention
+from tensorframes_tpu_torch.ops import (flash_attention,
+                                        flash_attention_reference)
+
+fa = importlib.import_module("tensorframes_tpu_torch.ops.flash_attention")
+
+TOL = 2e-5
+
+
+def _qkv(rng, b=2, sq=64, sk=None, h=2, d=16):
+    sk = sq if sk is None else sk
+    return (rng.standard_normal((b, sq, h, d)),
+            rng.standard_normal((b, sk, h, d)),
+            rng.standard_normal((b, sk, h, d)))
+
+
+def _both(arrays, dtype="float32", impl="xla", **kw):
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrays)
+    ref = jax_flash_attention(jq, jk, jv, impl=impl, **kw)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in arrays)
+    kw.pop("block_q", None)
+    kw.pop("block_k", None)
+    before = fa.launches
+    out = flash_attention(tq, tk, tv, **kw)
+    assert fa.launches == before  # a CPU tensor takes the plain version
+    assert out.dtype == tq.dtype and tuple(out.shape) == tuple(ref.shape)
+    return np.asarray(ref.astype(jnp.float32)), out.float().numpy()
+
+
+# the cases of tests/test_kernels.py::TestFlashAttention
+@pytest.mark.parametrize("causal", [False, True])
+def test_matches_xla(rng, causal):
+    ref, out = _both(_qkv(rng), causal=causal)
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_non_multiple_seq_len(rng):
+    ref, out = _both(_qkv(rng, sq=37))
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_causal_non_multiple(rng):
+    ref, out = _both(_qkv(rng, sq=21), causal=True)
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(24, 40), (40, 24), (1, 33)])
+def test_cross_attention_lengths(rng, causal, sq, sk):
+    # Sq != Sk; causal stays top-left (query i sees keys j <= i)
+    ref, out = _both(_qkv(rng, b=1, sq=sq, sk=sk, d=8), causal=causal)
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_single_block(rng):
+    ref, out = _both(_qkv(rng, sq=8))
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_explicit_scale(rng):
+    ref, out = _both(_qkv(rng, sq=19, d=8), causal=True, scale=0.3)
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_matches_pallas_interpreter(rng):
+    ref, out = _both(_qkv(rng, sq=37), impl="interpret", causal=True,
+                     block_q=16, block_k=16)
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_bfloat16(rng):
+    ref, out = _both(_qkv(rng, sq=33), dtype="bfloat16", causal=True)
+    np.testing.assert_allclose(out, ref, rtol=1e-2, atol=1e-2)
+
+
+def test_float64_plain_version_against_numpy(rng):
+    q, k, v = _qkv(rng, b=1, sq=12, sk=9, h=3, d=4)
+    out = flash_attention_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal=True).numpy()
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / 2.0
+    s = np.where(np.arange(12)[:, None] >= np.arange(9)[None, :], s, -1e30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    want = np.einsum("bhqk,bkhd->bqhd", p, v)
+    assert out.dtype == np.float64
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+
+
+def test_impl_errors(rng):
+    q, k, v = (torch.from_numpy(a).float() for a in _qkv(rng, sq=8))
+    with pytest.raises(ValueError, match="Unknown flash_attention impl"):
+        flash_attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError, match="Unknown flash_attention impl"):
+        jax_flash_attention(*(jnp.asarray(a.numpy()) for a in (q, k, v)),
+                            impl="pallas-gpu")
+    # impl="cuda" insists on the kernel: a CPU tensor cannot take it
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        flash_attention(q, k, v, impl="cuda")
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        fa.flash_attention_cuda(q, k, v)
+
+
+def test_abstract_inputs_give_shape_only(rng):
+    before = fa.launches
+    q = torch.empty((2, 5, 3, 8), device="meta")
+    k = torch.empty((2, 7, 3, 8), device="meta")
+    out = flash_attention(q, k, k, causal=True)
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 5, 3, 8)
+    with FakeTensorMode():
+        fq = torch.empty((1, 4, 2, 16), dtype=torch.bfloat16)
+        fout = flash_attention(fq, fq, fq, causal=True)
+    assert tuple(fout.shape) == (1, 4, 2, 16)
+    assert fout.dtype == torch.bfloat16
+    assert fa.launches == before

@@ -28,6 +28,15 @@ def test_imports_and_runs_without_jax():
         "df = ttf.frame({'x': np.arange(10.0)})\n"
         "rows = ttf.map_blocks(lambda x: {'z': x + 3.0}, df).collect()\n"
         "assert [r['z'] for r in rows] == [i + 3.0 for i in range(10)]\n"
+        "from tensorframes_tpu_torch.models import (TransformerConfig,\n"
+        "                                           TransformerLM)\n"
+        "cfg = TransformerConfig(vocab_size=16, d_model=8, n_heads=2,\n"
+        "                        n_layers=1, d_ff=16)\n"
+        "lm = TransformerLM(cfg, device='cpu')\n"
+        "assert tuple(lm.apply(np.zeros((1, 3), np.int64)).shape) == \\\n"
+        "    (1, 3, 16)\n"
+        "assert tuple(lm.generate(np.zeros((1, 3), np.int64), 2).shape) == \\\n"
+        "    (1, 5)\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [k for k in sys.modules if k == 'tensorframes_tpu'\n"
         "       or k.startswith('tensorframes_tpu.') or k.startswith('jax.')]\n"

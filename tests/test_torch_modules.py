@@ -5,6 +5,7 @@ the JAX package's: ``shape``, ``dtypes``, ``schema``, ``marshal``,
 host-side metadata or exact arithmetic, so the comparisons are exact.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -217,6 +218,29 @@ def test_capture_data_dependent_shape_probes_on_cpu():
     out = ttf.map_blocks(lambda x: {"z": x[x > 0]}, df, trim=True)
     assert [b.num_rows for b in out.blocks()] == [1, 2]
     assert [r["z"] for r in out.collect()] == [2.0, 4.0, 5.0]
+
+
+def test_capture_of_a_closure_over_other_tensors_runs_nothing():
+    """A program that mixes its inputs with a tensor it closes over fails
+    on meta inputs; fake tensors then carry the shapes, so capture still
+    runs nothing on data (as the JAX package's eval_shape) and gives the
+    JAX package's specs."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    seen = []
+
+    def fn(v):
+        seen.append("real" if v.device.type == "cpu" and not is_fake(v)
+                    else "abstract")
+        return {"y": v @ torch.arange(6.0, dtype=torch.float64).reshape(3, 2)}
+
+    comp = ttf.Computation.trace(
+        fn, [ttf.TensorSpec("v", ttf.dtypes.double, ttf.Shape(-1, 3))])
+    want = jtf.Computation.trace(
+        lambda v: {"y": v @ jnp.arange(6.0).reshape(3, 2)},
+        [jtf.TensorSpec("v", jtf.dtypes.double, jtf.Shape(-1, 3))])
+    assert repr(comp.outputs) == repr(want.outputs) == "(y:double[?,2],)"
+    assert seen and set(seen) == {"abstract"}
 
 
 def test_analyze_graph_summaries():
