@@ -23,12 +23,14 @@ paths through its public entry points and checks every result:
    16 new tokens, greedy: bit-equal to ``generate`` on the same prompts; a
    sampled run reproduces itself;
 6. each kernel against its plain PyTorch version on the card: segment_sum
-   over dtypes, segment counts, widths, dropped ids, an empty input and a
-   ragged tail; flash_attention over f32/bf16/f16, causal or not, sequence
-   lengths, Sq != Sk and head dims; each case twice for bit-identity. Then,
-   at the main paths' shapes, each kernel held against the plain version
-   and itself again and timed beside the plain version, one library call
-   and its bound.
+   over dtypes, segment counts, widths, dropped ids, a hot segment with 90%
+   of the rows and a single segment (also at the main path's 250k x 64
+   block), 4 sort passes, an empty input and a ragged tail;
+   flash_attention over f32/bf16/f16, causal or not, sequence lengths,
+   Sq != Sk and head dims; each case twice for bit-identity. Then, at the
+   main paths' shapes, each kernel held against the plain version and
+   itself again and timed beside the plain version, one library call and
+   its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
 with each kernel's launches during its main path (phases 1-3 for
@@ -36,20 +38,31 @@ segment_sum, phase 4 for flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
 It refuses to run without CUDA. Data is random from fixed seeds.
+
+    python3 chip_smoke.py --timings ROOT
+
+times only the kernels (phase 6's timings) of the port checked out at
+``ROOT``, an earlier commit unpacked with ``git archive`` say, with this
+script's timing code. To compare two designs of a kernel, run it on both
+checkouts on one card, alternating (old, new, new, old).
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory bandwidth (NVIDIA data sheet)
-# H100 SXM dense peaks (NVIDIA data sheet): FP32 outside the tensor cores,
-# bf16/f16 on the tensor cores
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+# H100 SXM dense tensor-core peaks (NVIDIA data sheet): 989 TFLOP/s bf16 and
+# f16, 495 TF32. An f32-accurate product on the tensor cores takes three
+# TF32 products (3xTF32: hi.hi + hi.lo + lo.hi), so an f32 operation counts
+# as three TF32 ones.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
 
 
 def emit(obj) -> None:
@@ -142,19 +155,37 @@ def phase_kmeans(ttf, np, n=2_000_000, d=64, parts=8, keys=1024) -> dict:
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
 
 
+def segment_check(torch, segment_reduce, vals, tid, s, what) -> None:
+    """The kernel twice (bit-identical) against the plain version on the
+    same values widened to f64, to ``KERNEL_RTOL``."""
+    name = str(vals.dtype).replace("torch.", "")
+    got = segment_reduce.segment_sum_cuda(vals, tid, s)
+    again = segment_reduce.segment_sum_cuda(vals, tid, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8)), \
+        f"not bit-identical: {name} {what}"
+    ref = segment_reduce.segment_sum_reference(vals.double(), tid, s)
+    torch.testing.assert_close(got.double(), ref, rtol=KERNEL_RTOL[name],
+                               atol=0.0, msg=lambda m: f"{name} {what}: {m}")
+
+
 def phase_kernel_checks(np, torch, segment_reduce) -> dict:
     """segment_sum against segment_sum_reference on the card, both given
     the same values; the plain version sums them widened to f64 (exact for
     f32 and bf16 inputs), so it is the true sum and the tolerance is the
     kernel's own rounding. f64 to rtol 1e-12 (summation order only); f32 to
-    rtol 1e-5 (an f32 chain of at most a few hundred rows per chunk plus
-    the chunk combine); bf16 to rtol 1e-2 (one rounding of the f32 sum to 8
-    bits). The plain version in f32 would not do as the yardstick: on CUDA
-    its ``index_add_`` adds with atomics in an order that changes from run
-    to run, and over 100k rows into one segment its own error is 1e-5."""
+    rtol 1e-5 (f32 chains of at most one piece, 64 or 1,024 terms, at each
+    of at most 3 levels of the piece tree here); bf16 to rtol 1e-2 (one rounding of the f32
+    sum to 8 bits). The plain version in f32 would not do as the yardstick:
+    on CUDA its ``index_add_`` adds with atomics in an order that changes
+    from run to run, and over 100k rows into one segment its own error is
+    1e-5. Besides random ids with dropped ones: a hot segment holding 90%
+    of the rows and every row in one segment with S = 1 (also at the
+    k-means path's 250,000 x 64 block), and 2^22 rows into 2^27 segments,
+    where the sort takes its most passes (4)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
-    n = 100_003  # a ragged tail for every chunk and 256-row batch size
+    n = 100_003  # a ragged tail for every sort tile and piece
     cases = 0
     for dtype in ("float32", "bfloat16", "float64"):
         tdt = getattr(torch, dtype)
@@ -167,18 +198,27 @@ def phase_kernel_checks(np, torch, segment_reduce) -> dict:
                     vals = torch.from_numpy(
                         rng.random((n, d)) + 0.5).to(dev, tdt)
                     tid = torch.from_numpy(ids).to(dev, id_dt)
-                    got = segment_reduce.segment_sum_cuda(vals, tid, s)
-                    again = segment_reduce.segment_sum_cuda(vals, tid, s)
-                    torch.cuda.synchronize()
-                    assert torch.equal(got.view(torch.uint8),
-                                       again.view(torch.uint8)), \
-                        f"not bit-identical: {dtype} S={s} d={d}"
-                    ref = segment_reduce.segment_sum_reference(
-                        vals.double(), tid, s)
-                    torch.testing.assert_close(
-                        got.double(), ref, rtol=KERNEL_RTOL[dtype], atol=0.0,
-                        msg=lambda m: f"{dtype} S={s} d={d}: {m}")
+                    segment_check(torch, segment_reduce, vals, tid, s,
+                                  f"S={s} d={d} {id_dt}")
                     cases += 1
+        for m, d in ((n, 1), (n, 64), (250_000, 64)):
+            vals = torch.from_numpy(rng.random((m, d)) + 0.5).to(dev, tdt)
+            hot = np.where(rng.random(m) < 0.9, 17, rng.integers(0, 1024, m))
+            segment_check(torch, segment_reduce, vals,
+                          torch.from_numpy(hot).to(dev), 1024,
+                          f"hot segment (90% of rows) n={m} S=1024 d={d}")
+            segment_check(torch, segment_reduce, vals,
+                          torch.zeros(m, dtype=torch.int32, device=dev), 1,
+                          f"one segment n={m} S=1 d={d}")
+            cases += 2
+        if dtype != "bfloat16":
+            big_n, big_s = 1 << 22, 1 << 27
+            assert segment_reduce.plan_sort(big_n, 1, big_s, 8).passes == 4
+            vals = torch.from_numpy(rng.random((big_n, 1)) + 0.5).to(dev, tdt)
+            tid = torch.from_numpy(rng.integers(-1, big_s, big_n)).to(dev)
+            segment_check(torch, segment_reduce, vals, tid, big_s,
+                          "n=2^22 S=2^27 (4 sort passes)")
+            cases += 1
         empty = segment_reduce.segment_sum_cuda(
             torch.empty((0, 3), dtype=tdt, device=dev),
             torch.empty((0,), dtype=torch.int32, device=dev), 7)
@@ -411,9 +451,10 @@ def phase_generate_via_frame(ttf, np, torch, state, n=16, s0=128, new=16,
 
 
 # flash_attention against its f64 plain version: f32 to 2e-5 (the JAX
-# tests' bound, tests/test_kernels.py): f32 FMAs summed in another order;
-# bf16 and f16 to 1e-2: f32 arithmetic, then one rounding of the output to
-# 8 (bf16) or 11 (f16) bits, 4e-3 relative at most
+# tests' bound, tests/test_kernels.py): 3xTF32 products, about f32's own
+# rounding, summed in another order; bf16 and f16 to 1e-2: exact 16-bit
+# q.k products in f32, p split into two 16-bit halves (about 16 bits), then
+# one rounding of the output to 8 (bf16) or 11 (f16) bits, 4e-3 relative
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2, "float16": 1e-2}
 
 
@@ -471,8 +512,8 @@ def time_flash(np, torch, fa, dtype, flush, b=8, s=2048, h=8, d=64,
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     transformer's shape, causal. The kernel is first held against the f64
     plain version and a second run of itself on these inputs (flash_check).
-    The bound counts the score pairs the causal mask keeps: 4 * d flops
-    each."""
+    The bound counts the score pairs the causal mask keeps, 4 * d flops
+    each, at the tensor cores' peak for the type (f32 as 3xTF32)."""
     import torch.nn.functional as F
 
     name = str(dtype).replace("torch.", "")
@@ -494,12 +535,38 @@ def time_flash(np, torch, fa, dtype, flush, b=8, s=2048, h=8, d=64,
     t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / HBM_BYTES_PER_S
     return {"shape": {"B": b, "S": s, "H": h, "D": d, "dtype": name,
                       "causal": True},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes, "library_ms": library_ms,
             "library": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True) on [B, H, S, D] views"}
+
+
+def phase_timings(np, torch, segment_reduce, fa) -> tuple:
+    """Each kernel timed at its main paths' shapes: segment_sum on one
+    block of phase 2 (f64, S = 100,000) and of phase 3 (f32 x 64,
+    S = 1,024), flash_attention at the transformer's [8, 2048, 8, 64]
+    causal in f32 (the model's) and bf16."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    shapes = [time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               100_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
+                               1024, torch.float32, flush)]
+    emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
+    flash_shapes = [time_flash(np, torch, fa, dt, flush)
+                    for dt in (torch.float32, torch.bfloat16)]
+    emit({"phase": "flash_attention_timing", "ok": True,
+          "shapes": flash_shapes})
+    return shapes, flash_shapes
+
+
+def print_card() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
 
 
 def run_path(torch, phases, counters) -> dict:
@@ -525,13 +592,22 @@ def run_path(torch, phases, counters) -> dict:
     return {k: m.launches for k, m in counters.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one GPU.")
+    parser.add_argument(
+        "--timings", metavar="ROOT",
+        help="only build and time the kernels of the port checked out at "
+             "ROOT")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a GPU", file=sys.stderr)
         return 2
+    if args.timings:
+        sys.path.insert(0, os.path.abspath(args.timings))
     import numpy as np
 
     import tensorframes_tpu_torch as ttf
@@ -549,7 +625,12 @@ def main() -> int:
     kernels = ("segment_sum", "flash_attention")
     _build.build(*kernels)
     emit({"phase": "build", "ok": True, "kernels": list(kernels),
+          "port": os.path.dirname(os.path.abspath(ttf.__file__)),
           "wall_s": time.perf_counter() - t0})
+    if args.timings:
+        phase_timings(np, torch, segment_reduce, fa)
+        print_card()
+        return 0
 
     # the main paths: each kernel's launches are counted from 0 around each
     counters = {"segment_sum": segment_reduce, "flash_attention": fa}
@@ -581,17 +662,7 @@ def main() -> int:
     emit({"phase": "flash_attention_vs_plain", "ok": True,
           "wall_s": time.perf_counter() - t0, **info})
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    shapes = [time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
-                               100_000, torch.float64, flush),
-              time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
-                               1024, torch.float32, flush)]
-    emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
-    flash_shapes = [time_flash(np, torch, fa, dt, flush)
-                    for dt in (torch.float32, torch.bfloat16)]
-    emit({"phase": "flash_attention_timing", "ok": True,
-          "shapes": flash_shapes})
-
+    shapes, flash_shapes = phase_timings(np, torch, segment_reduce, fa)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [
@@ -608,11 +679,7 @@ def main() -> int:
          **{k: flash_shapes[0][k] for k in keys},
          "at": flash_shapes[0]["shape"], "by_shape": flash_shapes}]})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
 
     assert "jax" not in sys.modules and not any(
         m == "tensorframes_tpu" or m.startswith("tensorframes_tpu.")

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
@@ -29,7 +29,7 @@ from torch._subclasses.fake_tensor import is_fake
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
-           "flash_attention_cuda"]
+           "flash_attention_cuda", "plan_launch"]
 
 # Launches of the CUDA kernel since the process started (or the caller last
 # set it to 0); flash_attention_cuda adds one per launch. Read it on this
@@ -39,9 +39,31 @@ launches = 0
 
 _NEG_INF = -1e30  # large-negative, not -inf: fully-masked rows stay NaN-free
 _MAX_HEAD_DIM = 128
-_BLOCK_Q = 64     # query rows per block, fixed in the .cu
+_BLOCK_Q = 64     # query rows per block and key rows per tile (the .cu)
+_STAGES = 2       # K/V tiles in flight (kStages)
+_HEAD_DIMS = (32, 64, 128)  # head dims the kernel is built for, D padded up
 _MAX_Q_TILES = 65535  # the grid's y dimension
 _DTYPE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+class FlashPlan(NamedTuple):
+    dmax: int        # the head dim padded up, zero columns past D
+    row_elems: int   # row stride of each shared-memory tile, padded
+    smem_bytes: int  # the Q tile and _STAGES K and V tiles
+
+
+def plan_launch(d: int, dtype: torch.dtype) -> FlashPlan:
+    """Shared memory of one block for head dim ``d`` in ``dtype``: rows
+    padded by 4 words (f32) or 16 bytes (bf16, f16) so that the tensor
+    cores' fragment loads meet no bank conflicts; the kernel checks the
+    size it is given against its own."""
+    if not 1 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_cuda takes a head dim of 1 to "
+                         f"{_MAX_HEAD_DIM}, got {d}")
+    dmax = next(m for m in _HEAD_DIMS if d <= m)
+    size = torch.empty((), dtype=dtype).element_size()
+    row = dmax + (4 if size == 4 else 8)
+    return FlashPlan(dmax, row, (1 + 2 * _STAGES) * _BLOCK_Q * row * size)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -71,7 +93,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # declare once: ctypes would pass 32-bit ints
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.tft_flash_attention_error_string.restype = ctypes.c_char_p
         lib.tft_flash_attention_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -106,9 +128,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if not 1 <= d <= _MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_cuda takes a head dim of 1 to "
-                         f"{_MAX_HEAD_DIM}, got {d}")
+    plan = plan_launch(d, q.dtype)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention_cuda takes contiguous tensors")
     if math.ceil(sq / _BLOCK_Q) > _MAX_Q_TILES or b * h >= 2 ** 31 \
@@ -124,13 +144,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # 16-byte rows and pointers: the kernel copies tiles with cp.async
+    vec = d * q.element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, out))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tft_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, sq, sk, d, scale, int(bool(causal)), _DTYPE_KIND[q.dtype],
-            stream)
+            plan.dmax, plan.smem_bytes, int(vec), stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: "

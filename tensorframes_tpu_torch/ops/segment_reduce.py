@@ -12,42 +12,73 @@ of keyed aggregation; the port's counterpart of
   in the JAX package), :func:`segment_sum_reference` runs: a masked
   ``index_add_`` in the accumulation dtype.
 
-The tiling (rows per chunk, segment and column tiles) is planned in Python
-by :func:`plan_tiles`, so the CPU tests reach it.
+The launch (the sort's tile and digits, the reduction's pieces and
+levels, every grid and the scratch's layout) is planned in Python by
+:func:`plan_sort`, so the CPU tests reach it; the kernel takes the plan
+as it is and checks only its own limits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
 __all__ = ["segment_sum", "segment_sum_reference", "segment_sum_cuda",
-           "plan_tiles"]
+           "plan_sort"]
 
 # Launches of the CUDA kernel since the process started (or the caller
 # last set it to 0); segment_sum_cuda adds one per launch. Read it as
 # ``segment_reduce.launches``: a ``from`` import copies the int.
 launches = 0
 
-_THREADS = 256             # threads per block, fixed in the .cu
-_TILE_BYTES = 96 * 1024    # shared memory for one block's accumulator tile
-_TARGET_BLOCKS = 4 * 132   # pass-1 blocks to aim for: 4 per H100 SM
-_PARTIAL_BYTES = 256 << 20  # cap on the [chunks, S, d] partial buffer
+_THREADS = 256            # threads per block of every kernel (kThreads)
+_SORT_TILE = 4096         # rows per sort block (at most kMaxTile)
+_MAX_DIGIT_BITS = 9       # at most 512 digits a pass (kMaxDigitBits)
+_NARROW_LANES = 8         # lanes per segment and per piece for d < 32
+_PIECE_NARROW = 1024      # rows per piece for d < 32: 8 lanes stride rows
+_PIECE_WIDE = 64          # rows per piece for d >= 32: lanes take columns
+_MAX_LEVELS = 8           # levels of piece partials (kMaxLevels)
+_MAX_ROWS = 2 ** 31 - 1   # row indices and positions are 32-bit
+_ALIGN = 256              # byte alignment of each scratch buffer
 
 _VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _ID_KIND = {torch.int32: 0, torch.int64: 1}
 
 
-class TilePlan(NamedTuple):
-    d_tile: int
-    s_tile: int
-    chunks: int
-    rows_per_chunk: int
+class SortPlan(NamedTuple):
+    """One launch of the kernel: every grid, the sort's digits, the
+    reduction's pieces and levels, and the scratch's layout. The C entry
+    point takes it field for field (``_Launch``)."""
+    tile: int            # rows per sort block
+    sort_blocks: int     # blocks of each sort kernel
+    digit_bits: int
+    passes: int
+    offset_blocks: int   # blocks of the offsets kernel, a thread per key
+    lanes: int           # lanes per segment and per piece: 32 or 8
+    piece_rows: int      # rows per piece, at every level of the tree
+    segment_blocks: int  # blocks of the reduction, a group per segment
+    head_rows: Tuple[int, ...]    # partial rows of each level, one per piece
+    head_blocks: Tuple[int, ...]  # blocks of each level, a group per piece
+    # byte offset and size of each scratch buffer: keys, idx, hist,
+    # totals, offsets, then head0, head1, ...
+    layout: Dict[str, Tuple[int, int]]
+    scratch_bytes: int
+
+
+class _Launch(ctypes.Structure):
+    """``struct Plan`` of ``csrc/segment_sum.cu``."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "tile", "sort_blocks", "digit_bits", "passes", "offset_blocks",
+        "lanes", "piece", "segment_blocks", "levels")] + [
+        ("head_blocks", ctypes.c_int * _MAX_LEVELS),
+        ("head_rows", ctypes.c_longlong * _MAX_LEVELS),
+        ("at", ctypes.c_longlong * (5 + _MAX_LEVELS))]
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -58,29 +89,75 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.int64
 
 
-def plan_tiles(n: int, d: int, num_segments: int, acc_size: int) -> TilePlan:
-    """Pass-1 grid for ``n`` rows of width ``d`` into ``num_segments``
-    segments: a column tile of at most 64, a segment tile that fills
-    ``_TILE_BYTES`` of shared memory, and enough row chunks to give the
-    card about ``_TARGET_BLOCKS`` blocks while the partial buffer stays
-    under ``_PARTIAL_BYTES``."""
+def plan_sort(n: int, d: int, num_segments: int, acc_size: int) -> SortPlan:
+    """The launch for ``n`` rows of width ``d`` into ``num_segments``
+    segments, ``acc_size`` bytes per accumulator.
+
+    Keys run over ``[0, num_segments]`` (the sentinel included) and sort in
+    ``ceil(bits / 9)`` passes of equal digits, one sort block per
+    ``_SORT_TILE`` rows. A warp (d >= 32) or 8 lanes (d < 32) take each
+    segment and each piece; pieces of ``piece_rows`` rows make level 0 of
+    the tree, and each level's partial rows, one per piece, are cut into
+    pieces again while a level holds more than one piece. Scratch is O(n)
+    plus the offsets: keys and row indices double-buffered (16 bytes a
+    row), the digit histograms and totals, ``S + 1`` offsets and the
+    partial rows of every level (about ``n / piece_rows`` rows)."""
     if n < 1 or d < 1 or num_segments < 1:
-        raise ValueError(f"plan_tiles needs n, d, num_segments >= 1, got "
+        raise ValueError(f"plan_sort needs n, d, num_segments >= 1, got "
                          f"{n}, {d}, {num_segments}")
-    d_tile = 1 << (min(d, 64) - 1).bit_length()
-    s_tile = max(1, min(num_segments, _TILE_BYTES // (d_tile * acc_size)))
-    s_tiles = math.ceil(num_segments / s_tile)
-    d_tiles = math.ceil(d / d_tile)
-    if s_tiles > 65535 or d_tiles > 65535:
-        raise ValueError(
-            f"segment_sum: {num_segments} segments of width {d} exceed the "
-            f"kernel's grid ({s_tiles} segment tiles, {d_tiles} column tiles)")
-    chunks = math.ceil(_TARGET_BLOCKS / (s_tiles * d_tiles))
-    chunks = min(chunks, math.ceil(n / _THREADS),
-                 max(1, _PARTIAL_BYTES // (num_segments * d * acc_size)))
-    chunks = max(1, chunks)
-    rows = math.ceil(n / chunks)
-    return TilePlan(d_tile, s_tile, math.ceil(n / rows), rows)
+    if n > _MAX_ROWS or num_segments > _MAX_ROWS:
+        raise ValueError(f"segment_sum: {n} rows into {num_segments} "
+                         f"segments exceed the kernel's 32-bit indices")
+    passes = math.ceil(num_segments.bit_length() / _MAX_DIGIT_BITS)
+    digit_bits = math.ceil(num_segments.bit_length() / passes)
+    sort_blocks = math.ceil(n / _SORT_TILE)
+    lanes = 32 if d >= 32 else _NARROW_LANES
+    piece = _PIECE_WIDE if d >= 32 else _PIECE_NARROW
+    groups = _THREADS // lanes  # segments or pieces per block
+    head_rows, rows = [], n
+    while rows > piece:
+        rows = math.ceil(rows / piece)
+        head_rows.append(rows)
+    sizes = {"keys": 2 * n * 4, "idx": 2 * n * 4,
+             "hist": (1 << digit_bits) * sort_blocks * 4,
+             "totals": (1 << digit_bits) * 4,
+             "offsets": (num_segments + 1) * 4}
+    sizes.update({f"head{k}": r * d * acc_size
+                  for k, r in enumerate(head_rows)})
+    layout, at = {}, 0
+    for name, size in sizes.items():
+        layout[name] = (at, size)
+        at += -(-size // _ALIGN) * _ALIGN
+    return SortPlan(
+        _SORT_TILE, sort_blocks, digit_bits, passes,
+        math.ceil((num_segments + 1) / _THREADS), lanes, piece,
+        math.ceil(num_segments / groups), tuple(head_rows),
+        tuple(math.ceil(r / groups) for r in head_rows), layout, at)
+
+
+def _launch(plan: SortPlan) -> _Launch:
+    levels = len(plan.head_rows)  # at most 5: n < 2^31, pieces >= 64
+    names = ["keys", "idx", "hist", "totals", "offsets"] + [
+        f"head{k}" for k in range(levels)]
+    return _Launch(
+        plan.tile, plan.sort_blocks, plan.digit_bits, plan.passes,
+        plan.offset_blocks, plan.lanes, plan.piece_rows,
+        plan.segment_blocks, levels,
+        (ctypes.c_int * _MAX_LEVELS)(*plan.head_blocks),
+        (ctypes.c_longlong * _MAX_LEVELS)(*plan.head_rows),
+        (ctypes.c_longlong * (5 + _MAX_LEVELS))(
+            *(plan.layout[k][0] for k in names)))
+
+
+@functools.lru_cache(maxsize=64)
+def _planned(n: int, d: int, num_segments: int,
+             acc_size: int) -> Tuple[SortPlan, _Launch]:
+    """:func:`plan_sort` and its C struct, made once per shape: the engine
+    launches the kernel at one shape for every block of a frame, and the
+    plan's host time (about 20 us) would otherwise come before every
+    launch."""
+    plan = plan_sort(n, d, num_segments, acc_size)
+    return plan, _launch(plan)
 
 
 def segment_sum_reference(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -107,8 +184,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.tft_segment_sum
     if fn.argtypes is None:  # declare once: ctypes would pass 32-bit ints
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 5 + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Launch)] + \
+            [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.tft_cuda_error_string.restype = ctypes.c_char_p
         lib.tft_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -144,8 +221,8 @@ def segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
         return torch.zeros((num_segments, d), dtype=values.dtype,
                            device=values.device)
     acc = _acc_dtype(values.dtype)
-    plan = plan_tiles(n, d, num_segments, torch.finfo(acc).bits // 8)
-    partial = torch.empty((plan.chunks, num_segments, d), dtype=acc,
+    plan, launch = _planned(n, d, num_segments, torch.finfo(acc).bits // 8)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=values.device)
     out = torch.empty((num_segments, d), dtype=values.dtype,
                       device=values.device)
@@ -153,9 +230,8 @@ def segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = lib.tft_segment_sum(
-            values.data_ptr(), segment_ids.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, d, num_segments, plan.chunks,
-            plan.rows_per_chunk, plan.s_tile, plan.d_tile,
+            values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), ctypes.byref(launch), n, d, num_segments,
             _VALUE_KIND[values.dtype], _ID_KIND[segment_ids.dtype], stream)
     if rc != 0:
         raise RuntimeError(

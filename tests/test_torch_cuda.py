@@ -29,7 +29,8 @@ fa = importlib.import_module("tensorframes_tpu_torch.ops.flash_attention")
 pytestmark = pytest.mark.cuda
 
 # kernel against the exact (f64) plain version: f64 summation order only;
-# f32 an f32 chain over a chunk plus the chunk combine; bf16 one rounding
+# f32 chains of at most one piece of terms at each level of the piece tree;
+# bf16 one rounding
 RTOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -46,11 +47,19 @@ def cuda():
 @pytest.mark.parametrize("dtype", list(RTOL), ids=str)
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=str)
 @pytest.mark.parametrize("n,d,s", [(1, 1, 1), (1000, 1, 7), (4099, 64, 300),
-                                   (20_003, 3, 50_000)])
+                                   (20_003, 3, 50_000),
+                                   (250_000, 64, 1024)])  # a k-means block
+@pytest.mark.parametrize("spread", ["random", "hot", "single"])
 def test_kernel_matches_plain_and_is_deterministic(cuda, dtype, id_dtype,
-                                                   n, d, s):
+                                                   n, d, s, spread):
+    # random ids, with -1 and >= s dropped; a hot segment holding 90% of the
+    # rows; or every row in one segment with s = 1
     rng = np.random.default_rng(n + d + s)
-    ids = rng.integers(-1, s + 2, n)  # -1 and >= s are dropped
+    ids = rng.integers(-1, s + 2, n)
+    if spread == "hot":
+        ids = np.where(rng.random(n) < 0.9, s // 2, ids)
+    elif spread == "single":
+        ids, s = np.zeros(n, np.int64), 1
     vals = torch.from_numpy(rng.random((n, d)) + 0.5).to(cuda, dtype)
     tid = torch.from_numpy(ids).to(cuda, id_dtype)
     before = segment_reduce.launches
@@ -127,8 +136,9 @@ def test_six_ops_on_the_card_match_the_jax_package(cuda):
 
 
 # flash_attention against its plain version widened to f64: f32 to 2e-5
-# (the JAX kernel tests' bound); bf16 and f16 to 1e-2 (f32 arithmetic, one
-# rounding of the output to 8 or 11 bits)
+# (the JAX kernel tests' bound; 3xTF32 products); bf16 and f16 to 1e-2
+# (exact 16-bit q.k products, p split into two 16-bit halves, one rounding
+# of the output to 8 or 11 bits)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
 
@@ -137,7 +147,8 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 @pytest.mark.parametrize("b,sq,sk,h,d", [(1, 8, 8, 1, 8), (2, 37, 37, 3, 16),
                                          (1, 24, 40, 2, 64),
                                          (1, 40, 24, 2, 128),
-                                         (2, 300, 300, 2, 64)])
+                                         (2, 300, 300, 2, 64),
+                                         (2, 100, 260, 3, 128)])
 def test_flash_kernel_matches_plain_and_is_deterministic(cuda, dtype, causal,
                                                          b, sq, sk, h, d):
     rng = np.random.default_rng(sq + sk + d)

@@ -132,3 +132,78 @@ def test_abstract_inputs_give_shape_only(rng):
     assert tuple(fout.shape) == (1, 4, 2, 16)
     assert fout.dtype == torch.bfloat16
     assert fa.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_launch_plan_fits_shared_memory(d, dtype):
+    plan = fa.plan_launch(d, dtype)
+    assert plan.dmax in (32, 64, 128) and d <= plan.dmax < 2 * max(d, 32)
+    size = torch.empty((), dtype=dtype).element_size()
+    # rows padded by 16 bytes: fragment loads free of bank conflicts
+    assert (plan.row_elems - plan.dmax) * size == 16
+    assert plan.smem_bytes == 5 * 64 * plan.row_elems * size  # Q, 2 K, 2 V
+    assert plan.smem_bytes <= 232_448  # a block's most on the H100
+    with pytest.raises(ValueError, match="head dim"):
+        fa.plan_launch(129, dtype)
+
+
+# The kernel's arithmetic, emulated on the CPU: a TF32 operand is f32 with
+# the low 13 mantissa bits masked off, as the kernel splits a value and as
+# the tensor cores read one.
+def _tf32(x):
+    bits = x.contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(eq, a, b):
+    """An f32 product as three TF32 products summed in f32: a_lo.b_hi +
+    a_hi.b_lo + a_hi.b_hi, each TF32 product exact in f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _emulated_kernel(q, k, v, causal):
+    """flash_attention_reference's algorithm with the kernel's products:
+    3xTF32 for f32; for bf16 and f16, q.k exact in f32 and p split into
+    two halves of the input type against the exact v."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    if q.dtype == torch.float32:
+        scores = _mm_3xtf32("bqhd,bkhd->bhqk", qf, kf) * scale
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        sq, sk = scores.shape[-2:]
+        mask = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+        scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    if q.dtype == torch.float32:
+        return _mm_3xtf32("bhqk,bkhd->bqhd", p, vf)
+    p_hi = p.to(q.dtype).float()
+    p_lo = (p - p_hi).to(q.dtype).float()
+    return (torch.einsum("bhqk,bkhd->bqhd", p_lo, vf)
+            + torch.einsum("bhqk,bkhd->bqhd", p_hi, vf)).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2),
+                                       (torch.float16, 1e-2)], ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [dict(), dict(sq=37), dict(sq=21),
+                                   dict(b=1, sq=24, sk=40, d=8),
+                                   dict(b=1, sq=40, sk=24, d=8),
+                                   dict(b=1, sq=1, sk=33, d=8),
+                                   dict(b=1, sq=300, h=1, d=64),
+                                   dict(b=1, sq=128, h=1, d=128)], ids=str)
+def test_split_products_hold_the_tolerance(rng, dtype, tol, causal, shape):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(rng, **shape))
+    want = flash_attention_reference(q.double(), k.double(), v.double(),
+                                     causal=causal)
+    got = _emulated_kernel(q, k, v, causal)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=tol,
+                               atol=tol)

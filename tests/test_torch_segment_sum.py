@@ -18,7 +18,7 @@ import torch
 from tensorframes_tpu.ops import segment_sum as jax_segment_sum
 from tensorframes_tpu_torch.ops import segment_reduce
 from tensorframes_tpu_torch.ops.segment_reduce import (
-    plan_tiles, segment_sum, segment_sum_reference)
+    plan_sort, segment_sum, segment_sum_reference)
 
 TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5),
        "bfloat16": (2e-2, 2e-2)}
@@ -140,15 +140,141 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("n,d,s,acc", [
     (20_000_000 // 8, 1, 100_000, 8),   # chip_smoke phase 2, per block
     (2_000_000 // 8, 64, 1024, 4),      # chip_smoke phase 3, per block
-    (1, 1, 1, 4), (300, 5, 7, 8), (1000, 200, 3, 4), (50, 64, 100_000, 8)])
-def test_tile_plan_covers_every_row_and_fits(n, d, s, acc):
-    plan = plan_tiles(n, d, s, acc)
-    assert plan.d_tile & (plan.d_tile - 1) == 0 and plan.d_tile <= 64
-    assert plan.d_tile >= min(d, 64)
-    assert plan.s_tile * plan.d_tile * acc <= segment_reduce._TILE_BYTES
-    assert 1 <= plan.s_tile <= s
-    # chunks cover the rows exactly, none empty
-    assert plan.chunks * plan.rows_per_chunk >= n
-    assert (plan.chunks - 1) * plan.rows_per_chunk < n
-    assert plan.chunks * s * d * acc <= max(segment_reduce._PARTIAL_BYTES,
-                                            s * d * acc)
+    (1, 1, 1, 4), (300, 5, 7, 8), (1000, 200, 3, 4), (50, 64, 100_000, 8),
+    (1 << 22, 1, 1 << 27, 4),           # the sort's most passes
+    (2 ** 31 - 1, 1, 2 ** 31 - 1, 8)])  # the largest the kernel takes
+def test_sort_plan_covers_every_row_and_fits(n, d, s, acc):
+    plan = plan_sort(n, d, s, acc)
+    # keys run over [0, s], the sentinel s included: passes follow its bits
+    bits = s.bit_length()
+    assert plan.passes == -(-bits // 9)
+    assert plan.digit_bits * plan.passes >= bits
+    assert 1 <= plan.digit_bits <= 9
+    # each grid the kernel is launched on covers its work, none empty, and
+    # fits the grid's x dimension
+    assert plan.tile == 4096 and plan.tile % 8 == 0
+    assert plan.lanes == (32 if d >= 32 else 8)
+    groups = 256 // plan.lanes  # segments or pieces per block
+    rows = n
+    for k, (hr, hb) in enumerate(zip(plan.head_rows, plan.head_blocks)):
+        assert rows > plan.piece_rows and hr == -(-rows // plan.piece_rows)
+        assert (hb - 1) * groups < hr <= hb * groups
+        rows = hr
+    assert rows <= plan.piece_rows  # the last level is one piece
+    assert len(plan.head_rows) <= 8
+    for blocks, work, per in ((plan.sort_blocks, n, plan.tile),
+                              (plan.offset_blocks, s + 1, 256),
+                              (plan.segment_blocks, s, groups)):
+        assert (blocks - 1) * per < work <= blocks * per
+    for blocks in (plan.sort_blocks, plan.offset_blocks,
+                   plan.segment_blocks) + plan.head_blocks:
+        assert 1 <= blocks <= 2 ** 31 - 1
+    # scratch is O(n) plus the offsets: 16 bytes a row for keys and row
+    # indices, histograms of at most 512 digits per 4096 rows, S + 1
+    # offsets, one partial row per piece at each level; buffers aligned
+    # and disjoint
+    sizes = {k: size for k, (_, size) in plan.layout.items()}
+    assert sizes["keys"] == sizes["idx"] == 8 * n
+    assert sizes["hist"] <= 512 * 4 * plan.sort_blocks
+    assert sizes["offsets"] == 4 * (s + 1)
+    partial_rows = sum(plan.head_rows)
+    # n / piece + n / piece^2 + ..., each rounded up
+    assert (partial_rows - len(plan.head_rows)) * (plan.piece_rows - 1) <= n
+    assert sum(sizes[f"head{k}"] for k in range(len(plan.head_rows))) \
+        == partial_rows * d * acc
+    spans = sorted(plan.layout.values())
+    for (at, size), (nxt, _) in zip(spans, spans[1:] + [(plan.scratch_bytes,
+                                                          0)]):
+        assert at % 256 == 0 and at + size <= nxt
+    assert plan.scratch_bytes <= 16 * n + 2048 * plan.sort_blocks + 2048 \
+        + 4 * (s + 1) + partial_rows * d * acc + 256 * len(plan.layout)
+    # the C struct carries the same numbers; the wrapper's cached pair is
+    # this plan and its struct
+    cached, launch = segment_reduce._planned(n, d, s, acc)
+    assert cached == plan
+    assert (launch.tile, launch.sort_blocks, launch.digit_bits,
+            launch.passes, launch.offset_blocks, launch.lanes, launch.piece,
+            launch.segment_blocks, launch.levels) == (
+        plan.tile, plan.sort_blocks, plan.digit_bits, plan.passes,
+        plan.offset_blocks, plan.lanes, plan.piece_rows,
+        plan.segment_blocks, len(plan.head_rows))
+    levels = len(plan.head_rows)
+    assert list(launch.head_rows)[:levels] == list(plan.head_rows)
+    assert list(launch.head_blocks)[:levels] == list(plan.head_blocks)
+    assert list(launch.at)[:5 + levels] == [at for at, _ in spans]
+
+
+def _climb(a, b, k, piece):
+    for _ in range(k):
+        if a >= b:
+            break
+        a, b = a // piece + 1, (b - 1) // piece + 1
+    return a, b
+
+
+def _tree_sums(keys, vals, s, plan):
+    """The kernel's reduction (head_kernel per level, then segment_kernel)
+    replayed on the CPU over sorted ``keys`` and ``vals`` in sorted order,
+    exact in int64. Partial rows no group writes are poisoned, so reading
+    one fails. Returns each segment's sum and its longest run of terms
+    added at one level."""
+    piece, poison = plan.piece_rows, np.iinfo(np.int64).min
+    offsets = np.searchsorted(keys, np.arange(s + 1), side="left")
+    levels = [vals]
+    for k, rows in enumerate(plan.head_rows):
+        src, dst = levels[-1], np.full(rows, poison, np.int64)
+        for e in range(1, rows):
+            key = keys[e * piece ** (k + 1)]
+            if key >= s:
+                continue
+            a, b = _climb(offsets[key], offsets[key + 1], k, piece)
+            r0 = e * piece
+            if a < r0 < b:
+                dst[e] = src[r0:min(b, r0 + piece)].sum()
+        levels.append(dst)
+    out, longest = np.zeros(s, np.int64), 0
+    for seg in range(s):
+        a, b, k = offsets[seg], offsets[seg + 1], 0
+        while a < b and k <= len(plan.head_rows):
+            end = min(b, (a // piece + 1) * piece)
+            terms = levels[k][a:end]
+            assert (terms != poison).all(), (seg, k, a, end)
+            out[seg] += terms.sum()
+            longest = max(longest, end - a)
+            a, b = _climb(a, b, 1, piece)
+            k += 1
+        assert a >= b, f"segment {seg} has rows past the tree's top"
+    return out, longest
+
+
+@pytest.mark.parametrize("n,d", [(70_001, 64), (2_200_003, 1)])
+@pytest.mark.parametrize("spread", ["random", "hot", "single", "sparse"])
+def test_piece_tree_sums_every_row_once(n, d, spread):
+    # the kernel's level arithmetic at the plan's own pieces (64 rows for
+    # d >= 32, 1,024 below), on two levels of partials or more: every row
+    # of every segment counted once, none of the sentinel's, each level's
+    # chain at most one piece
+    rng = np.random.default_rng(n + len(spread))
+    s = {"single": 1, "sparse": 5000}.get(spread, 700)
+    ids = rng.integers(-1, s + 2, n)
+    if spread == "hot":
+        ids = np.where(rng.random(n) < 0.9, s // 2, ids)
+    elif spread == "single":
+        ids = np.zeros(n, np.int64)
+    plan = plan_sort(n, d, s, 8)
+    assert len(plan.head_rows) >= 2
+    keys = np.where((ids >= 0) & (ids < s), ids, s)
+    order = np.argsort(keys, kind="stable")
+    vals = rng.integers(0, 1 << 20, n)
+    got, longest = _tree_sums(keys[order], vals[order], s, plan)
+    valid = keys < s
+    want = np.bincount(keys[valid], weights=vals[valid], minlength=s)
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    assert longest <= plan.piece_rows
+
+
+@pytest.mark.parametrize("n,s", [(2 ** 31, 10), (10, 2 ** 31), (0, 3),
+                                 (3, 0)])
+def test_sort_plan_refuses_what_the_kernel_cannot_index(n, s):
+    with pytest.raises(ValueError):
+        plan_sort(n, 1, s, 4)
