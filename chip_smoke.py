@@ -14,6 +14,17 @@ paths through its public entry points and checks every result:
    int64 key with 100,000 distinct values, against numpy f64 to rtol 1e-12;
 3. the k-means centre update: ``aggregate({"f": "sum"})`` over a 2M x 64
    f32 vector column grouped by 1,024 keys, against numpy f64 to rtol 1e-5;
+3b. the lazy query path from a file: the 20M-row workload written with
+   pyarrow to ``build/data/`` (20 row groups of 1M rows; ``ts`` the row
+   index, ``key`` in [0, 100,000), ``x``, ``y`` and two columns nothing
+   reads), then ``read_parquet`` -> ``map_blocks`` of the DSL's
+   ``block(x) + block(y)`` -> ``filter(ts >= 10M)`` -> ``map_rows(w = z *
+   2)`` -> ``select`` -> ``aggregate({"w": "sum"})`` by ``key``, once
+   through the logical plan (cold), then three times under ``TFT_FUSE=0``
+   and three times fused, alternating, for their walls: the fused run
+   reads 4 of 6 columns and 10 of 20 row groups, dispatches once per stage
+   and non-empty block and converts host->device once per block; all
+   agree bit for bit and with numpy f64 ``bincount`` to rtol 1e-12;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -33,7 +44,7 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3 for
+with each kernel's launches during its main path (phases 1-3b for
 segment_sum, phase 4 for flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
@@ -150,6 +161,209 @@ def phase_kmeans(ttf, np, n=2_000_000, d=64, parts=8, keys=1024) -> dict:
     return {"rows": n, "width": d, "partitions": parts, "keys": keys,
             "aggregate_wall_s": t_agg,
             "max_rel_err": float(np.max(np.abs(cols["f"] - want) / want))}
+
+
+def scan_file(np, n, groups, keys, seed) -> tuple:
+    """The plan phase's parquet file under ``build/data/`` (gitignored),
+    written from ``seed`` unless a file with the same parameters (kept in
+    its key-value metadata) is there. Row group ``g`` holds rows
+    ``[g * n / groups, (g + 1) * n / groups)``: ``ts`` int64 equal to the
+    row index (sorted, so row-group min/max can refute a time range),
+    ``key`` int64 uniform in [0, keys), ``x``, ``y``, ``a``, ``b`` f64
+    uniform in [0, 1); ``a`` and ``b`` are read by nothing. Returns the
+    path and the seconds spent writing (0 when reused)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    params = json.dumps({"rows": n, "groups": groups, "keys": keys,
+                         "seed": seed, "layout": 1}, sort_keys=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "data")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"plan_scan_{n}x{groups}_{keys}_{seed}.parquet")
+    if os.path.exists(path):
+        meta = pq.read_metadata(path).metadata or {}
+        if meta.get(b"chip_smoke") == params.encode():
+            return path, 0.0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    per = n // groups
+    schema = pa.schema([("ts", pa.int64()), ("key", pa.int64()),
+                        ("x", pa.float64()), ("y", pa.float64()),
+                        ("a", pa.float64()), ("b", pa.float64())],
+                       metadata={"chip_smoke": params})
+    tmp = path + ".tmp"
+    with pq.ParquetWriter(tmp, schema) as writer:
+        for g in range(groups):
+            cols = {"ts": np.arange(g * per, (g + 1) * per, dtype=np.int64),
+                    "key": rng.integers(0, keys, per)}
+            for c in ("x", "y", "a", "b"):
+                cols[c] = rng.random(per)
+            writer.write_table(pa.table(cols, schema=schema),
+                               row_group_size=per)
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t0
+
+
+# the order of the timed runs after the first (cold) fused one: True is
+# fused, False per-op (TFT_FUSE=0); three of each
+TIMED_ORDER = (False, True, True, False, False, True)
+
+
+def phase_plan_parquet(ttf, np, torch, segment_reduce, n=20_000_000,
+                       groups=20, keys=100_000, seed=11) -> dict:
+    """The lazy query path over a parquet file, fused and under
+    ``TFT_FUSE=0`` (see the module docstring, phase 3b)."""
+    import pyarrow.parquet as pq
+
+    from tensorframes_tpu_torch.plan.optimize import build_plan
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    path, write_s = scan_file(np, n, groups, keys, seed)
+    cut = n // 2  # ts >= cut keeps the second half of the row groups
+
+    # the reference, straight from the file with pyarrow and numpy
+    t0 = time.perf_counter()
+    tbl = pq.read_table(path, columns=["ts", "key", "x", "y"])
+    ts, key = tbl.column("ts").to_numpy(), tbl.column("key").to_numpy()
+    kept = ts >= cut
+    w = (tbl.column("x").to_numpy()[kept] + tbl.column("y").to_numpy()[kept]) \
+        * 2.0
+    want = np.bincount(key[kept], weights=w, minlength=keys)
+    want_keys = np.flatnonzero(np.bincount(key[kept], minlength=keys))
+    del tbl, ts, key, kept, w
+    reference_s = time.perf_counter() - t0
+    md = pq.read_metadata(path)
+    per_group = [{md.row_group(g).column(j).path_in_schema:
+                  md.row_group(g).column(j).total_uncompressed_size
+                  for j in range(md.num_columns)} for g in range(groups)]
+    read_cols = ("ts", "key", "x", "y")
+    fused_bytes = sum(per_group[g][c] for g in range(groups // 2, groups)
+                      for c in read_cols)
+    all_bytes = sum(sum(pg.values()) for pg in per_group)
+
+    def query():
+        df = ttf.read_parquet(path)
+        with ttf.dsl.with_graph():
+            z = (ttf.block(df, "x") + ttf.block(df, "y")).named("z")
+        return (df.map_blocks(z)
+                  .filter(lambda ts: ts >= cut)
+                  .map_rows(lambda z: {"w": z * 2.0})
+                  .select(["key", "w"]))
+
+    names = ("plan.fused_queries",
+             "io.parquet_row_groups_read", "io.parquet_bytes_read",
+             "plan.pushdown_groups_skipped")
+
+    def run(fuse: bool) -> dict:
+        prior = os.environ.get("TFT_FUSE")
+        os.environ["TFT_FUSE"] = "1" if fuse else "0"
+        try:
+            c0 = {k: counters.get(k) for k in names}
+            s0 = tracing.timings.snapshot()
+            l0 = segment_reduce.launches
+            t0 = time.perf_counter()
+            chain = query()
+            plan = build_plan(chain) if fuse else None
+            agg = ttf.aggregate({"w": "sum"}, chain.group_by("key"))
+            cols = agg.blocks()[0].columns
+            wall = time.perf_counter() - t0
+        finally:
+            if prior is None:
+                del os.environ["TFT_FUSE"]
+            else:
+                os.environ["TFT_FUSE"] = prior
+        s1 = tracing.timings.snapshot()
+        spans = {k: {"count": v["count"] - s0.get(k, {}).get("count", 0),
+                     "total_s": v["total_s"] - s0.get(k, {}).get("total_s",
+                                                                   0.0)}
+                 for k, v in s1.items()
+                 if v["count"] > s0.get(k, {}).get("count", 0)}
+        blocks = chain.blocks()  # the forced (cached) chain
+        return {"cols": cols, "plan": plan, "chain": chain,
+                "nonempty": sum(1 for b in blocks if b.num_rows),
+                "blocks": len(blocks), "wall_s": wall,
+                "counts": {k: counters.get(k) - c0[k] for k in names},
+                "launches": segment_reduce.launches - l0, "spans": spans}
+
+    # the first fused run also pays the one-time import and tracing of
+    # the plan's proofs; then per-op and warm fused runs alternate
+    # (per-op, fused, fused, per-op, ...) so that neither side always
+    # runs later than the other
+    fused = run(True)
+    timed = {True: [], False: []}
+    for fuse in TIMED_ORDER:
+        r = run(fuse)
+        if timed[fuse]:
+            del r["chain"], r["plan"]  # free its forced blocks
+        timed[fuse].append(r)
+    unfused, again = timed[False][0], timed[True][0]
+    fc, uc = fused["counts"], unfused["counts"]
+    plan = fused["plan"]
+    assert plan is not None and fused["chain"]._plan_info, \
+        "the chain did not take the fused path"
+    assert unfused["chain"]._plan_info is None
+    assert fc["plan.fused_queries"] == 1 and uc["plan.fused_queries"] == 0, \
+        (fc, uc)
+    assert plan.leaf_required == read_cols, plan.leaf_required
+    assert fc["io.parquet_row_groups_read"] == groups // 2, fc
+    assert fc["io.parquet_bytes_read"] == fused_bytes, (fc, fused_bytes)
+    assert fc["plan.pushdown_groups_skipped"] == groups // 2, fc
+    assert uc["io.parquet_row_groups_read"] == groups, uc
+    assert uc["io.parquet_bytes_read"] == all_bytes, (uc, all_bytes)
+    nonempty = fused["nonempty"]
+    assert nonempty == groups // 2 and fused["blocks"] == groups
+    spans = fused["spans"]
+    stages = len(plan.stages)
+    # one host->device conversion per non-empty block; one dispatch per
+    # stage and block, where the per-op path dispatches once per op and
+    # block
+    assert spans["executor.convert"]["count"] == nonempty, spans
+    assert spans["executor.dispatch"]["count"] == stages * nonempty, spans
+    assert unfused["spans"]["executor.dispatch"]["count"] == \
+        2 * groups + nonempty, unfused["spans"]
+    for r in (fused, unfused):
+        assert r["launches"] > 0, "aggregate never launched segment_sum"
+        np.testing.assert_array_equal(r["cols"]["key"], want_keys)
+        assert r["cols"]["w"].dtype == np.float64
+    np.testing.assert_allclose(fused["cols"]["w"], want[want_keys],
+                               rtol=1e-12)
+    assert np.array_equal(fused["cols"]["w"], unfused["cols"]["w"]), \
+        "fused and TFT_FUSE=0 differ"
+    for r in timed[True] + timed[False]:
+        assert np.array_equal(fused["cols"]["w"], r["cols"]["w"])
+    walls = {fuse: sorted(r["wall_s"] for r in timed[fuse])
+             for fuse in timed}
+    keep = ("plan.execute", "executor.convert", "executor.dispatch",
+            "executor.convert_back", "io.parquet_read",
+            "aggregate.factorize_keys", "aggregate.segment_reduce")
+    return {"source": "parquet", "rows": n, "row_groups": groups,
+            "keys": keys, "kept_rows": n - cut, "file_write_s": write_s,
+            "reference_s": reference_s, "stages": stages,
+            "plan": fused["chain"]._plan_info,
+            "fused_cold_wall_s": fused["wall_s"],
+            "timed_order": ["fused" if f else "per_op" for f in TIMED_ORDER],
+            "fused_walls_s": [r["wall_s"] for r in timed[True]],
+            "unfused_walls_s": [r["wall_s"] for r in timed[False]],
+            "fused_median_s": walls[True][len(walls[True]) // 2],
+            "unfused_median_s": walls[False][len(walls[False]) // 2],
+            "read": {"fused": {"row_groups": fc["io.parquet_row_groups_read"],
+                               "bytes": fc["io.parquet_bytes_read"],
+                               "columns": list(plan.leaf_required)},
+                     "unfused": {"row_groups":
+                                 uc["io.parquet_row_groups_read"],
+                                 "bytes": uc["io.parquet_bytes_read"]}},
+            "segment_sum_launches": {"fused": fused["launches"],
+                                     "unfused": unfused["launches"]},
+            "spans_fused": {k: v for k, v in spans.items() if k in keep},
+            "spans_unfused": {k: v for k, v in unfused["spans"].items()
+                              if k in keep},
+            "spans_fused_again": {k: v for k, v in again["spans"].items()
+                                  if k in keep},
+            "max_rel_err": float(np.max(np.abs(fused["cols"]["w"]
+                                               - want[want_keys])
+                                        / np.abs(want[want_keys])))}
 
 
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
@@ -545,14 +759,17 @@ def time_flash(np, torch, fa, dtype, flush, b=8, s=2048, h=8, d=64,
 
 def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     """Each kernel timed at its main paths' shapes: segment_sum on one
-    block of phase 2 (f64, S = 100,000) and of phase 3 (f32 x 64,
-    S = 1,024), flash_attention at the transformer's [8, 2048, 8, 64]
-    causal in f32 (the model's) and bf16."""
+    block of phase 2 (f64, S = 100,000), of phase 3 (f32 x 64,
+    S = 1,024) and of phase 3b (a 1M-row row group, f64, S = 100,000),
+    flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
+    (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     shapes = [time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
                                100_000, torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
-                               1024, torch.float32, flush)]
+                               1024, torch.float32, flush),
+              time_segment_sum(np, torch, segment_reduce, 1_000_000, 1,
+                               100_000, torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -638,7 +855,9 @@ def main(argv=None) -> int:
         ("readme_x_plus_3", lambda: phase_readme(ttf, np)),
         ("reference_workload_20M",
          lambda: phase_reference_workload(ttf, np, torch)),
-        ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np))),
+        ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np)),
+        ("plan_parquet_20M",
+         lambda: phase_plan_parquet(ttf, np, torch, segment_reduce))),
         counters)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"

@@ -9,6 +9,12 @@ hand-written CUDA kernel (``ops/segment_reduce.py``, ``csrc/segment_sum.cu``).
 through a second one (``ops/flash_attention.py``,
 ``csrc/flash_attention.cu``).
 
+Lazy chains are forced through the logical plan (``plan/``): adjacent ops
+fuse into one dispatch per block, and a frame from :func:`read_parquet`
+reads only the columns and row groups the chain needs (``TFT_FUSE=0``
+runs every op on its own). The DSL (``dsl``, with :func:`block` and
+:func:`row`) builds programs without writing PyTorch.
+
 The entry points run on ``cuda`` unless the caller asks for the CPU, with
 :func:`set_default_device` or ``executor=BlockExecutor(device="cpu")``.
 This package imports neither ``jax`` nor ``tensorframes_tpu``.
@@ -27,9 +33,14 @@ from .frame import Block, GroupedFrame, Row, TensorFrame
 from .computation import Computation, TensorSpec, analyze_graph
 from .engine.executor import BlockExecutor
 from .api import (
-    aggregate, analyze, explain, filter_rows, frame, map_blocks, map_rows,
-    print_schema, reduce_blocks, reduce_rows,
+    aggregate, analyze, block, explain, filter_rows, frame, map_blocks,
+    map_rows, print_schema, reduce_blocks, reduce_rows, row,
 )
+from .io import (from_pandas, read_csv, read_npz, read_parquet, to_pandas,
+                 write_csv, write_npz, write_parquet)
+from . import dsl
+from . import io
+from . import plan
 from . import interop
 from . import ops
 from . import models
@@ -58,6 +69,19 @@ __all__ = [
     "print_schema",
     "explain",
     "frame",
+    "block",
+    "row",
+    "read_parquet",
+    "write_parquet",
+    "from_pandas",
+    "to_pandas",
+    "read_npz",
+    "write_npz",
+    "read_csv",
+    "write_csv",
+    "dsl",
+    "io",
+    "plan",
     "utils",
     "interop",
     "ops",

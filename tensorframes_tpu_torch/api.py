@@ -2,20 +2,20 @@
 
 The port's counterpart of ``tensorframes_tpu/api.py``: ``map_blocks``,
 ``map_rows``, ``filter_rows``, ``reduce_blocks``, ``reduce_rows``,
-``aggregate``, ``analyze``, ``print_schema``, ``explain``, ``frame``.
+``aggregate``, ``analyze``, ``print_schema``, ``explain``, ``frame``, and
+the DSL's frame-derived placeholders ``block`` and ``row``.
 
-- *fetches* are PyTorch callables over named tensors, or
-  :class:`~.computation.Computation` objects;
+- *fetches* are PyTorch callables over named tensors, DSL nodes (one or a
+  list), or :class:`~.computation.Computation` objects;
 - reduce results unpack to numpy: one array for a single fetch, a list for
   several.
 
-``submit`` (the serving layer), ``block`` and ``row`` (the DSL) are not in
-this package yet.
+``submit`` (the serving layer) is not in this package yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -26,7 +26,8 @@ from .frame import GroupedFrame, TensorFrame, frame
 
 __all__ = [
     "map_blocks", "map_rows", "reduce_blocks", "reduce_rows", "aggregate",
-    "filter_rows", "analyze", "print_schema", "explain", "frame",
+    "filter_rows", "analyze", "print_schema", "explain", "frame", "block",
+    "row",
 ]
 
 
@@ -101,3 +102,31 @@ def aggregate(fetches, grouped_data: GroupedFrame,
     fetch columns appended to the key columns."""
     return _ops.aggregate(fetches, grouped_data, buffer_size=buffer_size,
                           executor=executor)
+
+
+def block(df: TensorFrame, col_name: str, tf_name: Optional[str] = None):
+    """DSL placeholder shaped like **blocks** of a column.
+
+    The leading dimension is always unknown: a block's row count varies and
+    may be zero on empty partitions (reference ``core.py:302-315,
+    350-355``).
+    """
+    from . import dsl as _dsl
+    from .shape import Unknown
+    field = df.schema.get(col_name)
+    if field is None:
+        raise ValueError(f"Could not find column with name {col_name!r}")
+    shape = _ops._field_spec(field, True, "block placeholder") \
+        .with_lead(Unknown)
+    return _dsl.placeholder(field.dtype, shape, name=tf_name or col_name)
+
+
+def row(df: TensorFrame, col_name: str, tf_name: Optional[str] = None):
+    """DSL placeholder shaped like **one row** of a column
+    (reference ``core.py:317-330``)."""
+    from . import dsl as _dsl
+    field = df.schema.get(col_name)
+    if field is None:
+        raise ValueError(f"Could not find column with name {col_name!r}")
+    shape = _ops._field_spec(field, False, "row placeholder")
+    return _dsl.placeholder(field.dtype, shape, name=tf_name or col_name)

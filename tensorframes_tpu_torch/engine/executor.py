@@ -8,7 +8,12 @@ their columns' storage dtypes.
 
 The JAX package pads the row dim to power-of-two buckets only to bound XLA
 recompiles of a program per block size. Eager PyTorch compiles nothing per
-shape, so :func:`default_padding_executor` returns the plain executor.
+shape, so :func:`default_padding_executor` returns the plain executor, and
+``run`` / ``submit`` take no ``pad_ok``.
+
+``keep_device=True`` returns the outputs as device tensors (the logical
+plan chains its stages on them), and a ``torch.Tensor`` passed as an input
+is used where it lies: no copy to the host and no second H2D copy.
 
 Not in this package yet: the compile-cache interner, retries, the
 memory-manager admission and the OOM split of the JAX package.
@@ -16,6 +21,7 @@ memory-manager admission and the OOM split of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Mapping, Optional, Union
 
@@ -44,7 +50,11 @@ def to_device(a, dtype: torch.dtype, device: torch.device,
               pin: bool = False) -> torch.Tensor:
     """One host column as a tensor of ``dtype`` on ``device``. The dtype
     cast runs on the device, after the copy. ``pin`` stages the copy
-    through pinned host memory so that it is asynchronous."""
+    through pinned host memory so that it is asynchronous. A tensor
+    already on ``device`` is only cast."""
+    if isinstance(a, torch.Tensor):
+        t = a if a.device == device else a.to(device)
+        return t if t.dtype == dtype else t.to(dtype)
     a = np.asarray(a)
     if not a.flags.writeable or not a.flags.c_contiguous:
         a = np.ascontiguousarray(a) if a.flags.writeable else a.copy()
@@ -83,16 +93,24 @@ class PendingBlock:
     PyTorch's caching host allocator, which does not hand a buffer out
     again before the copies queued on it have run.)"""
 
-    __slots__ = ("_comp", "_inputs", "_host", "_event")
+    __slots__ = ("_comp", "_inputs", "_host", "_event", "_device_out")
 
     def __init__(self, comp: Computation, inputs, host: Dict[str, torch.Tensor],
-                 event: Optional[torch.cuda.Event]):
+                 event: Optional[torch.cuda.Event],
+                 device_out: Optional[Dict[str, torch.Tensor]] = None):
         self._comp = comp
         self._inputs = inputs
         self._host = host
         self._event = event
+        self._device_out = device_out
 
-    def drain(self) -> Dict[str, np.ndarray]:
+    def drain(self) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+        """Host arrays in storage dtypes, or, for a ``keep_device``
+        submit, the device outputs (no wait: the stream orders later
+        work on them)."""
+        if self._device_out is not None:
+            out, self._device_out, self._inputs = self._device_out, None, None
+            return out
         if self._event is not None:
             self._event.synchronize()
         result = {}
@@ -120,7 +138,12 @@ class BlockExecutor:
 
     def _inputs(self, comp: Computation, arrays: Mapping, device,
                 pin: bool) -> Dict[str, torch.Tensor]:
-        with span("executor.convert"):
+        # the convert span times host->device work; inputs that are all
+        # device tensors already (a later plan stage) open none
+        resident = all(isinstance(arrays[s.name], torch.Tensor)
+                       for s in comp.inputs)
+        with contextlib.nullcontext() if resident \
+                else span("executor.convert"):
             return {s.name: to_device(arrays[s.name],
                                       _dt.device_dtype(s.dtype), device,
                                       pin=pin)
@@ -132,25 +155,36 @@ class BlockExecutor:
         _check_outputs(comp, out)
         return out
 
-    def run(self, comp: Computation, arrays: Mapping[str, np.ndarray]
-            ) -> Dict[str, np.ndarray]:
-        """Run a computation on host arrays; returns host arrays in the
-        outputs' storage dtypes."""
+    def run(self, comp: Computation, arrays: Mapping[str, np.ndarray],
+            keep_device: bool = False
+            ) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+        """Run a computation on host arrays (or device tensors); returns
+        host arrays in the outputs' storage dtypes, or with
+        ``keep_device`` the device outputs."""
         device = self.resolve()
         out = self._call(comp, self._inputs(comp, arrays, device, pin=False))
+        if keep_device:
+            return {s.name: out[s.name] for s in comp.outputs}
         with span("executor.convert_back"):
             return {s.name: to_storage_dtype(to_host(out[s.name]), s.dtype)
                     for s in comp.outputs}
 
-    def submit(self, comp: Computation, arrays: Mapping[str, np.ndarray]
+    def submit(self, comp: Computation, arrays: Mapping[str, np.ndarray],
+               keep_device: bool = False
                ) -> PendingBlock:
         """Asynchronous half of :meth:`run`: pinned non-blocking H2D
         copies, the launch, and non-blocking D2H copies into pinned
-        buffers, with no host wait. On the CPU it runs synchronously."""
+        buffers, with no host wait. With ``keep_device`` the outputs stay
+        on the device and ``drain()`` returns them. On the CPU it runs
+        synchronously."""
         device = self.resolve()
         cuda = device.type == "cuda"
         dev = self._inputs(comp, arrays, device, pin=cuda)
         out = self._call(comp, dev)
+        if keep_device:
+            return PendingBlock(comp, dev, {}, None,
+                                device_out={s.name: out[s.name]
+                                            for s in comp.outputs})
         host = {}
         for spec in comp.outputs:
             t = _host_view(out[spec.name])

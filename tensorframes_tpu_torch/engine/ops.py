@@ -17,11 +17,14 @@ user-visible contracts, validation and error messages:
   (float sums through the CUDA ``segment_sum`` kernel on a GPU); the
   computation form reduces each group through a :class:`CompactionBuffer`.
 
-User computations are PyTorch functions run eagerly on the executor's
-device; ``map_rows`` vectorizes them with ``torch.func.vmap`` and
-``reduce_rows`` folds a partition with a Python loop. Not in this package
-yet: the DSL, the logical plan, the single-program segmented fold of the
-computation-form ``aggregate`` and the sketch combiners.
+User computations are PyTorch functions (or DSL nodes, ``dsl/``) run
+eagerly on the executor's device; ``map_rows`` vectorizes them with
+``torch.func.vmap`` and ``reduce_rows`` folds a partition with a Python
+loop. The lazy ops also record a logical-plan node on their result
+(``plan/nodes.py``) unless an explicit ``executor=`` pins the per-op path,
+and ``filter_rows`` records each forcing's observed selectivity on its
+predicate. Not in this package yet: the single-program segmented fold of
+the computation-form ``aggregate`` and the sketch combiners.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from .. import dtypes as _dt
 from ..computation import Computation, TensorSpec
+from ..memory.estimate import propagate_hints
 from ..frame import Block, GroupedFrame, TensorFrame
 from ..marshal import Column
 from ..ops.segment_reduce import segment_sum as _segment_sum
@@ -108,10 +112,19 @@ def _field_spec(field: Field, block_level: bool, context: str) -> Shape:
     return field.block_shape if block_level else field.block_shape.tail
 
 
+def _is_dsl(fetches) -> bool:
+    if isinstance(fetches, (list, tuple)) and fetches:
+        fetches = fetches[0]
+    return hasattr(fetches, "_tft_dsl_node")
+
+
 def _map_computation(fetches: Fetches, schema: Schema,
                      block_level: bool) -> Computation:
     if isinstance(fetches, Computation):
         return fetches
+    if _is_dsl(fetches):
+        from ..dsl import lower as _dsl_lower
+        return _dsl_lower.nodes_to_computation(fetches, schema, block_level)
     if callable(fetches):
         names = _callable_input_names(fetches)
         specs = []
@@ -134,6 +147,10 @@ def _reduce_computation(fetches: Fetches, schema: Schema,
     names + naming-contract suffixes ('_input' or '_1'/'_2')."""
     if isinstance(fetches, Computation):
         return fetches
+    if _is_dsl(fetches):
+        from ..dsl import lower as _dsl_lower
+        return _dsl_lower.nodes_to_reduce_computation(
+            fetches, schema, suffixes, block_level)
     if callable(fetches):
         names = _callable_input_names(fetches)
         specs = []
@@ -403,10 +420,19 @@ def map_blocks(fetches: Fetches, df: TensorFrame, trim: bool = False,
         arrays = {n: b.dense(n) for n in in_names}
         return _pipeline.submit(ex, comp, arrays)
 
-    return TensorFrame(out_schema,
-                       _stream_thunk(df, ex, run_block, submit_block,
-                                     _drain_with(finish_block)),
-                       df.num_partitions, plan=f"map_blocks({df._plan})")
+    rows_h, bytes_h = propagate_hints(df, out_schema)
+    out = TensorFrame(out_schema,
+                      _stream_thunk(df, ex, run_block, submit_block,
+                                    _drain_with(finish_block)),
+                      df.num_partitions, plan=f"map_blocks({df._plan})",
+                      rows_hint=None if trim else rows_h,
+                      bytes_hint=None if trim else bytes_h)
+    if executor is None:
+        # the logical-plan node; an explicit executor= pins the per-op
+        # path, so no node is attached
+        from ..plan.nodes import MapBlocksNode, attach, node_for
+        attach(out, MapBlocksNode(node_for(df), out_schema, comp, trim))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -495,10 +521,16 @@ def map_rows(fetches: Fetches, df: TensorFrame,
         arrays = {n: b.dense(n) for n in in_names}
         return _pipeline.submit(ex, vcomp, arrays)
 
-    return TensorFrame(out_schema,
-                       _stream_thunk(df, ex, run_block, submit_block,
-                                     _drain_with(attach_outputs)),
-                       df.num_partitions, plan=f"map_rows({df._plan})")
+    rows_h, bytes_h = propagate_hints(df, out_schema)
+    out = TensorFrame(out_schema,
+                      _stream_thunk(df, ex, run_block, submit_block,
+                                    _drain_with(attach_outputs)),
+                      df.num_partitions, plan=f"map_rows({df._plan})",
+                      rows_hint=rows_h, bytes_hint=bytes_h)
+    if executor is None:
+        from ..plan.nodes import MapRowsNode, attach, node_for
+        attach(out, MapRowsNode(node_for(df), out_schema, comp, vcomp))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +579,10 @@ def filter_rows(predicate: Fetches, df: TensorFrame,
                 f"filter predicate produced shape {mask.shape} for a "
                 f"{b.num_rows}-row block")
         keep = int(mask.sum())
+        # feedback selectivity: the per-op path observes too, so chains
+        # that never fuse still sharpen their plan estimates
+        from ..plan.nodes import record_selectivity
+        record_selectivity(comp, b.num_rows, keep)
         if keep == b.num_rows:
             return b
         cols: Dict[str, Column] = {}
@@ -571,10 +607,17 @@ def filter_rows(predicate: Fetches, df: TensorFrame,
         arrays = {n: b.dense(n) for n in in_names}
         return _pipeline.submit(ex, comp, arrays)
 
-    return TensorFrame(df.schema,
-                       _stream_thunk(df, ex, run_block, submit_block,
-                                     _drain_with(apply_mask)),
-                       df.num_partitions, plan=f"filter_rows({df._plan})")
+    # the hint is an upper bound: a filter keeps at most its input
+    rows_h, bytes_h = propagate_hints(df, df.schema)
+    out = TensorFrame(df.schema,
+                      _stream_thunk(df, ex, run_block, submit_block,
+                                    _drain_with(apply_mask)),
+                      df.num_partitions, plan=f"filter_rows({df._plan})",
+                      rows_hint=rows_h, bytes_hint=bytes_h)
+    if executor is None:
+        from ..plan.nodes import FilterNode, attach, node_for
+        attach(out, FilterNode(node_for(df), df.schema, comp))
+    return out
 
 
 # ---------------------------------------------------------------------------

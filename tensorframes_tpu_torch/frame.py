@@ -14,9 +14,17 @@ Ragged columns (rows holding vectors of varying length) are stored as lists
 of per-row arrays, because ``map_rows`` must handle them. Dense block
 materialization of a ragged column raises.
 
-Not in this package yet: the logical plan, the plan-fingerprint result
-cache, the memory manager and the query traces that the JAX package hooks
-into ``blocks()``.
+Every lazy op also records a logical-plan node on its result
+(``plan/nodes.py``), and ``blocks()`` first offers the chain to the plan
+(``plan.maybe_run``): fused stages, pruned parquet reads, device-resident
+intermediates. ``TFT_FUSE=0`` leaves the per-op thunk chain, which is also
+the fallback for any chain the plan cannot prove. Size hints (exact at the
+source constructors, scaled through the ops) answer ``estimated_rows`` /
+``estimated_bytes`` for unforced frames.
+
+Not in this package yet: the plan-fingerprint result cache, the memory
+manager and the query traces that the JAX package also hooks into
+``blocks()``.
 """
 
 from __future__ import annotations
@@ -166,6 +174,19 @@ def _infer_schema_from_rows(rows: Sequence[Sequence],
     return Schema(fields)
 
 
+def _blocks_hints(blocks: Sequence[Block]) -> Dict[str, object]:
+    """Exact size hints for a source frame whose blocks already exist,
+    with the per-column split the plan cost model seeds from."""
+    from .memory.estimate import blocks_estimate, column_nbytes
+    rows, nbytes = blocks_estimate(blocks)
+    col_bytes: Dict[str, int] = {}
+    for b in blocks:
+        for name, col in b.columns.items():
+            col_bytes[name] = col_bytes.get(name, 0) + column_nbytes(col)
+    return {"rows_hint": rows, "bytes_hint": nbytes,
+            "col_bytes_hint": col_bytes}
+
+
 def _split_even(n: int, parts: int) -> List[Tuple[int, int]]:
     """Split n rows into at most ``parts`` non-empty spans (Spark-style:
     never more partitions than rows)."""
@@ -189,12 +210,26 @@ class TensorFrame:
     def __init__(self, schema: Schema,
                  thunk: Callable[[], List[Block]],
                  num_partitions: int,
-                 plan: str = "source"):
+                 plan: str = "source",
+                 rows_hint: Optional[int] = None,
+                 bytes_hint: Optional[int] = None,
+                 col_bytes_hint: Optional[Dict[str, int]] = None):
         self._schema = schema
         self._thunk = thunk
         self._cache: Optional[List[Block]] = None
         self._num_partitions = num_partitions
         self._plan = plan
+        # size hints: exact at source constructors, scaled through ops;
+        # None means unknown
+        self._rows_hint = rows_hint
+        self._bytes_hint = bytes_hint
+        self._col_bytes_hint = col_bytes_hint
+        # logical plan: the node a lazy op recorded (plan/nodes.py), and
+        # the optimized plan's rendering after a fused forcing
+        self._plan_node = None
+        self._plan_info: Optional[List[str]] = None
+        # host spans of the last forcing made with tracing on (explain)
+        self._spans: Optional[Dict[str, Dict[str, float]]] = None
 
     # -- construction ------------------------------------------------------
     @staticmethod
@@ -208,7 +243,8 @@ class TensorFrame:
             schema = _infer_schema_from_rows(rows, columns)
         spans = _split_even(len(rows), num_partitions)
         blocks = [Block.from_rows(rows[a:b], schema) for a, b in spans]
-        return TensorFrame(schema, lambda: blocks, len(blocks))
+        return TensorFrame(schema, lambda: blocks, len(blocks),
+                           **_blocks_hints(blocks))
 
     @staticmethod
     def from_columns(cols: Dict[str, np.ndarray],
@@ -224,11 +260,13 @@ class TensorFrame:
         spans = _split_even(n, num_partitions)
         blocks = [Block({k: v[a:b] for k, v in cols.items()}, b - a)
                   for a, b in spans]
-        return TensorFrame(schema, lambda: blocks, len(blocks))
+        return TensorFrame(schema, lambda: blocks, len(blocks),
+                           **_blocks_hints(blocks))
 
     @staticmethod
     def from_blocks(blocks: List[Block], schema: Schema) -> "TensorFrame":
-        return TensorFrame(schema, lambda: blocks, len(blocks))
+        return TensorFrame(schema, lambda: blocks, len(blocks),
+                           **_blocks_hints(blocks))
 
     # -- basic properties --------------------------------------------------
     @property
@@ -250,7 +288,20 @@ class TensorFrame:
     # -- evaluation --------------------------------------------------------
     def blocks(self) -> List[Block]:
         if self._cache is None:
-            self._cache = self._thunk()
+            from .utils import tracing
+            before = tracing.timings.snapshot() if tracing.enabled() \
+                else None
+            blocks = None
+            if self._plan_node is not None:
+                # the logical plan first: fused stages, pruned reads,
+                # device-resident intermediates; None (fusion off or an
+                # unplannable chain) defers to the per-op thunk
+                from .plan import maybe_run
+                blocks = maybe_run(self)
+            self._cache = blocks if blocks is not None else self._thunk()
+            if before is not None:
+                self._spans = _span_delta(before,
+                                          tracing.timings.snapshot())
         return self._cache
 
     def uncache(self) -> "TensorFrame":
@@ -258,6 +309,21 @@ class TensorFrame:
         thunk chain. The inverse of :meth:`cache`."""
         self._cache = None
         return self
+
+    def estimated_rows(self) -> Optional[int]:
+        """Best-effort row count: exact when forced, the plan's estimate
+        or the hint otherwise, ``None`` when unknown."""
+        from .memory.estimate import frame_estimate
+        rows, _ = frame_estimate(self)
+        return int(rows) if rows is not None else None
+
+    def estimated_bytes(self) -> Optional[int]:
+        """Best-effort host byte size: exact when forced, the plan's
+        per-column estimate (an upper bound through filters) or the hint
+        otherwise, ``None`` when unknown."""
+        from .memory.estimate import frame_estimate
+        _, nbytes = frame_estimate(self)
+        return nbytes
 
     def collect(self) -> List[Row]:
         names = self._schema.names
@@ -287,9 +353,15 @@ class TensorFrame:
     def select(self, names: Sequence[str]) -> "TensorFrame":
         names = list(names)
         schema = self._schema.select(names)
-        return TensorFrame(
+        from .memory.estimate import propagate_hints
+        rows_h, bytes_h = propagate_hints(self, schema)
+        out = TensorFrame(
             schema, lambda: [b.select(names) for b in self.blocks()],
-            self._num_partitions, plan=f"select({self._plan})")
+            self._num_partitions, plan=f"select({self._plan})",
+            rows_hint=rows_h, bytes_hint=bytes_h)
+        from .plan.nodes import SelectNode, attach, node_for
+        attach(out, SelectNode(node_for(self), schema, names))
+        return out
 
     def with_schema(self, schema: Schema) -> "TensorFrame":
         """Same data, refined metadata (used by ``analyze``)."""
@@ -312,8 +384,11 @@ class TensorFrame:
                 out.append(Block(cols, b - a))
             return out
 
+        from .memory.estimate import propagate_hints
+        rows_h, bytes_h = propagate_hints(self, self._schema)
         return TensorFrame(self._schema, thunk, n,
-                           plan=f"repartition({self._plan})")
+                           plan=f"repartition({self._plan})",
+                           rows_hint=rows_h, bytes_hint=bytes_h)
 
     def limit(self, n: int) -> "TensorFrame":
         """The first ``n`` rows (in block order). Lazy."""
@@ -374,8 +449,56 @@ class TensorFrame:
         return api.analyze(self)
 
     # -- introspection -----------------------------------------------------
+    def explain(self) -> str:
+        """Execution report of this frame's forcing: rows, blocks, the
+        host spans by stage and, when the logical plan ran, its fused
+        stages, pruned columns, pushdown and resident edges.
+
+        A frame not yet forced with tracing on is (re-)forced once with
+        tracing enabled, so a post-hoc ``explain()`` re-runs the plan.
+        Distinct from the function ``explain(df)``, which describes the
+        schema."""
+        if self._spans is None:
+            from .utils import tracing
+            was = tracing.enabled()
+            tracing.enable()
+            try:
+                self._cache = None
+                self.blocks()
+            finally:
+                if not was:
+                    tracing.disable()
+        blocks = self.blocks()
+        lines = [f"query    : {self._plan}",
+                 f"  rows     : {sum(b.num_rows for b in blocks)} in "
+                 f"{len(blocks)} block(s)"]
+        if self._spans:
+            lines.append("  wall time by stage:")
+            width = max(len(k) for k in self._spans)
+            for name in sorted(self._spans,
+                               key=lambda k: -self._spans[k]["total_s"]):
+                st = self._spans[name]
+                lines.append(f"    {name:<{width}} {int(st['count']):6d}x "
+                             f"{st['total_s']:12.6f}s")
+        if self._plan_info:
+            lines.extend(self._plan_info)
+        return "\n".join(lines)
+
     def explain_tensors(self) -> str:
         return self._schema.tree_string()
+
+
+def _span_delta(before: Dict[str, Dict[str, float]],
+                after: Dict[str, Dict[str, float]]
+                ) -> Dict[str, Dict[str, float]]:
+    """The spans recorded between two ``timings`` snapshots."""
+    out = {}
+    for name, st in after.items():
+        b = before.get(name, {"count": 0, "total_s": 0.0})
+        if st["count"] > b["count"]:
+            out[name] = {"count": st["count"] - b["count"],
+                         "total_s": st["total_s"] - b["total_s"]}
+    return out
 
 
 class GroupedFrame:

@@ -1,0 +1,47 @@
+"""Lazy logical-plan IR between the frame surface and the engine.
+
+The port's counterpart of ``tensorframes_tpu/plan``. The per-op engine
+path dispatches every ``map_blocks`` / ``map_rows`` / ``filter_rows`` /
+``select`` in a chain as its own dispatch with its own host<->device round
+trip. This package closes that gap without touching the per-op path's
+semantics:
+
+- every lazy frame op *additionally* records a :class:`~.nodes.PlanNode`
+  on its result frame (the thunk chain stays exactly as it was);
+- forcing (``blocks()``, and therefore ``collect``/``count``/reductions/
+  ``aggregate``) first offers the chain to the optimizer
+  (:func:`~.execute.maybe_run`): adjacent row-local ops fuse into ONE
+  composed :class:`~..computation.Computation` dispatched once per block
+  through the default executor; column pruning and ``column <op>
+  literal`` filter atoms push down into the parquet scan
+  (``io.read_parquet``); intermediates between stages stay on the device;
+- any chain the optimizer cannot *prove* equivalent (non-row-preserving
+  computations, ragged inputs, explicit ``executor=`` overrides) falls
+  back to the unchanged per-op thunk, which is also the whole path when
+  ``TFT_FUSE=0``: the kill switch is bit-identical by construction;
+- plan nodes carry per-column row/byte estimates
+  (:meth:`~.nodes.PlanNode.estimate`) for unforced frames
+  (``memory.estimate.frame_estimate``).
+
+Counters (``utils/tracing.counters``): ``plan.fused_queries``,
+``plan.oom_fallbacks``, ``plan.pushdown_groups_skipped``,
+``plan.pushdown_bytes_skipped``; span ``plan.execute``.
+
+Not in this package yet: ``plan/adaptive.py`` (feedback-driven
+re-bucketing, filter re-ordering, mid-plan re-plans and the
+plan-fingerprint result cache) and ``plan/dist.py``.
+"""
+
+from __future__ import annotations
+
+from .nodes import (FilterNode, MapBlocksNode, MapRowsNode, ParquetScanNode,
+                    PlanNode, SelectNode, SourceNode, attach, node_for,
+                    observed_selectivity, record_selectivity)
+from .optimize import enabled
+from .execute import maybe_run
+
+__all__ = [
+    "PlanNode", "SourceNode", "ParquetScanNode", "MapBlocksNode",
+    "MapRowsNode", "FilterNode", "SelectNode", "attach", "node_for",
+    "enabled", "maybe_run", "record_selectivity", "observed_selectivity",
+]

@@ -4,6 +4,17 @@ The counterpart of ``tensorframes_tpu/utils/tracing.py``'s :func:`span`
 and :data:`counters`. :func:`span` times a named stage into :data:`timings`
 when tracing is on (``TFT_TRACE=1`` or :func:`enable`) and costs one global
 read when it is off. :data:`counters` are always on.
+
+Names keep the JAX package's. Spans: ``executor.convert`` (host->device,
+opened only when some input is on the host), ``executor.dispatch``,
+``executor.convert_back``, ``pipeline.submit`` / ``pipeline.drain``,
+``plan.execute`` (one fused forcing), ``io.parquet_read`` (one row group
+decoded), ``aggregate.factorize_keys`` / ``aggregate.segment_reduce``.
+Counters: ``pipeline.submitted`` / ``pipeline.drained``,
+``plan.fused_queries``, ``plan.oom_fallbacks``,
+``plan.pushdown_groups_skipped`` / ``plan.pushdown_bytes_skipped``, and
+``io.parquet_row_groups_read`` / ``io.parquet_bytes_read`` (the footer's
+uncompressed bytes of the column chunks a scan decoded).
 """
 
 from __future__ import annotations

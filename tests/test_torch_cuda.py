@@ -223,3 +223,85 @@ def test_transformer_on_the_card_matches_the_jax_package(cuda):
     comp = np.concatenate([b.columns["completion"] for b in
                            tm.generate_via_frame(df, 6).blocks()])
     np.testing.assert_array_equal(comp, want)
+
+
+# ---------------------------------------------------------------------------
+# the logical plan on the card
+# ---------------------------------------------------------------------------
+
+def _plan_chain(df):
+    return (df.map_blocks(lambda x: {"a": x * 2.0})
+              .filter(lambda a: a > 0.0)
+              .map_rows(lambda a: {"b": a * 0.5})
+              .select(["k", "b"]))
+
+
+def _plan_frame(parts=4):
+    rng = np.random.default_rng(13)
+    return ttf.frame({"x": rng.standard_normal(4000),
+                      "y": rng.standard_normal(4000),
+                      "k": rng.integers(0, 64, 4000)}, num_partitions=parts)
+
+
+def test_fused_stages_chain_on_device_resident_tensors(cuda, monkeypatch):
+    from tensorframes_tpu_torch.engine.executor import BlockExecutor
+    from tensorframes_tpu_torch.plan.optimize import build_plan
+    from tensorframes_tpu_torch.utils import tracing
+    monkeypatch.delenv("TFT_FUSE", raising=False)
+    seen = []
+    real = BlockExecutor.run
+
+    def spy(self, comp, arrays, *a, **k):
+        seen.append({n: (type(v).__name__, getattr(v, "device", None))
+                     for n, v in arrays.items()})
+        return real(self, comp, arrays, *a, **k)
+    monkeypatch.setattr(BlockExecutor, "run", spy)
+    monkeypatch.setenv("TFT_PIPELINE_DEPTH", "1")  # serial: run() per block
+    chain = _plan_chain(_plan_frame())
+    assert len(build_plan(chain).stages) == 2
+    tracing.enable()
+    try:
+        tracing.timings.reset()
+        chain.blocks()
+        spans = tracing.timings.snapshot()
+    finally:
+        tracing.disable()
+    assert chain._plan_info
+    assert spans["executor.convert"]["count"] == 4  # once per block
+    assert spans["executor.dispatch"]["count"] == 8  # once per stage
+    later = [s for s in seen if "a" in s]
+    assert len(later) == 4
+    for s in later:
+        assert s["a"][0] == "Tensor" and s["a"][1].type == "cuda"
+
+
+def test_fused_equals_unfused_on_the_card(cuda, monkeypatch):
+    monkeypatch.delenv("TFT_FUSE", raising=False)
+    fused = _plan_chain(_plan_frame())
+    fused.blocks()
+    assert fused._plan_info
+    monkeypatch.setenv("TFT_FUSE", "0")
+    unfused = _plan_chain(_plan_frame())
+    assert_frames_match(unfused, fused)
+    assert unfused._plan_info is None
+
+
+def test_dsl_readme_x_plus_3_on_the_card(cuda):
+    df = ttf.frame({"x": np.arange(10.0)}, num_partitions=2)
+    with ttf.dsl.with_graph():
+        z = (ttf.block(df, "x") + 3.0).named("z")
+    out = df.map_blocks(z)
+    assert [r["z"] for r in out.collect()] == [i + 3.0 for i in range(10)]
+
+
+def test_fused_chain_into_aggregate_launches_segment_sum(cuda, monkeypatch):
+    monkeypatch.delenv("TFT_FUSE", raising=False)
+    chain = _plan_chain(_plan_frame())
+    before = segment_reduce.launches
+    got = ttf.aggregate({"b": "sum"}, chain.group_by("k"))
+    assert chain._plan_info
+    assert segment_reduce.launches - before == 4  # one per block
+    monkeypatch.setenv("TFT_FUSE", "0")
+    want = ttf.aggregate({"b": "sum"},
+                         _plan_chain(_plan_frame()).group_by("k"))
+    assert_frames_match(want, got)  # the same rows per block: bit-equal

@@ -27,7 +27,7 @@ def assert_columns_close(jcol, tcol, rtol=0.0, atol=0.0):
         assert isinstance(tcol, np.ndarray), type(tcol)
         assert tcol.shape == jcol.shape
         assert tcol.dtype == jcol.dtype, (tcol.dtype, jcol.dtype)
-        if rtol == 0.0 and atol == 0.0:
+        if (rtol == 0.0 and atol == 0.0) or jcol.dtype == object:
             np.testing.assert_array_equal(tcol, jcol)
         else:
             np.testing.assert_allclose(tcol, jcol, rtol=rtol, atol=atol)
