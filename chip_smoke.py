@@ -25,6 +25,23 @@ paths through its public entry points and checks every result:
    reads 4 of 6 columns and 10 of 20 row groups, dispatches once per stage
    and non-empty block and converts host->device once per block; all
    agree bit for bit and with numpy f64 ``bincount`` to rtol 1e-12;
+3c. SSB Q2.1 at scale factor 1 (the Star Schema Benchmark, O'Neil et al.,
+   TPCTC 2009, schema of its section 2): lineorder (6M rows in 8
+   partitions, ``lo_revenue`` integral f64) joined to date (2,556 days from
+   1992-01-01), part (200,000) and supplier (2,000), categorical
+   attributes as int32 codes; three broadcast joins through
+   ``TensorFrame.join`` -> ``filter(p_category == MFGR#12 and s_region ==
+   AMERICA)`` -> ``select`` -> ``aggregate({"lo_revenue": "sum"})`` by
+   ``(d_year, p_brand1)`` -> ``order_by``: fused cold, then ``TFT_FUSE=0``
+   and fused twice each, alternating, equal to a numpy int64 reference and
+   bit-equal to one another; the roll-up (no filter, 7,000 groups); the
+   part join as ``strategy="sort_merge"``, bit-equal after the aggregate;
+   ``approx_distinct(lo_custkey)`` by ``d_yearmonthnum`` (HLL, 4,096
+   registers, the device fold, 84 months whose registers all differ),
+   within 5 sigma of the exact count and its registers bit-equal to the
+   fold on the CPU and to the host's numpy fold. Build columns the chain
+   never names (``d_yearmonthnum``, ``p_mfgr``, ``s_nation``) are never
+   gathered;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -44,7 +61,7 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3b for
+with each kernel's launches during its main path (phases 1-3c for
 segment_sum, phase 4 for flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
@@ -364,6 +381,333 @@ def phase_plan_parquet(ttf, np, torch, segment_reduce, n=20_000_000,
             "max_rel_err": float(np.max(np.abs(fused["cols"]["w"]
                                                - want[want_keys])
                                         / np.abs(want[want_keys])))}
+
+
+# SSB dictionary codes: categories MFGR#11..MFGR#55 are 0..24 (MFGR#12 is
+# 1), regions AFRICA, AMERICA, ASIA, EUROPE, MIDDLE EAST are 0..4
+MFGR12, AMERICA = 1, 1
+SSB_DAYS = 2556
+
+
+def ssb_tables(np, rows, parts=200_000, suppliers=2_000, customers=30_000,
+               seed=21) -> tuple:
+    """SSB's tables with the columns Q2.1 reads, from a numpy seed: scale
+    factor 1 with the default counts and 6M ``rows``, smaller counts for
+    the tests. Dimension keys are dense and carry the fact table's names
+    (``join(on=)`` takes one name for both sides). ``p_brand1 // 40 ==
+    p_category`` and ``p_mfgr = p_category // 5`` as in SSB; five nations
+    a region. Q2.1 reads neither ``d_yearmonthnum``, ``p_mfgr`` nor
+    ``s_nation``."""
+    rng = np.random.default_rng(seed)
+    days = np.datetime64("1992-01-01") + np.arange(SSB_DAYS)
+    year = days.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    day = (days - days.astype("datetime64[M]")).astype(np.int64) + 1
+    datekey = (year * 10000 + month * 100 + day).astype(np.int32)
+    date = {"lo_orderdate": datekey, "d_year": year.astype(np.int32),
+            "d_yearmonthnum": (year * 100 + month).astype(np.int32)}
+    brand = rng.integers(0, 1000, parts).astype(np.int32)
+    part = {"lo_partkey": np.arange(1, parts + 1, dtype=np.int32),
+            "p_category": brand // 40, "p_brand1": brand,
+            "p_mfgr": brand // 200}
+    nation = rng.integers(0, 25, suppliers).astype(np.int32)
+    supplier = {"lo_suppkey": np.arange(1, suppliers + 1, dtype=np.int32),
+                "s_region": nation // 5, "s_nation": nation}
+    lineorder = {
+        "lo_orderdate": datekey[rng.integers(0, SSB_DAYS, rows)],
+        "lo_partkey": rng.integers(1, parts + 1, rows, dtype=np.int32),
+        "lo_suppkey": rng.integers(1, suppliers + 1, rows, dtype=np.int32),
+        "lo_custkey": rng.integers(1, customers + 1, rows, dtype=np.int32),
+        "lo_revenue": rng.integers(90_000, 10_000_000, rows).astype(
+            np.float64)}
+    return lineorder, date, part, supplier
+
+
+def ssb_reference(np, tables, q21: bool) -> dict:
+    """Q2.1 (or its roll-up without the filter) in numpy: the joins by
+    array indexing (dense dimension keys), revenue summed in int64."""
+    lineorder, date, part, supplier = tables
+    di = np.searchsorted(date["lo_orderdate"], lineorder["lo_orderdate"])
+    pi = lineorder["lo_partkey"] - 1
+    key = (date["d_year"][di].astype(np.int64) - 1992) * 1000 \
+        + part["p_brand1"][pi]
+    rev = lineorder["lo_revenue"].astype(np.int64)
+    if q21:
+        keep = (part["p_category"][pi] == MFGR12) & \
+            (supplier["s_region"][lineorder["lo_suppkey"] - 1] == AMERICA)
+        key, rev = key[keep], rev[keep]
+    acc = np.zeros(7 * 1000, np.int64)
+    np.add.at(acc, key, rev)
+    groups = np.flatnonzero(np.bincount(key, minlength=7000))
+    return {"d_year": (groups // 1000 + 1992).astype(np.int32),
+            "p_brand1": (groups % 1000).astype(np.int32),
+            "lo_revenue": acc[groups].astype(np.float64)}
+
+
+def ssb_chain(m, tables, partitions, q21=True, sort_merge=False):
+    """Q2.1's joins, filter and select through package ``m`` (the port
+    or, in the tests, the JAX package): lineorder joined to date, part
+    and supplier; the roll-up without the filter; the part join as the
+    host sort-merge join when asked."""
+    lineorder, date, part, supplier = tables
+    lo = m.frame(dict(lineorder), num_partitions=partitions)
+    j = lo.join(m.frame(dict(date)), on="lo_orderdate")
+    j = j.join(m.frame(dict(part)), on="lo_partkey",
+               strategy="sort_merge" if sort_merge else None)
+    j = j.join(m.frame(dict(supplier)), on="lo_suppkey")
+    if q21:
+        j = j.filter(lambda p_category, s_region:
+                     (p_category == MFGR12) & (s_region == AMERICA))
+    return j.select(["d_year", "p_brand1", "lo_revenue"])
+
+
+def ssb_aggregate(m, chain):
+    """The revenue by ``(d_year, p_brand1)`` of ``chain``, ordered."""
+    agg = m.aggregate({"lo_revenue": "sum"},
+                      chain.group_by("d_year", "p_brand1"))
+    return agg.order_by("d_year", "p_brand1")
+
+
+def ssb_query(m, tables, partitions, **kw) -> tuple:
+    """``(chain, ordered aggregate)`` of Q2.1 or its roll-up."""
+    chain = ssb_chain(m, tables, partitions, **kw)
+    return chain, ssb_aggregate(m, chain)
+
+
+# the order of the timed Q2.1 runs after the first (cold) fused one
+SSB_ORDER = (False, True, True, False)
+
+
+def phase_ssb_q21(ttf, np, torch, segment_reduce, rows=6_000_000, parts=8,
+                  profile=True) -> dict:
+    """SSB Q2.1 at SF 1 (see the module docstring, phase 3c)."""
+    from tensorframes_tpu_torch.engine.ops import (
+        _blockwise_key_factorization)
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+    join_mod = importlib.import_module(
+        "tensorframes_tpu_torch.relational.join")
+
+    t0 = time.perf_counter()
+    tables = ssb_tables(np, rows)
+    gen_s = time.perf_counter() - t0
+    lineorder, date, part, supplier = tables
+    t0 = time.perf_counter()
+    want = {q: ssb_reference(np, tables, q) for q in (True, False)}
+    reference_s = time.perf_counter() - t0
+
+    # every gather reports the names it moved, and the build tensors it
+    # read must be resident on the card
+    gathered = []
+    real_gather = join_mod.BuildTable.gather_device
+
+    def spy(self, names, idx, gid, executor=None):
+        out = real_gather(self, names, idx, gid, executor=executor)
+        assert all(self.dev_cols[n].device.type == ttf.default_device().type
+                   for n in out), "a build column was not resident"
+        if out:
+            gathered.append(tuple(sorted(out)))
+        return out
+
+    names = ("plan.fused_queries", "relational.probe_dispatches")
+
+    def run(fuse=True, q21=True, sort_merge=False):
+        prior = os.environ.get("TFT_FUSE")
+        os.environ["TFT_FUSE"] = "1" if fuse else "0"
+        try:
+            c0 = {k: counters.get(k) for k in names}
+            s0 = tracing.timings.snapshot()
+            l0 = segment_reduce.launches
+            del gathered[:]
+            t0 = time.perf_counter()
+            # the build tables are made (and copied to the card) here
+            ch = ssb_chain(ttf, tables, parts, q21, sort_merge)
+            build_s = time.perf_counter() - t0
+            cols = ssb_aggregate(ttf, ch).blocks()[0].columns
+            wall = time.perf_counter() - t0
+        finally:
+            if prior is None:
+                del os.environ["TFT_FUSE"]
+            else:
+                os.environ["TFT_FUSE"] = prior
+        s1 = tracing.timings.snapshot()
+        spans = {k: {"count": v["count"] - s0.get(k, {}).get("count", 0),
+                     "total_s": v["total_s"] - s0.get(k, {}).get("total_s",
+                                                                   0.0)}
+                 for k, v in s1.items()
+                 if v["count"] > s0.get(k, {}).get("count", 0)}
+        block_rows = [b.num_rows for b in ch.blocks()]  # cached
+        return {"cols": cols, "plan": ch._plan_info, "wall_s": wall,
+                "rows_out": sum(block_rows), "block_rows": block_rows,
+                "build_s": build_s, "gathered": sorted(set(gathered)),
+                "counts": {k: counters.get(k) - c0[k] for k in names},
+                "launches": segment_reduce.launches - l0, "spans": spans}
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(a[k], b[k]) for k in want[True])
+
+    join_mod.BuildTable.gather_device = spy
+    try:
+        cold = run()
+        timed = {True: [], False: []}
+        for fuse in SSB_ORDER:
+            timed[fuse].append(run(fuse))
+        rollup = run(q21=False)
+        smj = run(sort_merge=True)
+    finally:
+        join_mod.BuildTable.gather_device = real_gather
+
+    for q, r in ((True, cold), (False, rollup)):
+        for k, col in want[q].items():
+            assert r["cols"][k].dtype == col.dtype, (k, r["cols"][k].dtype)
+            np.testing.assert_array_equal(r["cols"][k], col)
+    assert len(want[True]["d_year"]) == 280, len(want[True]["d_year"])
+    assert len(want[False]["d_year"]) == 7000
+    for r in timed[True] + timed[False]:
+        assert same(r["cols"], cold["cols"]), "fused and TFT_FUSE=0 differ"
+    assert same(smj["cols"], cold["cols"]), "sort-merge != broadcast"
+    for r in [cold] + timed[True]:
+        assert r["plan"], "the chain over the joins did not fuse"
+        assert r["counts"]["plan.fused_queries"] >= 1, r["counts"]
+        # three joins, one gather per block each, of the named columns only
+        assert r["counts"]["relational.probe_dispatches"] == 3 * parts
+        assert r["gathered"] == [("d_year",), ("p_brand1", "p_category"),
+                                 ("s_region",)], r["gathered"]
+        # host->device: each gather's int32 index and the filter stage's
+        # inputs, once per block
+        assert r["spans"]["executor.convert"]["count"] == 4 * parts, \
+            r["spans"]
+        assert r["spans"]["join.probe_gather"]["count"] == 3 * parts
+        assert r["spans"]["join.match"]["count"] == 3 * parts
+    for r in timed[False]:
+        assert r["plan"] is None and r["counts"]["plan.fused_queries"] == 0
+        assert ("s_nation", "s_region") in r["gathered"], r["gathered"]
+    assert rollup["gathered"] == [("d_year",), ("p_brand1",)], \
+        rollup["gathered"]
+    assert rollup["counts"]["relational.probe_dispatches"] == 2 * parts
+    for r in [cold, rollup, smj] + timed[True] + timed[False]:
+        assert r["launches"] == parts, r["launches"]  # B1, once a block
+
+    # HLL of lo_custkey by d_yearmonthnum (84 months, each with its own
+    # subset of the customers, so the groups' registers differ): the
+    # aggregate's device fold, and its registers against the same blocks
+    # folded on the CPU executor and by numpy on the host
+    j = ttf.frame(lineorder, num_partitions=parts).join(
+        ttf.frame(date), on="lo_orderdate").select(
+            ["d_yearmonthnum", "lo_custkey"])
+    sk = ttf.approx_distinct(bits=12)
+    s0 = tracing.timings.snapshot()
+    t0 = time.perf_counter()
+    hll = ttf.aggregate({"lo_custkey": sk}, j.group_by("d_yearmonthnum"))
+    hll_cols = hll.blocks()[0].columns
+    hll_s = time.perf_counter() - t0
+    fold = tracing.timings.snapshot()["aggregate.sketch_fold"]
+    fold_s = fold["total_s"] - s0.get("aggregate.sketch_fold",
+                                      {}).get("total_s", 0.0)
+    jb = j.blocks()
+    ids_blocks, _, groups = _blockwise_key_factorization(
+        jb, ["d_yearmonthnum"])
+    sketch_mod = importlib.import_module(
+        "tensorframes_tpu_torch.relational.sketch")
+    fold_rows = sketch_mod.DEVICE_FOLD_ROWS
+    tables_by = {}
+    for where in (ttf.default_device().type, "cpu", "numpy"):
+        sketch_mod.DEVICE_FOLD_ROWS = 1 << 62 if where == "numpy" \
+            else fold_rows
+        try:
+            t = None
+            for b, ids in zip(jb, ids_blocks):
+                part_t = sk.block_partial(
+                    b.columns["lo_custkey"], ids, groups,
+                    device=None if where == "numpy" else where)
+                t = part_t if t is None else sk.combine_np(t, part_t)
+        finally:
+            sketch_mod.DEVICE_FOLD_ROWS = fold_rows
+        tables_by[where] = t
+    card = tables_by[ttf.default_device().type]
+    assert card.dtype == np.int32 and card.shape == (groups, sk.m)
+    for where in ("cpu", "numpy"):
+        assert np.array_equal(card, tables_by[where]), \
+            f"HLL registers differ between the card and {where}"
+    # a fold that mixed up group ids would not match: no two months
+    # hold the same registers
+    assert len(np.unique(card, axis=0)) == groups, "months share registers"
+    np.testing.assert_array_equal(hll_cols["lo_custkey"],
+                                  sk.finalize("e", card)["e"])
+    month = date["d_yearmonthnum"][np.searchsorted(
+        date["lo_orderdate"], lineorder["lo_orderdate"])]
+    order = np.argsort(month, kind="stable")
+    bounds = np.searchsorted(month[order], hll_cols["d_yearmonthnum"])
+    bounds = np.append(bounds, len(month))
+    hll_err, distinct = [], []
+    for g, est in enumerate(hll_cols["lo_custkey"]):
+        custs = lineorder["lo_custkey"][order[bounds[g]:bounds[g + 1]]]
+        true = len(np.unique(custs))
+        distinct.append(true)
+        hll_err.append((int(est) - true) / true)
+        assert abs(est - true) <= 5 * sk.relative_error * true, \
+            (hll_cols["d_yearmonthnum"][g], est, true)
+
+    profiled = None
+    if profile:
+        profiled = device_breakdown(torch, lambda: run())
+
+    walls = {f: sorted(r["wall_s"] for r in timed[f]) for f in timed}
+    keep = ("join.probe", "join.match", "join.probe_gather",
+            "aggregate.factorize_keys",
+            "aggregate.segment_reduce", "aggregate.sketch_fold",
+            "plan.execute", "executor.convert", "executor.dispatch",
+            "join.sort_merge")
+
+    def spans_of(r):
+        return {k: v for k, v in r["spans"].items() if k in keep}
+
+    return {"config": {"benchmark": "SSB Q2.1", "scale_factor": 1,
+                       "lineorder_rows": rows, "partitions": parts,
+                       "date_rows": len(date["lo_orderdate"]),
+                       "part_rows": len(part["lo_partkey"]),
+                       "supplier_rows": len(supplier["lo_suppkey"]),
+                       "host_bytes": int(sum(a.nbytes for t in tables
+                                             for a in t.values()))},
+            "generate_s": gen_s, "reference_s": reference_s,
+            "groups": {"q21": len(want[True]["d_year"]),
+                       "rollup": len(want[False]["d_year"])},
+            "q21_rows_after_filter": cold["rows_out"],
+            "q21_block_rows": cold["block_rows"],
+            "plan": cold["plan"], "build_s": cold["build_s"],
+            "fused_cold_wall_s": cold["wall_s"],
+            "timed_order": ["fused" if f else "per_op" for f in SSB_ORDER],
+            "fused_walls_s": [r["wall_s"] for r in timed[True]],
+            "unfused_walls_s": [r["wall_s"] for r in timed[False]],
+            "fused_median_s": float(np.median(walls[True])),
+            "unfused_median_s": float(np.median(walls[False])),
+            "rows_per_s_fused": rows / float(np.median(walls[True])),
+            "rows_per_s_unfused": rows / float(np.median(walls[False])),
+            "rollup_wall_s": rollup["wall_s"],
+            "sort_merge_wall_s": smj["wall_s"],
+            "hll": {"wall_s": hll_s, "sketch_fold_s": fold_s,
+                    "groups": int(groups), "registers": int(sk.m),
+                    "distinct_min_max": [min(distinct), max(distinct)],
+                    "relative_error_min_max": [min(hll_err), max(hll_err)],
+                    "relative_error_mean_abs": float(np.mean(np.abs(
+                        hll_err)))},
+            "segment_sum_launches": {
+                "cold": cold["launches"], "rollup": rollup["launches"],
+                "sort_merge": smj["launches"]},
+            "probe_dispatches": {
+                "fused": cold["counts"]["relational.probe_dispatches"],
+                "unfused": timed[False][0]["counts"][
+                    "relational.probe_dispatches"],
+                "rollup": rollup["counts"]["relational.probe_dispatches"]},
+            "gathered": {"fused": cold["gathered"],
+                         "unfused": timed[False][0]["gathered"],
+                         "rollup": rollup["gathered"]},
+            "spans_fused_cold": spans_of(cold),
+            "spans_fused_warm": spans_of(timed[True][0]),
+            "spans_unfused": spans_of(timed[False][0]),
+            "spans_rollup": spans_of(rollup),
+            "spans_sort_merge": spans_of(smj),
+            "fused_profile": profiled}
 
 
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
@@ -760,7 +1104,9 @@ def time_flash(np, torch, fa, dtype, flush, b=8, s=2048, h=8, d=64,
 def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     """Each kernel timed at its main paths' shapes: segment_sum on one
     block of phase 2 (f64, S = 100,000), of phase 3 (f32 x 64,
-    S = 1,024) and of phase 3b (a 1M-row row group, f64, S = 100,000),
+    S = 1,024), of phase 3b (a 1M-row row group, f64, S = 100,000) and of
+    phase 3c (the roll-up's 750k rows into 7,000 groups, and Q2.1's block
+    after its filter, about 6,000 rows into 280 groups, both f64),
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -769,7 +1115,11 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
                                1024, torch.float32, flush),
               time_segment_sum(np, torch, segment_reduce, 1_000_000, 1,
-                               100_000, torch.float64, flush)]
+                               100_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 6_000_000 // 8, 1,
+                               7_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 6_000, 1, 280,
+                               torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -857,7 +1207,9 @@ def main(argv=None) -> int:
          lambda: phase_reference_workload(ttf, np, torch)),
         ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np)),
         ("plan_parquet_20M",
-         lambda: phase_plan_parquet(ttf, np, torch, segment_reduce))),
+         lambda: phase_plan_parquet(ttf, np, torch, segment_reduce)),
+        ("ssb_q21_sf1",
+         lambda: phase_ssb_q21(ttf, np, torch, segment_reduce))),
         counters)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"

@@ -13,7 +13,11 @@ Lazy chains are forced through the logical plan (``plan/``): adjacent ops
 fuse into one dispatch per block, and a frame from :func:`read_parquet`
 reads only the columns and row groups the chain needs (``TFT_FUSE=0``
 runs every op on its own). The DSL (``dsl``, with :func:`block` and
-:func:`row`) builds programs without writing PyTorch.
+:func:`row`) builds programs without writing PyTorch. ``relational`` holds
+the joins (:func:`join`, ``TensorFrame.join``: broadcast hash and host
+sort-merge, both plan leaves) and the sketch combiners
+(:func:`approx_distinct`, :func:`approx_quantile`, :func:`approx_top_k`)
+that ``aggregate`` takes beside ``"sum"``.
 
 The entry points run on ``cuda`` unless the caller asks for the CPU, with
 :func:`set_default_device` or ``executor=BlockExecutor(device="cpu")``.
@@ -44,6 +48,9 @@ from . import plan
 from . import interop
 from . import ops
 from . import models
+from . import relational
+from .relational import (approx_distinct, approx_quantile, approx_top_k,
+                         join)
 
 __all__ = [
     "Shape",
@@ -86,6 +93,11 @@ __all__ = [
     "interop",
     "ops",
     "models",
+    "relational",
+    "join",
+    "approx_distinct",
+    "approx_quantile",
+    "approx_top_k",
     "set_default_device",
     "default_device",
     "__version__",

@@ -23,8 +23,11 @@ eagerly on the executor's device; ``map_rows`` vectorizes them with
 loop. The lazy ops also record a logical-plan node on their result
 (``plan/nodes.py``) unless an explicit ``executor=`` pins the per-op path,
 and ``filter_rows`` records each forcing's observed selectivity on its
-predicate. Not in this package yet: the single-program segmented fold of
-the computation-form ``aggregate`` and the sketch combiners.
+predicate. The mapping form of ``aggregate`` also takes the sketch
+combiners of ``relational/sketch.py`` (``approx_distinct``,
+``approx_quantile``, ``approx_top_k``), mixed freely with the scalar names.
+Not in this package yet: the single-program segmented fold of the
+computation-form ``aggregate``.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from ..ops.segment_reduce import segment_sum as _segment_sum
 from ..schema import Field, Schema
 from ..shape import Shape, Unknown
 from ..utils.logging import get_logger
-from ..utils.tracing import span
+from ..utils.tracing import counters, span
 from .compaction import CompactionBuffer, DEFAULT_BUFFER_SIZE
 from .executor import (BlockExecutor, default_executor,
                        default_padding_executor, to_device, to_host,
@@ -832,16 +835,28 @@ def _check_scalar_keys(blocks, keys: Sequence[str]) -> None:
 _COMBINERS = ("sum", "min", "max", "prod")
 
 
+def _is_sketch(c) -> bool:
+    from ..relational.sketch import SketchCombiner
+    return isinstance(c, SketchCombiner)
+
+
 def _monoid_mapping(fetches) -> bool:
-    """True for the ``{column: combiner-name}`` aggregate form."""
+    """True for the ``{column: combiner}`` aggregate form: combiner names
+    (sum/min/max/prod) or :class:`~..relational.sketch.SketchCombiner`
+    instances (approx_distinct / approx_quantile / approx_top_k), freely
+    mixed."""
     return (isinstance(fetches, Mapping) and bool(fetches)
-            and all(isinstance(v, str) for v in fetches.values()))
+            and all(isinstance(v, str) or _is_sketch(v)
+                    for v in fetches.values()))
 
 
 def _validate_monoid_fetches(col_combiners: Mapping[str, str],
                              value_names: Sequence[str],
-                             drop_hint: str) -> None:
-    """Checks for the {column: combiner} aggregate form."""
+                             drop_hint: str,
+                             schema: Optional[Schema] = None) -> None:
+    """Checks for the {column: combiner} aggregate form. Combiners are
+    scalar names or sketch combiners; ``schema`` (when given) lets
+    sketches validate their input column."""
     unknown = sorted(set(col_combiners) - set(value_names))
     if unknown:
         raise InputNotFoundError(
@@ -855,10 +870,15 @@ def _validate_monoid_fetches(col_combiners: Mapping[str, str],
             "Columns %s are not consumed by the aggregation and will be "
             "ignored (drop them %s to silence this)", unused, drop_hint)
     for name, cname in col_combiners.items():
+        if _is_sketch(cname):
+            if schema is not None:
+                cname.validate_input(schema[name])
+            continue
         if cname not in _COMBINERS:
             raise ValueError(
                 f"Unknown combiner {cname!r} for {name!r}; known: "
-                f"{sorted(_COMBINERS)}")
+                f"{sorted(_COMBINERS)} (or a relational sketch combiner — "
+                f"approx_distinct/approx_quantile/approx_top_k)")
 
 
 def _identity(cname: str, dtype: torch.dtype):
@@ -897,17 +917,30 @@ def _monoid_aggregate(col_combiners: Mapping[str, str],
     """Keyed aggregation for the associative monoids: key->dense-id
     factorization on the host, then ONE segment reduction per block and
     fetch column on the device, the per-block partials combined on the
-    host with the monoid."""
+    host with the monoid.
+
+    Sketch combiners ride the same structure: per-block partial STATE
+    tables (group ids shared with the scalar columns; HLL registers and
+    quantile bucket counts fold on the device from 4,096 rows) combined
+    across blocks with the sketch's own monoid and finalized into
+    estimate columns at the end."""
     df = grouped.frame
     keys = grouped.keys
     value_names = [n for n in df.schema.names if n not in keys]
-    _validate_monoid_fetches(col_combiners, value_names, "with select() first")
+    _validate_monoid_fetches(col_combiners, value_names,
+                             "with select() first", schema=df.schema)
 
     blocks = df.blocks()
     _check_scalar_keys(blocks, keys)
     fetch_names = sorted(col_combiners)
+    scalar_names = [f for f in fetch_names
+                    if not _is_sketch(col_combiners[f])]
+    sketch_names = [f for f in fetch_names if _is_sketch(col_combiners[f])]
     out_fields = [df.schema[k] for k in keys]
     for f in fetch_names:
+        if f in sketch_names:
+            out_fields.extend(col_combiners[f].out_fields(f, df.schema[f]))
+            continue
         out_fields.append(Field(
             f, df.schema[f].dtype,
             block_shape=_field_spec(df.schema[f], True, "aggregate")
@@ -930,8 +963,20 @@ def _monoid_aggregate(col_combiners: Mapping[str, str],
     combine_np = {"sum": np.add, "prod": np.multiply,
                   "min": np.minimum, "max": np.maximum}
     cols: Dict[str, np.ndarray] = {k: u for k, u in zip(keys, uniques)}
+    with span("aggregate.sketch_fold"):
+        for f in sketch_names:
+            sk = col_combiners[f]
+            table = None
+            for b, ids in zip(blocks, ids_blocks):
+                if b.num_rows == 0:
+                    continue
+                part = sk.block_partial(np.asarray(b.columns[f]), ids,
+                                        num_groups, device=device)
+                table = part if table is None else sk.combine_np(table, part)
+            counters.inc("relational.sketch_folds")
+            cols.update(sk.finalize(f, table))
     with span("aggregate.segment_reduce"):
-        for f in fetch_names:
+        for f in scalar_names:
             field = df.schema[f]
             dd = _dt.device_dtype(field.dtype)
             out = None
@@ -960,9 +1005,9 @@ def aggregate(fetches: Fetches, grouped: GroupedFrame,
     Two paths:
 
     - ``fetches`` is a mapping ``{column: combiner-name}`` (sum/min/max/
-      prod): host key factorization + one segment reduction per block and
-      column on the device (the CUDA ``segment_sum`` kernel for float sums
-      on a GPU);
+      prod, or a sketch combiner of ``relational``): host key
+      factorization + one segment reduction per block and column on the
+      device (the CUDA ``segment_sum`` kernel for float sums on a GPU);
     - ``fetches`` is a computation: each block is sorted by key on the
       host and each group reduces through a :class:`CompactionBuffer`
       honoring the buffered-compaction contract (buffer_size=10 by

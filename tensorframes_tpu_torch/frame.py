@@ -22,9 +22,15 @@ the fallback for any chain the plan cannot prove. Size hints (exact at the
 source constructors, scaled through the ops) answer ``estimated_rows`` /
 ``estimated_bytes`` for unforced frames.
 
+Beyond the six ops, a frame joins another (:meth:`TensorFrame.join`, the
+``relational`` package), sorts globally (:meth:`TensorFrame.order_by`, host
+``np.lexsort``), samples, shows, and pads a ragged column to a dense one
+(:meth:`TensorFrame.pad_column`).
+
 Not in this package yet: the plan-fingerprint result cache, the memory
 manager and the query traces that the JAX package also hooks into
-``blocks()``.
+``blocks()``, ``submit`` (the serve layer), and the hot-key observations of
+a salted ``daggregate`` (``hot_keys`` returns none).
 """
 
 from __future__ import annotations
@@ -390,6 +396,98 @@ class TensorFrame:
                            plan=f"repartition({self._plan})",
                            rows_hint=rows_h, bytes_hint=bytes_h)
 
+    def pad_column(self, name: str, max_len: Optional[int] = None,
+                   pow2: bool = False, mask_col: Optional[str] = None,
+                   len_col: Optional[str] = None) -> "TensorFrame":
+        """Pad a ragged 1-d column to a dense ``[rows, L]`` column plus an
+        int32 validity-mask column and an int64 length column, which makes
+        it usable by the block-level ops. Eager on the column lengths;
+        the padded blocks build lazily.
+
+        ``pow2`` rounds L up to a power of two.
+        """
+        field = self._schema.get(name)
+        if field is None:
+            raise KeyError(f"No column {name!r}")
+        mask_col = mask_col or f"{name}_mask"
+        len_col = len_col or f"{name}_len"
+        for c in (mask_col, len_col):
+            if c in self._schema:
+                raise ValueError(f"Column {c!r} already exists")
+        blocks = self.blocks()
+
+        def cell_list(b: Block) -> List[np.ndarray]:
+            col = b.columns[name]
+            return [np.asarray(col[i]) for i in range(b.num_rows)]
+
+        longest = 0
+        for b in blocks:
+            for c in cell_list(b):
+                if c.ndim != 1:
+                    raise ValueError(
+                        f"pad_column supports 1-d cells; {name!r} has a "
+                        f"rank-{c.ndim} cell")
+                longest = max(longest, c.size)
+        L = max_len if max_len is not None else longest
+        if pow2:
+            p = 1
+            while p < L:
+                p *= 2
+            L = p
+        storage = field.dtype.np_storage
+
+        def pad_block(b: Block) -> Block:
+            cols = dict(b.columns)
+            cells = cell_list(b)
+            dense = np.zeros((b.num_rows, L), storage)
+            mask = np.zeros((b.num_rows, L), np.int32)
+            for i, c in enumerate(cells):
+                if c.size > L:
+                    raise ValueError(
+                        f"pad_column: a cell of {name!r} holds {c.size} "
+                        f"values, more than max_len={L}")
+                dense[i, :c.size] = c
+                mask[i, :c.size] = 1
+            cols[name] = dense
+            cols[mask_col] = mask
+            cols[len_col] = np.array([c.size for c in cells], np.int64)
+            return Block(cols, b.num_rows)
+
+        fields = []
+        for f in self._schema:
+            if f.name == name:
+                fields.append(Field(name, f.dtype,
+                                    block_shape=Shape(Unknown, L),
+                                    sql_rank=1))
+            else:
+                fields.append(f)
+        fields.append(Field(mask_col, _dt.int32,
+                            block_shape=Shape(Unknown, L), sql_rank=1))
+        fields.append(Field(len_col, _dt.int64,
+                            block_shape=Shape(Unknown), sql_rank=0))
+        return TensorFrame(Schema(fields),
+                           lambda: [pad_block(b) for b in blocks],
+                           self._num_partitions,
+                           plan=f"pad_column({self._plan})")
+
+    def join(self, other: "TensorFrame", on, how: str = "inner",
+             strategy: Optional[str] = None, mesh=None,
+             indicator: Optional[str] = None) -> "TensorFrame":
+        """Join this frame against ``other`` (lazy). A broadcast hash join
+        (the default, and the only strategy without a mesh), or the host
+        sort-merge join (``strategy="sort_merge"``). See
+        :func:`~.relational.join.join`."""
+        from .relational.join import join as _join
+        return _join(self, other, on, how=how, strategy=strategy,
+                     mesh=mesh, indicator=indicator)
+
+    def hot_keys(self) -> List[Dict]:
+        """The hot-key observations of a salted ``daggregate``: one dict
+        per hot group, ``{"keys": {col: value}, "fraction": ...,
+        "salt_slots": K}``. This package has no salted ``daggregate`` yet,
+        so no frame carries any and the list is empty."""
+        return []
+
     def limit(self, n: int) -> "TensorFrame":
         """The first ``n`` rows (in block order). Lazy."""
         if n < 0:
@@ -413,8 +511,161 @@ class TensorFrame:
                                   f.dtype.np_storage)
                  for f in self._schema}, 0)]
 
+        from .memory.estimate import frame_estimate
+        est_rows, est_bytes = frame_estimate(self)
+        if est_rows:
+            take = min(n, int(est_rows))
+            lim_bytes = (int(est_bytes * take / est_rows)
+                         if est_bytes is not None else None)
+        else:
+            take, lim_bytes = None, None
         return TensorFrame(self._schema, run, self._num_partitions,
-                           plan=f"limit({n})({self._plan})")
+                           plan=f"limit({n})({self._plan})",
+                           rows_hint=take, bytes_hint=lim_bytes)
+
+    def sample(self, fraction: float, seed: int = 0) -> "TensorFrame":
+        """A Bernoulli row sample (each row kept independently with
+        probability ``fraction``). Lazy; deterministic for a given seed:
+        block ``i`` draws from ``np.random.default_rng((seed, i))``, as in
+        the JAX package, so both keep the same rows."""
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"sample fraction {fraction} not in [0, 1]")
+
+        def run() -> List[Block]:
+            out: List[Block] = []
+            for i, b in enumerate(self.blocks()):
+                rng = np.random.default_rng((seed, i))
+                mask = rng.random(b.num_rows) < fraction
+                keep = int(mask.sum())
+                out.append(Block(
+                    {k: (v[mask] if isinstance(v, np.ndarray)
+                         else [v[j] for j in np.flatnonzero(mask)])
+                     for k, v in b.columns.items()}, keep))
+            return out
+
+        from .memory.estimate import frame_estimate
+        est_rows, est_bytes = frame_estimate(self)
+        return TensorFrame(
+            self._schema, run, self._num_partitions,
+            plan=f"sample({fraction})({self._plan})",
+            rows_hint=(int(est_rows * fraction)
+                       if est_rows is not None else None),
+            bytes_hint=(int(est_bytes * fraction)
+                        if est_bytes is not None else None))
+
+    def show(self, n: int = 20) -> None:
+        """Print the first ``n`` rows as a small aligned table (the Spark
+        ``df.show()`` convenience)."""
+        rows = self.limit(n).collect()
+        names = self._schema.names
+
+        def fmt(v):
+            if isinstance(v, float):
+                return f"{v:.6g}"
+            if isinstance(v, np.ndarray):
+                flat = np.asarray(v).reshape(-1)
+                s = ", ".join(f"{x:.4g}" if isinstance(x, float)
+                              else str(x) for x in flat[:4])
+                return f"[{s}{', ...' if flat.size > 4 else ''}]"
+            return str(v)
+
+        table = [[fmt(r[i]) for i in range(len(names))] for r in rows]
+        widths = [max(len(nm), *(len(t[i]) for t in table))
+                  if table else len(nm) for i, nm in enumerate(names)]
+        line = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+        print(line)
+        print("|" + "|".join(f" {nm:<{w}} "
+                             for nm, w in zip(names, widths)) + "|")
+        print(line)
+        for t in table:
+            print("|" + "|".join(f" {c:<{w}} "
+                                 for c, w in zip(t, widths)) + "|")
+        print(line)
+
+    def order_by(self, *cols: str, descending: bool = False,
+                 num_partitions: Optional[int] = None) -> "TensorFrame":
+        """Rows globally sorted by scalar key column(s), on the host. Lazy.
+
+        Multi-key: the first name is the primary key. Stable within equal
+        keys. The result is re-partitioned evenly (``num_partitions``
+        defaults to the input's count): a global sort cannot keep the
+        partition boundaries.
+        """
+        if not cols:
+            raise ValueError("order_by needs at least one key column")
+        for c in cols:
+            f = self._schema.get(c)
+            if f is None:
+                raise KeyError(
+                    f"No column {c!r}; columns: {self._schema.names}")
+            if f.sql_rank != 0:
+                raise ValueError(
+                    f"order_by key {c!r} must be a scalar column")
+        parts = num_partitions or self._num_partitions
+
+        def run() -> List[Block]:
+            # only the KEY columns are concatenated; value columns gather
+            # from their blocks one output block at a time
+            blocks = self.blocks()
+            sizes = [b.num_rows for b in blocks]
+            offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(
+                np.int64)
+            n = int(offsets[-1])
+            # np.lexsort: the LAST key is primary; stable. Descending
+            # negates the key instead of reversing the result, which would
+            # un-stabilize ties. Float keys negate the values, so NaN stays
+            # LAST (np.lexsort sinks NaN); other keys (strings, ints) negate
+            # their dense rank, which cannot overflow and works for objects.
+            keys = []
+            for c in reversed(cols):
+                parts_c = [np.asarray(b.columns[c]) for b in blocks
+                           if b.num_rows]
+                k = (np.concatenate(parts_c) if parts_c
+                     else np.empty(0))
+                if descending:
+                    if k.dtype.kind == "f":
+                        k = -k
+                    else:
+                        k = -np.unique(k, return_inverse=True)[1]
+                keys.append(k)
+            order = np.lexsort(keys) if n else np.empty(0, np.int64)
+            del keys
+            if n < 2 ** 31:
+                order = order.astype(np.int32)
+            spans = _split_even(n, parts)
+            out_blocks = []
+            col_srcs = {name: [b.columns[name] for b in blocks]
+                        for name in self._schema.names}
+            col_dense = {name: all(isinstance(s, np.ndarray)
+                                   for s in srcs)
+                         for name, srcs in col_srcs.items()}
+            for a, e in spans:
+                osel = order[a:e]
+                bsel = np.searchsorted(offsets[1:], osel,
+                                       side="right").astype(np.int32)
+                lsel = osel - offsets[bsel]
+                masks = [(bi, bsel == bi) for bi in np.unique(bsel)]
+                cols_out: Dict[str, Column] = {}
+                for name in self._schema.names:
+                    srcs = col_srcs[name]
+                    if col_dense[name] and srcs:
+                        first = srcs[bsel[0]] if e > a else srcs[0]
+                        out_a = np.empty((e - a,) + first.shape[1:],
+                                         first.dtype)
+                        for bi, m in masks:
+                            out_a[m] = srcs[bi][lsel[m]]
+                        cols_out[name] = out_a
+                    else:  # ragged list columns reorder by index
+                        cols_out[name] = [srcs[bi][i]
+                                          for bi, i in zip(bsel, lsel)]
+                out_blocks.append(Block(cols_out, e - a))
+            return out_blocks
+
+        from .memory.estimate import propagate_hints
+        rows_h, bytes_h = propagate_hints(self, self._schema)
+        return TensorFrame(self._schema, run, parts,
+                           plan=f"order_by{cols}({self._plan})",
+                           rows_hint=rows_h, bytes_hint=bytes_h)
 
     def group_by(self, *cols: str) -> "GroupedFrame":
         for c in cols:

@@ -155,7 +155,8 @@ def read_parquet(path: str, columns: Optional[Sequence[str]] = None,
     Variable-length list columns become RAGGED columns (usable by
     ``map_rows`` directly). ``pad_ragged=True`` pads every ragged column
     at load (dense ``[rows, L]`` plus ``_mask``/``_len`` columns); a
-    sequence of names pads just those.
+    sequence of names pads just those, a column that is not ragged
+    through :meth:`~.frame.TensorFrame.pad_column`.
 
     ``row_group_offset`` skips the first N row groups — only groups at
     index >= offset are read (one footer read, no data touched for the
@@ -413,12 +414,8 @@ def _read_parquet_eager(path: str, columns: Optional[Sequence[str]],
                          b - a) for a, b in spans]
         first = TensorFrame.from_blocks(fblocks, schema)
     for n in to_pad:
-        if n not in fused_pad:
-            # the JAX package pads a non-ragged column through
-            # TensorFrame.pad_column, which this package does not have yet
-            raise NotImplementedError(
-                f"pad_ragged names {n!r}, which is not a ragged column; "
-                f"pad_column is not in tensorframes_tpu_torch yet")
+        if n not in fused_pad:  # non-ragged pad request: pad_column path
+            first = first.pad_column(n)
     return first
 
 

@@ -74,7 +74,12 @@ def maybe_run(frame) -> Optional[List]:
         leaf_blocks = leaf.read_blocks(plan.leaf_required,
                                        atoms=plan.scan_atoms)
     else:
-        leaf_blocks = leaf.frame.blocks()
+        if leaf.kind == "join":
+            # pruning reaches INTO the join: only the columns this chain
+            # needs are gathered and materialized
+            leaf_blocks = leaf.read_blocks(plan.leaf_required)
+        else:
+            leaf_blocks = leaf.frame.blocks()
         for b in leaf_blocks:
             for n in plan.scan_names:
                 if b.num_rows and b.is_ragged(n):

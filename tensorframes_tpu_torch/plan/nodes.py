@@ -14,7 +14,9 @@ from measured leaf sizes (exact block bytes for in-memory sources,
 footer column-chunk sizes for parquet scans), so projections and fetch
 columns are priced individually instead of by the whole-schema row-byte
 ratio. ``memory.estimate.frame_estimate`` consults this for unforced
-frames. The join leaf of the JAX package is not in this package yet.
+frames. A lazy join (``relational/join.py``) is a leaf too
+(:class:`JoinNode`): chains fuse over its result, and pruning reaches into
+it.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from ..schema import Schema
 from ..utils.logging import get_logger
 
 __all__ = ["PlanNode", "SourceNode", "ParquetScanNode", "MapBlocksNode",
-           "MapRowsNode", "FilterNode", "SelectNode", "attach", "node_for",
-           "record_selectivity", "observed_selectivity"]
+           "MapRowsNode", "FilterNode", "SelectNode", "JoinNode", "attach",
+           "node_for", "record_selectivity", "observed_selectivity"]
 
 _log = get_logger("plan.nodes")
 
@@ -463,6 +465,109 @@ class SelectNode(PlanNode):
         if cols is None:
             return rows, None
         return rows, {n: cols[n] for n in self.names if n in cols}
+
+
+class JoinNode(PlanNode):
+    """Leaf over a lazy join (``relational/join.py``): downstream chains
+    fuse over the join result like any source, column pruning reaches INTO
+    the join through :meth:`read_blocks` (build columns the chain never
+    names are not gathered, probe passthrough columns not materialized),
+    and :meth:`estimate` prices the join's output per column.
+    ``strategy`` is ``"broadcast"`` or ``"sort_merge"``.
+    """
+
+    kind = "join"
+
+    def __init__(self, left: PlanNode, right: Optional[PlanNode],
+                 schema: Schema, on, how: str, strategy: str,
+                 materialize):
+        super().__init__(None, schema)
+        self.left = left
+        self.right = right
+        self.on = tuple(on)
+        self.how = how
+        self.strategy = strategy
+        self._materialize = materialize
+        self.build = None  # the broadcast BuildTable, on that path
+
+    def describe(self) -> str:
+        return f"join[{self.strategy},{self.how}]{list(self.on)}"
+
+    @property
+    def frame(self):
+        """The join result frame."""
+        return self.result_ref() if self.result_ref is not None else None
+
+    def read_blocks(self, names: Sequence[str]) -> List:
+        """The join's blocks holding (at least) ``names``: the forced
+        frame's cache when it exists, the join run for ``names`` only
+        otherwise."""
+        frame = self.frame
+        if frame is not None and getattr(frame, "_cache", None):
+            return frame._cache
+        return self._materialize(list(names))
+
+    def _rows_estimate(self, rows_l: Optional[float]) -> Optional[float]:
+        """Output cardinality: a broadcast BuildTable prices the per-probe
+        row expansion from its unique-key count (``build_rows /
+        num_groups``, exactly 1 for unique keys, so 1:1 left joins stay
+        exact); a sort-merge join over forced sides prices ``|L|·|R| /
+        max(V(L), V(R))`` with HLL ``approx_key_distinct`` probes.
+        Anything unprobeable keeps the probe side's row count."""
+        if not rows_l:
+            return rows_l
+        build = self.build
+        if build is not None and build.num_groups:
+            rows = rows_l * (build.build_rows / build.num_groups)
+            return max(rows, rows_l) if self.how == "left" else rows
+        if self.right is not None:
+            rows_r, _ = self.right.estimate()
+            if rows_r:
+                from ..relational.join import approx_key_distinct
+                lf = (self.left.result_ref()
+                      if self.left.result_ref is not None else None) \
+                    or getattr(self.left, "frame", None)
+                rf = (self.right.result_ref()
+                      if self.right.result_ref is not None else None) \
+                    or getattr(self.right, "frame", None)
+                d_l = approx_key_distinct(lf, self.on) \
+                    if lf is not None else None
+                d_r = approx_key_distinct(rf, self.on) \
+                    if rf is not None else None
+                d = max([v for v in (d_l, d_r) if v] or [0.0])
+                if d >= 1.0:
+                    rows = rows_l * rows_r / d
+                    return max(rows, rows_l) if self.how == "left" \
+                        else rows
+        return rows_l
+
+    def _estimate(self) -> Estimate:
+        rows_l, cols_l = self.left.estimate()
+        rows = self._rows_estimate(rows_l)
+        out: Dict[str, int] = {}
+        if cols_l is not None:
+            # left columns replicate with the expansion factor
+            scale_l = (rows / rows_l) if rows_l and rows else 1.0
+            out.update({n: int(b * scale_l) for n, b in cols_l.items()
+                        if n in self.schema})
+        build = self.build
+        if build is not None and build.build_rows and rows:
+            scale = rows / build.build_rows
+            for f in build.value_fields:
+                if f.name not in self.schema:
+                    continue
+                if f.name in build.tensor_names:
+                    nb = int(build._sorted_host[f.name].nbytes * scale)
+                else:
+                    nb = int(8 * rows)
+                out[f.name] = nb
+        elif self.right is not None:
+            rows_r, cols_r = self.right.estimate()
+            if cols_r is not None and rows_r and rows:
+                for n, b in cols_r.items():
+                    if n in self.schema and n not in out:
+                        out[n] = int(b * rows / rows_r)
+        return rows, (out or None)
 
 
 def node_for(frame) -> PlanNode:

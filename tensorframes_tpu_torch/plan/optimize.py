@@ -30,7 +30,8 @@ run can tell (data-dependent shapes) is never proven:
   next stage consumes them where they lie;
 - column pruning is a backward pass over the chain: only columns that
   feed a computation or survive to the final schema are read
-  (``ParquetScanNode``), marshalled, or materialized as program outputs.
+  (``ParquetScanNode``), gathered by a join (``JoinNode``), marshalled, or
+  materialized as program outputs.
 
 A composed :class:`~..computation.Computation` is built from its
 members' specs and never probes them again. It is built anew at every
@@ -313,8 +314,9 @@ def build_plan(frame) -> Optional[ExecPlan]:
         return None
     device_ops = sum(1 for o in ops
                      if o.kind in ("map_blocks", "map_rows", "filter"))
-    # parquet scans prune their read
-    prunable_leaf = leaf.kind == "parquet"
+    # parquet scans prune their read; join leaves prune the columns the
+    # join materializes
+    prunable_leaf = leaf.kind in ("parquet", "join")
     if device_ops < 2 and not prunable_leaf:
         return None  # nothing to win; per-op semantics stay canonical
     if MASK in leaf.schema or any(MASK in o.schema for o in ops):
@@ -453,7 +455,7 @@ def build_plan(frame) -> Optional[ExecPlan]:
         close(len(ops) - 1, None)
     if not stages:
         # a pure-projection chain still plans when it prunes a parquet
-        # read; otherwise the per-op path is already minimal
+        # read or a join; otherwise the per-op path is already minimal
         if not (prunable_leaf and len(leaf_required) < len(leaf.schema)):
             return None
     pruned = tuple(f.name for f in leaf.schema if f.name not in need) \

@@ -9,12 +9,19 @@ Names keep the JAX package's. Spans: ``executor.convert`` (host->device,
 opened only when some input is on the host), ``executor.dispatch``,
 ``executor.convert_back``, ``pipeline.submit`` / ``pipeline.drain``,
 ``plan.execute`` (one fused forcing), ``io.parquet_read`` (one row group
-decoded), ``aggregate.factorize_keys`` / ``aggregate.segment_reduce``.
+decoded), ``aggregate.factorize_keys`` / ``aggregate.segment_reduce`` /
+``aggregate.sketch_fold``, ``join.probe`` (one probe block joined),
+``join.match`` (its host key match) and ``join.probe_gather`` (its device
+gather), and ``join.sort_merge`` (one sort-merge join run).
 Counters: ``pipeline.submitted`` / ``pipeline.drained``,
 ``plan.fused_queries``, ``plan.oom_fallbacks``,
-``plan.pushdown_groups_skipped`` / ``plan.pushdown_bytes_skipped``, and
+``plan.pushdown_groups_skipped`` / ``plan.pushdown_bytes_skipped``,
 ``io.parquet_row_groups_read`` / ``io.parquet_bytes_read`` (the footer's
-uncompressed bytes of the column chunks a scan decoded).
+uncompressed bytes of the column chunks a scan decoded), and
+``relational.broadcast_joins`` / ``relational.sort_merge_joins`` (joins
+defined), ``relational.probe_dispatches`` (gather programs run),
+``relational.rows_joined``, ``relational.sketch_folds`` and
+``relational.key_distinct_probes``.
 """
 
 from __future__ import annotations

@@ -305,3 +305,112 @@ def test_fused_chain_into_aggregate_launches_segment_sum(cuda, monkeypatch):
     want = ttf.aggregate({"b": "sum"},
                          _plan_chain(_plan_frame()).group_by("k"))
     assert_frames_match(want, got)  # the same rows per block: bit-equal
+
+
+# ---------------------------------------------------------------------------
+# the relational layer on the card: joins gather on the device, sketches
+# fold there from 4,096 rows
+# ---------------------------------------------------------------------------
+
+def _join_tables(rng, n=5000, m=300):
+    right = {"k": rng.permutation(m).astype(np.int64)[: m - 20],
+             "w": rng.standard_normal(m - 20),
+             "f": rng.standard_normal(m - 20).astype(np.float32),
+             "i": rng.integers(-9, 9, m - 20).astype(np.int32),
+             "e": rng.standard_normal((m - 20, 3)),
+             "s": np.array([f"r{i}" for i in range(m - 20)], object)}
+    right["k"][::7] = right["k"][1::7][: len(right["k"][::7])]  # dup keys
+    left = {"k": rng.integers(0, m, n).astype(np.int64),
+            "x": rng.standard_normal(n)}
+    return left, right
+
+
+@pytest.mark.parametrize("how", ["inner", "left"])
+def test_broadcast_join_on_the_card_equals_the_cpu_executor(cuda, how):
+    from tensorframes_tpu_torch.engine.executor import BlockExecutor
+    from tensorframes_tpu_torch.utils.tracing import counters
+    left, right = _join_tables(np.random.default_rng(31))
+    right["b"] = right["f"]  # a bfloat16 column: f32 on the host
+    schema = ttf.Schema([
+        ttf.Field("b", ttf.dtypes.bfloat16, block_shape=f.block_shape)
+        if f.name == "b" else f for f in ttf.frame(right).schema])
+    right_df = ttf.frame(right, schema=schema)
+    gpu = ttf.relational.broadcast_join(
+        ttf.frame(left, num_partitions=3), right_df, on="k", how=how,
+        indicator="hit")
+    build = gpu._plan_node.build
+    assert all(t.is_cuda for t in build.dev_cols.values())
+    d0 = counters.get("relational.probe_dispatches")
+    gpu.blocks()
+    assert counters.get("relational.probe_dispatches") - d0 == 3
+    cpu = ttf.relational.broadcast_join(
+        ttf.frame(left, num_partitions=3), right_df, on="k", how=how,
+        indicator="hit", executor=BlockExecutor(device="cpu"))
+    assert_frames_match(cpu, gpu)  # a gather moves values: bit-equal
+    assert gpu.blocks()[0].columns["b"].dtype == np.float32
+
+
+@pytest.mark.parametrize("kind", ["hll", "quantile"])
+def test_sketch_device_fold_on_the_card_equals_the_host_fold(
+        cuda, monkeypatch, kind):
+    from tensorframes_tpu.relational import sketch as jsketch
+    from tensorframes_tpu_torch.relational import sketch as tsketch
+    rng = np.random.default_rng(32)
+    n = 50_000
+    ids = rng.integers(0, 7, n).astype(np.int64)
+    if kind == "hll":
+        vals = rng.integers(0, 30_000, n).astype(np.int64)
+        sk, jsk = tsketch.HllSketch(bits=12), jsketch.HllSketch(bits=12)
+    else:
+        vals = rng.lognormal(0.0, 2.0, n)
+        sk = tsketch.QuantileSketch(qs=(0.5, 0.99))
+        jsk = jsketch.QuantileSketch(qs=(0.5, 0.99))
+    card = sk.block_partial(vals, ids, 7, device="cuda")
+    monkeypatch.setattr(tsketch, "DEVICE_FOLD_ROWS", 1 << 62)
+    host = sk.block_partial(vals, ids, 7)
+    assert card.dtype == host.dtype == np.int32
+    np.testing.assert_array_equal(card, host)
+    np.testing.assert_array_equal(card, np.asarray(jsk.block_partial(
+        vals, ids, 7)))
+
+
+def test_star_schema_chain_on_the_card_equals_the_cpu_run(cuda, monkeypatch):
+    from chip_smoke import ssb_reference
+    from test_torch_relational import ssb_query, ssb_small
+    from tensorframes_tpu_torch.utils.tracing import counters
+    monkeypatch.delenv("TFT_FUSE", raising=False)
+    tables = ssb_small(20_000)
+    for q21 in (True, False):
+        before = segment_reduce.launches
+        f0 = counters.get("plan.fused_queries")
+        chain, gpu = ssb_query(ttf, tables, q21=q21)
+        gpu.blocks()
+        assert chain._plan_info
+        assert counters.get("plan.fused_queries") > f0
+        assert segment_reduce.launches - before == 3  # one per block
+        ttf.set_default_device("cpu")
+        try:
+            _, cpu = ssb_query(ttf, tables, q21=q21)
+            cpu.blocks()
+        finally:
+            ttf.set_default_device("cuda")
+        # revenue is integral: every order of summation is exact
+        assert_frames_match(cpu, gpu)
+        want = ssb_reference(np, tables, q21)
+        for name, col in want.items():
+            np.testing.assert_array_equal(gpu.blocks()[0].columns[name], col)
+
+
+def test_failing_device_fold_raises_on_the_card(cuda, monkeypatch):
+    from tensorframes_tpu_torch.engine import ops as tops
+    calls = []
+
+    def broken(cname, values, ids, num_segments):
+        calls.append(values.device.type)
+        raise RuntimeError("device fold failed")
+    monkeypatch.setattr(tops, "_segment_reduce", broken)
+    df = ttf.frame({"g": np.zeros(5000, np.int64),
+                    "v": np.arange(5000, dtype=np.int64)})
+    with pytest.raises(RuntimeError, match="device fold failed"):
+        ttf.aggregate({"v": ttf.approx_distinct(bits=8)}, df.group_by("g"))
+    assert calls == ["cuda"]  # tried on the card, never again on the host

@@ -254,10 +254,29 @@ def test_pad_ragged_then_map_blocks(tmp_path):
         float(np.arange(i + 1).sum()) for i in range(6)]
 
 
-def test_pad_of_a_dense_column_is_not_ported_yet(tmp_path):
+def test_fused_pad_matches_pad_column(tmp_path):
+    # read_parquet(pad_ragged=True) pads straight from the arrow offsets
+    # and values; it must be indistinguishable from loading the ragged
+    # cells and then pad_column, and both equal the JAX package's
     p = _write_ragged(tmp_path)
-    with pytest.raises(NotImplementedError, match="pad_column"):
-        tio.read_parquet(p, pad_ragged=["x"])
+    fused = tio.read_parquet(p, pad_ragged=True)
+    stepwise = tio.read_parquet(p).pad_column("v")
+    assert schema_tuple(fused.schema) == schema_tuple(stepwise.schema)
+    assert_frames_match(jio.read_parquet(p).pad_column("v"), stepwise)
+    fr, sr = fused.collect(), stepwise.collect()
+    assert len(fr) == len(sr)
+    for a, b in zip(fr, sr):
+        for c in fused.schema.names:
+            np.testing.assert_array_equal(a[c], b[c])
+
+
+def test_pad_of_a_dense_column_goes_through_pad_column(tmp_path):
+    # a named column that is not ragged pads through pad_column, whose
+    # 1-d cell rule rejects a scalar column in both packages
+    p = _write_ragged(tmp_path)
+    for io in (jio, tio):
+        with pytest.raises(ValueError, match="1-d cells"):
+            io.read_parquet(p, pad_ragged=["x"])
 
 
 def test_fused_pad_empty_and_uniform_cells(tmp_path):
