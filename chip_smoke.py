@@ -42,6 +42,19 @@ paths through its public entry points and checks every result:
    fold on the CPU and to the host's numpy fold. Build columns the chain
    never names (``d_yearmonthnum``, ``p_mfgr``, ``s_nation``) are never
    gathered;
+3d. recovery from a real ``torch.cuda.OutOfMemoryError``: 20M rows in 8
+   partitions, an f32 cell ``x`` of 16 features and an int64 key in [0,
+   100,000), a ``map_rows`` of random Fourier features (``z = cos(x @ W +
+   b) @ beta / sqrt(4096)``) forced by ``aggregate({"z": "sum"})`` under a
+   24 GiB cap (``torch.cuda.set_per_process_memory_fraction``): each
+   block's submit runs out of memory, its drain re-runs it synchronously
+   and the executor halves it until it fits (3 splits a block), the keyed
+   sum runs through segment_sum in f32; ``z`` bit-equal to the uncapped
+   chain over the split's leaf shapes and within 1e-4 of f64 numpy, the
+   sums within the f32 summation bound, the counters, trace events and
+   flight records as the memory model predicts; then injected OOM,
+   dispatch, drain and give-up drills, each bit-equal to the undisturbed
+   run;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -61,7 +74,7 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3c for
+with each kernel's launches during its main path (phases 1-3d for
 segment_sum, phase 4 for flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
@@ -710,6 +723,262 @@ def phase_ssb_q21(ttf, np, torch, segment_reduce, rows=6_000_000, parts=8,
             "fused_profile": profiled}
 
 
+def rff_tables(np, rows, d=16, feats=4096, keys=100_000, seed=6,
+               dtype="float32") -> dict:
+    """The OOM phase's data from a numpy seed: ``x`` [rows, d] N(0, 1),
+    ``key`` int64 in [0, keys), and the random Fourier features of a
+    Gaussian kernel (Rahimi and Recht, NIPS 2007) the program closes over:
+    ``W`` [d, feats] N(0, 1), ``b`` U(0, 2 pi), ``beta`` N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((rows, d), dtype=np.float32)
+            .astype(dtype),
+            "key": rng.integers(0, keys, rows),
+            "W": rng.standard_normal((d, feats)).astype(dtype),
+            "b": rng.uniform(0.0, 2 * np.pi, feats).astype(dtype),
+            "beta": rng.standard_normal(feats).astype(dtype)}
+
+
+def rff_query(m, cos, consts, tables, partitions) -> tuple:
+    """``frame -> map_rows(z = cos(x @ W + b) @ beta / sqrt(F)) -> select
+    -> aggregate({"z": "sum"})`` by ``key`` through package ``m`` (the port
+    or, in the tests, the JAX package), with ``consts`` = (W, b, beta) as
+    that package's arrays and ``cos`` its cosine. Lazy up to the
+    aggregate, which forces the map as one fused row-local stage. Returns
+    ``(selected frame, aggregate)``."""
+    W, b, beta = consts
+    scale = 1.0 / float(tables["W"].shape[1]) ** 0.5
+    df = m.frame({"key": tables["key"], "x": tables["x"]},
+                 num_partitions=partitions)
+    sel = df.map_rows(lambda x: {"z": (cos(x @ W + b) @ beta) * scale}) \
+        .select(["key", "z"])
+    return sel, m.aggregate({"z": "sum"}, sel.group_by("key"))
+
+
+def rff_reference(np, tables, rows) -> "np.ndarray":
+    """``z`` of ``rows`` in f64 numpy."""
+    f64 = {k: np.asarray(tables[k], np.float64) for k in ("W", "b", "beta")}
+    x = tables["x"][rows].astype(np.float64)
+    return np.cos(x @ f64["W"] + f64["b"]) @ f64["beta"] \
+        / np.sqrt(f64["W"].shape[1])
+
+
+def rff_splits(rows, d, feats, cap_bytes) -> int:
+    """The splits a block of ``rows`` takes under ``cap_bytes``, by the
+    program's memory: ``x @ W`` and ``+ b`` hold two [rows, feats] f32
+    tensors at once (so does ``cos``), beside the [rows, d] input. A
+    block that does not fit halves, recursively."""
+    if 2 * rows * feats * 4 + rows * d * 4 <= cap_bytes or rows < 2:
+        return 0
+    return 1 + rff_splits(rows // 2, d, feats, cap_bytes) \
+        + rff_splits(rows - rows // 2, d, feats, cap_bytes)
+
+
+def phase_oom_recovery_rff(ttf, np, torch, segment_reduce, n=20_000_000,
+                           parts=8, d=16, feats=4096, keys=100_000,
+                           cap_gib=24.0, sample=10_000) -> dict:
+    """The executor's recovery from a real ``torch.cuda.OutOfMemoryError``.
+
+    The reference workload's 20M rows in 8 partitions with an f32 vector
+    cell ``x`` of 16 features and an int64 ``key`` in [0, 100,000); a
+    row-local ``map_rows`` of random Fourier features, ``z = cos(x @ W +
+    b) @ beta / sqrt(4096)``, then ``aggregate({"z": "sum"})`` by key,
+    with the process capped at 24 GiB by
+    ``torch.cuda.set_per_process_memory_fraction`` (put back to 1.0 in a
+    ``finally``). One block's [2.5M, 4096] f32 product is 40.96 GB: every
+    block's submit fails at its first product, its drain splits it at
+    once (a sync fallback, with no second whole-block attempt), the
+    1.25M-row halves fail at the add and the 625k-row quarters fit
+    (:func:`rff_splits`). Checks, none
+    caught: ``z`` bit-equal to the chain without the cap over the same
+    rows in 32 partitions of 625,000 (the split's leaf shapes, the same
+    cuBLAS calls); ``z`` within rtol and atol 1e-4 of f64 numpy on 10,000
+    rows drawn from the seed; the keyed sums (B1 in f32) within 1e-5 of
+    the group's sum of ``|z|`` from numpy's f64 sums of the ``z`` the card
+    returned (the f32 summation bound: the sums cancel, so a bound
+    relative to the sum itself is not one); the counters as the memory
+    model predicts; the aggregate's trace holding one ``oom_split`` event,
+    each under the cap, and one ``engine.oom_split`` flight record under
+    its query id, per split. Then four injected drills on ``map_rows(z =
+    x + x)`` over the reference workload's f64 column, uncapped, each
+    bit-equal to the undisturbed run: one OOM (one split), two transient
+    dispatch faults (two retries), one drain fault at depth 3 (one sync
+    fallback), and ten dispatch faults (a giveup with ``InjectedFault``).
+    """
+    from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch.observability import flight
+    from tensorframes_tpu_torch.resilience import InjectedFault, faults
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    dev = ttf.default_device()
+    if dev.type == "cuda" and dev.index is None:  # the memory calls want one
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    tables = rff_tables(np, n, d, feats, keys)
+    consts = tuple(torch.from_numpy(tables[k]).to(dev)
+                   for k in ("W", "b", "beta"))
+    cap = int(cap_gib * (1 << 30))
+    predicted = {"oom_split.dispatches":
+                 parts * rff_splits(n // parts, d, feats, cap),
+                 "pipeline.sync_fallbacks": parts,
+                 "plan.oom_fallbacks": 0,
+                 "segment_sum_launches": parts}
+    names = ("oom_split.dispatches", "pipeline.sync_fallbacks",
+             "plan.oom_fallbacks", "retry.executor.dispatch.retries",
+             "retry.executor.dispatch.giveups")
+
+    def counts():
+        return {k: counters.get(k) for k in names}
+
+    def spans_since(before):
+        return {k: {"count": v["count"] - before.get(k, {}).get("count", 0),
+                    "total_s": v["total_s"]
+                    - before.get(k, {}).get("total_s", 0.0)}
+                for k, v in tracing.timings.snapshot().items()
+                if v["count"] > before.get(k, {}).get("count", 0)}
+
+    # the capped query
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        c0, s0, l0 = counts(), tracing.timings.snapshot(), \
+            segment_reduce.launches
+        flight.clear()
+        t0 = time.perf_counter()
+        sel, agg = rff_query(ttf, torch.cos, consts, tables, parts)
+        trace = obs.last_query()  # the eager aggregate's
+        cols = agg.blocks()[0].columns
+        torch.cuda.synchronize()
+        capped_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    got = {k: counters.get(k) - c0[k] for k in names}
+    got["segment_sum_launches"] = segment_reduce.launches - l0
+    spans_capped = spans_since(s0)
+    z = np.concatenate([b.columns["z"] for b in sel.blocks()])
+    assert z.dtype == np.float32 and z.shape == (n,), (z.dtype, z.shape)
+    assert np.isfinite(z).all(), "non-finite z"
+    for k, v in predicted.items():
+        assert got[k] == v, f"{k}: {got[k]}, predicted {v}"
+    assert got["oom_split.dispatches"] >= parts, "a block did not split"
+    assert peak <= cap, f"peak {peak} B over the {cap} B cap"
+
+    # 5, 6: the trace and the flight ring of the capped query
+    assert trace is not None and trace.op == "aggregate", trace
+    splits = [e for e in trace.events if e.etype == "oom_split"]
+    assert len(splits) == got["oom_split.dispatches"], len(splits)
+    for e in splits:
+        assert 0 < e.args["hbm_live_bytes"] <= cap, e.args
+        assert e.args["hbm_peak_bytes"] <= cap, e.args
+        assert e.args["error"] == "OutOfMemoryError", e.args
+    recs = [r for r in flight.for_query(trace.query_id)
+            if r["kind"] == "engine.oom_split"]
+    assert len(recs) == got["oom_split.dispatches"], len(recs)
+    assert sorted(r["rows"] for r in recs) == sorted(
+        e.args["rows"] for e in splits)
+
+    # 1: bit-equal to the uncapped chain over the split's leaf shapes
+    leaf_parts = parts
+    rows = n // parts
+    while 2 * rows * feats * 4 + rows * d * 4 > cap:
+        rows //= 2
+        leaf_parts *= 2
+    t0 = time.perf_counter()
+    sel2, agg2 = rff_query(ttf, torch.cos, consts, tables, leaf_parts)
+    cols2 = agg2.blocks()[0].columns
+    torch.cuda.synchronize()
+    uncapped_wall = time.perf_counter() - t0
+    z2 = np.concatenate([b.columns["z"] for b in sel2.blocks()])
+    assert [b.num_rows for b in sel2.blocks()] == [rows] * leaf_parts
+    assert np.array_equal(z.view(np.uint32), z2.view(np.uint32)), \
+        "z under the cap is not bit-equal to the uncapped leaf-shape run"
+
+    # 2: against f64 numpy on rows drawn from the seed
+    idx = np.random.default_rng(61).choice(n, sample, replace=False)
+    want_z = rff_reference(np, tables, idx)
+    np.testing.assert_allclose(z[idx], want_z, rtol=1e-4, atol=1e-4)
+
+    # 3: the keyed sums (B1, f32) against numpy's f64 sums of that z
+    want = np.bincount(tables["key"], weights=z.astype(np.float64),
+                       minlength=keys)
+    scale = np.bincount(tables["key"], weights=np.abs(z.astype(np.float64)),
+                        minlength=keys)
+    np.testing.assert_array_equal(cols["key"], np.arange(keys))
+    assert cols["z"].dtype == np.float32
+    err = np.abs(cols["z"].astype(np.float64) - want)
+    assert (err <= 1e-5 * scale).all(), float(np.max(err / scale))
+    np.testing.assert_array_equal(cols2["key"], cols["key"])
+    assert (np.abs(cols2["z"].astype(np.float64) - want)
+            <= 1e-5 * scale).all(), "the uncapped run's keyed sums"
+
+    # the drills: map_rows(z = x + x) over the reference workload's f64
+    # column, uncapped
+    rng = np.random.default_rng(2)
+    x64 = rng.random(n)
+    dfx = ttf.frame({"x": x64}, num_partitions=parts)
+
+    def drill(site=None, fail_n=0, depth=1):
+        prior = os.environ.get("TFT_PIPELINE_DEPTH")
+        os.environ["TFT_PIPELINE_DEPTH"] = str(depth)
+        c = counts()
+        try:
+            out = dfx.map_rows(lambda x: {"z": x + x})
+            if site is None:
+                got_z = np.concatenate([b.columns["z"] for b in out.blocks()])
+            else:
+                with faults.inject(site, fail_n=fail_n):
+                    got_z = np.concatenate([b.columns["z"]
+                                            for b in out.blocks()])
+        finally:
+            if prior is None:
+                del os.environ["TFT_PIPELINE_DEPTH"]
+            else:
+                os.environ["TFT_PIPELINE_DEPTH"] = prior
+        return got_z, {k: counters.get(k) - c[k] for k in names}
+
+    base, _ = drill()
+    assert np.array_equal(base, 2 * x64)
+    drills = {}
+    for label, site, fail_n, depth, key, want_n in (
+            ("oom", "oom", 1, 1, "oom_split.dispatches", 1),
+            ("dispatch", "dispatch", 2, 1,
+             "retry.executor.dispatch.retries", 2),
+            ("drain", "drain", 1, 3, "pipeline.sync_fallbacks", 1)):
+        zd, cd = drill(site, fail_n, depth)
+        assert cd[key] == want_n, (label, cd)
+        assert np.array_equal(zd.view(np.uint64), base.view(np.uint64)), \
+            f"drill {label} is not bit-equal to the undisturbed run"
+        drills[label] = cd
+    g0 = counters.get("retry.executor.dispatch.giveups")
+    try:
+        drill("dispatch", 10, 1)
+        raise AssertionError("ten dispatch faults did not give up")
+    except InjectedFault as e:
+        assert str(e) == "injected transient fault at site 'dispatch'", e
+    assert counters.get("retry.executor.dispatch.giveups") - g0 == 1
+    drills["giveup"] = {"retry.executor.dispatch.giveups": 1,
+                        "error": "InjectedFault"}
+
+    print_card()
+    return {"rows": n, "partitions": parts, "features": feats,
+            "keys": keys, "cap_bytes": cap, "peak_bytes": peak,
+            "counters": got, "predicted": predicted,
+            "capped_wall_s": capped_wall, "uncapped_wall_s": uncapped_wall,
+            "uncapped_partitions": leaf_parts,
+            "oom_split_s": spans_capped["executor.oom_split"]["total_s"],
+            "factorize_keys_s":
+                spans_capped["aggregate.factorize_keys"]["total_s"],
+            "spans_capped": spans_capped,
+            "trace_oom_split_events": len(splits),
+            "flight_oom_split_records": len(recs),
+            "z_max_abs_err_vs_f64": float(np.max(np.abs(z[idx] - want_z))),
+            "sum_max_err_over_abs_sum": float(np.max(err / scale)),
+            "drills": drills}
+
+
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
 
 
@@ -1106,7 +1375,8 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     block of phase 2 (f64, S = 100,000), of phase 3 (f32 x 64,
     S = 1,024), of phase 3b (a 1M-row row group, f64, S = 100,000) and of
     phase 3c (the roll-up's 750k rows into 7,000 groups, and Q2.1's block
-    after its filter, about 6,000 rows into 280 groups, both f64),
+    after its filter, about 6,000 rows into 280 groups, both f64) and of
+    phase 3d (2.5M rows of f32 ``z``, S = 100,000),
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1119,7 +1389,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 6_000_000 // 8, 1,
                                7_000, torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 6_000, 1, 280,
-                               torch.float64, flush)]
+                               torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               100_000, torch.float32, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -1209,7 +1481,9 @@ def main(argv=None) -> int:
         ("plan_parquet_20M",
          lambda: phase_plan_parquet(ttf, np, torch, segment_reduce)),
         ("ssb_q21_sf1",
-         lambda: phase_ssb_q21(ttf, np, torch, segment_reduce))),
+         lambda: phase_ssb_q21(ttf, np, torch, segment_reduce)),
+        ("oom_recovery_rff_20M",
+         lambda: phase_oom_recovery_rff(ttf, np, torch, segment_reduce))),
         counters)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"

@@ -19,6 +19,14 @@ sort-merge, both plan leaves) and the sketch combiners
 (:func:`approx_distinct`, :func:`approx_quantile`, :func:`approx_top_k`)
 that ``aggregate`` takes beside ``"sum"``.
 
+``resilience`` retries transient dispatch failures, classifies errors and
+injects faults (``resilience.faults``); a ``map_rows`` block that runs out
+of device memory re-runs as two halves, recursively, and a pipelined block
+whose submit failed re-runs synchronously at its drain. ``observability``
+correlates what a query did (``query_trace``, ``last_query``, the
+always-on ``flight`` recorder, the card's memory watermarks) when
+``TFT_TRACE`` is set.
+
 The entry points run on ``cuda`` unless the caller asks for the CPU, with
 :func:`set_default_device` or ``executor=BlockExecutor(device="cpu")``.
 This package imports neither ``jax`` nor ``tensorframes_tpu``.
@@ -49,6 +57,8 @@ from . import interop
 from . import ops
 from . import models
 from . import relational
+from . import observability
+from . import resilience
 from .relational import (approx_distinct, approx_quantile, approx_top_k,
                          join)
 
@@ -94,6 +104,8 @@ __all__ = [
     "ops",
     "models",
     "relational",
+    "observability",
+    "resilience",
     "join",
     "approx_distinct",
     "approx_quantile",

@@ -19,7 +19,10 @@ infers each output's dtype and shape **without running it on data**:
   mixes its inputs with tensors it closes over, such as a model's weights
   on the GPU), the same probes run on fake tensors
   (``FakeTensorMode(allow_non_fake_inputs=True)``): closed-over tensors
-  become fake too, so shapes propagate across devices and nothing runs;
+  become fake too and nothing runs. Fake inputs lie on the CPU first and
+  then, when the package's default device is a CUDA device, on that
+  device, since an op such as ``mm`` refuses to mix a CPU input with a
+  closed-over CUDA tensor even when both are fake;
 - when an output shape depends on the data (``x[x > 0]``), or an op has no
   fake kernel either, capture falls back to the same probes run for real
   on small CPU tensors of ones.
@@ -253,15 +256,16 @@ def _probe_dims(specs: Sequence[TensorSpec], share_lead_symbol: bool
 def _run_probe(dict_fn: Callable, specs: Sequence[TensorSpec],
                shapes: Sequence[Tuple[int, ...]], device: str
                ) -> Dict[str, torch.Tensor]:
-    """One probe on ``meta``, ``fake`` (CPU fake tensors) or real ``cpu``
-    tensors of ones."""
-    fake = device == "fake"
+    """One probe on ``meta``, ``fake`` (CPU fake tensors), ``fake:<device>``
+    (fake tensors on that device) or real ``cpu`` tensors of ones."""
+    fake = device.startswith("fake")
     make = torch.ones if device == "cpu" else torch.empty
     mode = FakeTensorMode(allow_non_fake_inputs=True) if fake \
         else contextlib.nullcontext()
+    where = (device.partition(":")[2] or "cpu") if fake else device
     with mode, torch.no_grad():
         feeds = {s.name: make(sh, dtype=_dt.device_dtype(s.dtype),
-                              device="cpu" if fake else device)
+                              device=where)
                  for s, sh in zip(specs, shapes)}
         return dict_fn(feeds)
 
@@ -280,7 +284,11 @@ def _infer_outputs(dict_fn: Callable, specs: Sequence[TensorSpec],
     of a large real probe is an error of the computation; a failure of the
     small one only drops it."""
     first, second, small = _probe_dims(specs, share_lead_symbol)
-    for device in ("meta", "fake", "cpu"):
+    from .device import default_device
+    kinds = ["meta", "fake"]
+    if default_device().type == "cuda":
+        kinds.append(f"fake:{default_device()}")
+    for device in kinds + ["cpu"]:
         try:
             out_a, out_b = _run_probes(dict_fn, specs, (first, second),
                                        device)

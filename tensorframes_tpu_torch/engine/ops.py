@@ -26,6 +26,13 @@ and ``filter_rows`` records each forcing's observed selectivity on its
 predicate. The mapping form of ``aggregate`` also takes the sketch
 combiners of ``relational/sketch.py`` (``approx_distinct``,
 ``approx_quantile``, ``approx_top_k``), mixed freely with the scalar names.
+``map_rows`` dispatches with ``row_local=True`` (its rows are independent
+under vmap), so a block that runs out of device memory splits in half
+and re-runs (``engine/executor.py``); ``map_blocks``, ``filter_rows``, the
+reduces and ``aggregate`` let the OOM propagate. The eager ops
+(``reduce_blocks``, ``reduce_rows``, ``aggregate``) each open a query
+trace when tracing is on (``observability.traced_query``); a lazy op's
+forcing opens one in ``TensorFrame.blocks``.
 Not in this package yet: the single-program segmented fold of the
 computation-form ``aggregate``.
 """
@@ -46,6 +53,7 @@ from ..computation import Computation, TensorSpec
 from ..memory.estimate import propagate_hints
 from ..frame import Block, GroupedFrame, TensorFrame
 from ..marshal import Column
+from ..observability.events import traced_query
 from ..ops.segment_reduce import segment_sum as _segment_sum
 from ..schema import Field, Schema
 from ..shape import Shape, Unknown
@@ -337,7 +345,7 @@ def _stream_thunk(df: TensorFrame, ex, run_block, submit_block,
     bounded in-flight window, drained FIFO."""
     return lambda: _pipeline.run_pipelined(
         df.blocks(), run_block, submit_block, drain_block,
-        depth=_pipeline.stream_depth(ex))
+        depth=_pipeline.stream_depth(ex), executor=ex)
 
 
 def _drain_with(finish):
@@ -489,7 +497,7 @@ def map_rows(fetches: Fetches, df: TensorFrame,
         if dense:
             with span("map_rows.block_dense"):
                 arrays = {n: b.dense(n) for n in in_names}
-                out = ex.run(vcomp, arrays)
+                out = ex.run(vcomp, arrays, row_local=True)
             return attach_outputs(b, out)
         # ragged: group rows by cell-shape signature and run ONE vmapped
         # call per distinct signature
@@ -504,7 +512,7 @@ def map_rows(fetches: Fetches, df: TensorFrame,
         for idxs in groups.values():
             arrays = {n: np.stack([cells[n][i] for i in idxs])
                       for n in in_names}
-            out = ex.run(vcomp, arrays)
+            out = ex.run(vcomp, arrays, row_local=True)
             for f in fetch_names:
                 for j, i in enumerate(idxs):
                     per_row[f][i] = out[f][j]
@@ -522,7 +530,7 @@ def map_rows(fetches: Fetches, df: TensorFrame,
         if b.num_rows == 0 or any(b.is_ragged(n) for n in in_names):
             return run_block(b)
         arrays = {n: b.dense(n) for n in in_names}
-        return _pipeline.submit(ex, vcomp, arrays)
+        return _pipeline.submit(ex, vcomp, arrays, row_local=True)
 
     rows_h, bytes_h = propagate_hints(df, out_schema)
     out = TensorFrame(out_schema,
@@ -627,6 +635,7 @@ def filter_rows(predicate: Fetches, df: TensorFrame,
 # reduce_blocks / reduce_rows
 # ---------------------------------------------------------------------------
 
+@traced_query("reduce_blocks")
 def reduce_blocks(fetches: Fetches, df: TensorFrame,
                   executor: Optional[BlockExecutor] = None) -> Dict[str, np.ndarray]:
     """Reduce the whole frame to one row. Eager.
@@ -652,7 +661,7 @@ def reduce_blocks(fetches: Fetches, df: TensorFrame,
             lambda b: ex.run(comp, block_arrays(b)),
             lambda b: _pipeline.submit(ex, comp, block_arrays(b)),
             lambda p, b: p.drain(),
-            depth=_pipeline.stream_depth(ex))
+            depth=_pipeline.stream_depth(ex), executor=ex)
     if not partials:
         raise ValueError("reduce_blocks on an empty frame")
     if len(partials) == 1:
@@ -663,6 +672,7 @@ def reduce_blocks(fetches: Fetches, df: TensorFrame,
         return ex.run(comp, stacked)
 
 
+@traced_query("reduce_rows")
 def reduce_rows(fetches: Fetches, df: TensorFrame,
                 executor: Optional[BlockExecutor] = None) -> Dict[str, np.ndarray]:
     """Pairwise-reduce the whole frame to one row. Eager.
@@ -996,6 +1006,7 @@ def _monoid_aggregate(col_combiners: Mapping[str, str],
                                    Schema(out_fields))
 
 
+@traced_query("aggregate")
 def aggregate(fetches: Fetches, grouped: GroupedFrame,
               buffer_size: int = DEFAULT_BUFFER_SIZE,
               executor: Optional[BlockExecutor] = None) -> TensorFrame:

@@ -236,6 +236,9 @@ class TensorFrame:
         self._plan_info: Optional[List[str]] = None
         # host spans of the last forcing made with tracing on (explain)
         self._spans: Optional[Dict[str, Dict[str, float]]] = None
+        # the query trace of this frame's forcing (tracing on, and not
+        # nested inside another query)
+        self._trace = None
 
     # -- construction ------------------------------------------------------
     @staticmethod
@@ -294,17 +297,26 @@ class TensorFrame:
     # -- evaluation --------------------------------------------------------
     def blocks(self) -> List[Block]:
         if self._cache is None:
+            from .observability import events as _obs
             from .utils import tracing
             before = tracing.timings.snapshot() if tracing.enabled() \
                 else None
-            blocks = None
-            if self._plan_node is not None:
-                # the logical plan first: fused stages, pruned reads,
-                # device-resident intermediates; None (fusion off or an
-                # unplannable chain) defers to the per-op thunk
-                from .plan import maybe_run
-                blocks = maybe_run(self)
-            self._cache = blocks if blocks is not None else self._thunk()
+            # forcing IS the query: open a correlated trace (None with
+            # tracing off; a forcing nested inside another query joins
+            # the ambient trace and yields None here)
+            with _obs.query_trace(self._plan.split("(", 1)[0],
+                                  plan=self._plan) as t:
+                blocks = None
+                if self._plan_node is not None:
+                    # the logical plan first: fused stages, pruned reads,
+                    # device-resident intermediates; None (fusion off or
+                    # an unplannable chain) defers to the per-op thunk
+                    from .plan import maybe_run
+                    blocks = maybe_run(self)
+                self._cache = blocks if blocks is not None \
+                    else self._thunk()
+            if t is not None:
+                self._trace = t
             if before is not None:
                 self._spans = _span_delta(before,
                                           tracing.timings.snapshot())

@@ -5,6 +5,10 @@ library with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` at
 the root of the checkout, and loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited source builds anew. Building happens at
 first use, never at import; :func:`build` compiles several sources at once.
+A failed or impossible build raises
+:class:`~..resilience.classify.KernelError`, which the resilience layer
+treats as permanent: it is not retried and nothing falls back to a plain
+version.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+from ..resilience.classify import KernelError
 
 __all__ = ["build", "load"]
 
@@ -34,7 +40,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (neither on PATH nor under /usr/local/cuda); the "
         "package's CUDA kernels are built from source at first use")
 
@@ -70,7 +76,7 @@ def build(*names: str) -> Dict[str, ctypes.CDLL]:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     for name in names:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(_library_path(name)))

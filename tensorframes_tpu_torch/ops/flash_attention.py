@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from ..resilience.classify import KernelError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
@@ -155,7 +156,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, sq, sk, d, scale, int(bool(causal)), _DTYPE_KIND[q.dtype],
             plan.dmax, plan.smem_bytes, int(vec), stream)
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"flash_attention kernel launch failed: "
             f"{lib.tft_flash_attention_error_string(rc).decode()} "
             f"(cudaError {rc})")

@@ -27,6 +27,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..resilience.classify import KernelError
 from . import _build
 
 __all__ = ["segment_sum", "segment_sum_reference", "segment_sum_cuda",
@@ -234,7 +235,7 @@ def segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
             scratch.data_ptr(), ctypes.byref(launch), n, d, num_segments,
             _VALUE_KIND[values.dtype], _ID_KIND[segment_ids.dtype], stream)
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"segment_sum kernel launch failed: "
             f"{lib.tft_cuda_error_string(rc).decode()} (cudaError {rc})")
     launches += 1

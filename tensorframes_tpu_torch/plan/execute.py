@@ -3,11 +3,13 @@
 The port's counterpart of ``tensorframes_tpu/plan/execute.py``, with its
 execution contract (what makes fused == unfused bit-identical):
 
-- every fused program dispatches through the process-default
-  :class:`~..engine.executor.BlockExecutor`, like the per-op path, and at
-  the exact block shape (the port has no padding buckets, so the JAX
-  package's choice of a padding executor for map_rows-only stages,
-  ``_stage_executor``, has no counterpart);
+- every fused program dispatches through the process-default executor
+  the per-op path uses, at the exact block shape, with the same retry
+  loop and fault sites: a FIRST stage of map_rows only (row-local by
+  construction) dispatches with ``row_local=True``, like its per-op twin,
+  so a block that runs out of device memory splits itself in half inside
+  the fused stage; any other stage is not row-local (``_stage_executor``,
+  the JAX package's choice);
 - the FIRST stage pipelines through the executor's submit/drain halves
   (``engine/pipeline.run_pipelined``); later stages run inside the drain
   on the first stage's outputs, which stay DEVICE-resident
@@ -24,14 +26,19 @@ execution contract (what makes fused == unfused bit-identical):
 - a runtime condition the optimizer could not see (a ragged column
   feeding a program) abandons the plan BEFORE any work and returns
   ``None``: the caller then runs the unchanged per-op thunk;
-- a ``torch.cuda.OutOfMemoryError`` in a fused stage hands the forcing
-  back to the per-op path (``plan.oom_fallbacks``), whose smaller
-  dispatches may fit.
+- an out-of-memory failure a fused stage could not split
+  (``resilience.is_oom``: ``torch.cuda.OutOfMemoryError``, a host
+  ``MemoryError``, the TPU's and cuBLAS's status words) hands the forcing
+  back to the per-op path (``plan.oom_fallbacks`` and a
+  ``plan.oom_fallback`` flight record), whose op-granular dispatches may
+  fit or split; any other error propagates;
+- ``faults.slowdown("perf")`` sleeps inside the timed forcing when the
+  ``perf`` site is armed.
 
 Left out, against the JAX package: the adaptive layout (re-bucketed
-streams and mid-plan re-plans), preemption scopes, fault injection and
-the row-conservation ledger of ``resilience/invariants.py``; the port
-runs the static layout, which is what ``TFT_ADAPTIVE=0`` gives there.
+streams and mid-plan re-plans), preemption scopes and the
+row-conservation ledger of ``resilience/invariants.py``; the port runs
+the static layout, which is what ``TFT_ADAPTIVE=0`` gives there.
 """
 
 from __future__ import annotations
@@ -42,6 +49,9 @@ import numpy as np
 import torch
 
 from ..engine.executor import default_executor, to_host, to_storage_dtype
+from ..observability import flight as _flight
+from ..resilience import faults as _faults
+from ..resilience import is_oom
 from ..shape import Unknown
 from ..utils.logging import get_logger
 from ..utils.tracing import counters, span
@@ -57,8 +67,9 @@ def maybe_run(frame) -> Optional[List]:
     the per-op thunk (fusion off, unplannable chain, ragged inputs).
 
     Plan BUILD problems are never fatal (unplanned, not failed);
-    execution errors propagate, except a device OOM, which falls back to
-    the per-op path.
+    execution errors propagate (out of the same resilient executors the
+    per-op path uses, after the same recovery attempts), except an OOM
+    the fused stage could not split, which falls back to the per-op path.
     """
     try:
         plan = build_plan(frame)
@@ -90,15 +101,23 @@ def maybe_run(frame) -> Optional[List]:
     try:
         with span("plan.execute"):
             blocks = _run(plan, leaf_blocks)
-    except torch.cuda.OutOfMemoryError as e:
-        counters.inc("plan.oom_fallbacks")
-        _log.warning("fused plan ran out of device memory (%s); re-running "
-                     "through the per-op path", e)
-        frame._plan_info = None
-        return None
-    counters.inc("plan.fused_queries")
-    frame._plan_info = plan.describe()
-    return blocks
+    except Exception as e:
+        if not is_oom(e):
+            raise
+        error = type(e).__name__
+    else:
+        counters.inc("plan.fused_queries")
+        frame._plan_info = plan.describe()
+        return blocks
+    # outside the handler, so the failed forcing's tensors are gone before
+    # the per-op path runs: stages that are not row-local cannot split an
+    # OOM'd fused dispatch, and the per-op path's smaller ones may fit
+    counters.inc("plan.oom_fallbacks")
+    _flight.record("plan.oom_fallback", error=error)
+    _log.warning("fused plan hit an OOM its stage could not split (%s); "
+                 "re-running through the per-op path", error)
+    frame._plan_info = None
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -210,15 +229,26 @@ def _apply_stage_result(plan, st, env, out, n_rows):
     return new_env, n_rows, None
 
 
+def _stage_executor(st, first: bool = True):
+    """``(executor, row_local)`` of a stage, the per-op choice: a FIRST
+    stage of map_rows only is row-local (and with it gets the OOM row
+    split: rows are independent under vmap); any other stage is not, like
+    its per-op twin.
+
+    Later stages are never row-local, as in the JAX package (there only
+    the first stage, fed by host rows, runs on the padding executor)."""
+    return default_executor(), bool(st.row_local and first)
+
+
 def _run_rest(plan: ExecPlan, env: Dict[str, object], n_rows: int,
               start: int):
     """Stages ``start..`` over an env, device-resident between stages.
     Returns the final block."""
-    ex = default_executor()
     for si in range(start, len(plan.stages)):
         st = plan.stages[si]
+        ex, row_local = _stage_executor(st, first=si == 0)
         out = ex.run(st.comp, {n: env[n] for n in st.inputs},
-                     keep_device=True)
+                     row_local=row_local, keep_device=True)
         env, n_rows, short = _apply_stage_result(plan, st, env, out, n_rows)
         if short is not None:
             return short
@@ -251,6 +281,8 @@ def _run(plan: ExecPlan, leaf_blocks) -> List:
                 env = {n: b.columns[n] for n in plan.leaf_required}
                 out.append(_final_block(plan, env, b.num_rows))
         return out
+    # the perf drill's slowdown lands inside the timed forcing
+    _faults.slowdown("perf")
     return _run_static(plan, leaf_blocks)
 
 
@@ -263,7 +295,7 @@ def _run_static(plan: ExecPlan, leaf_blocks) -> List:
     # stages inside the drain, so later-stage dispatches overlap the
     # next blocks' first-stage work
     st0 = plan.stages[0]
-    ex0 = default_executor()
+    ex0, local0 = _stage_executor(st0, first=True)
     multi = len(plan.stages) > 1
 
     def finish(b, out) -> Block:
@@ -280,7 +312,7 @@ def _run_static(plan: ExecPlan, leaf_blocks) -> List:
         if b.num_rows == 0:
             return _empty_chain(plan.ops, _full_leaf_empty(plan, b))
         out = ex0.run(st0.comp, {n: b.columns[n] for n in st0.inputs},
-                      keep_device=multi)
+                      row_local=local0, keep_device=multi)
         return finish(b, out)
 
     def submit_fn(b):
@@ -288,7 +320,7 @@ def _run_static(plan: ExecPlan, leaf_blocks) -> List:
             # finished: flows through the window
             return _empty_chain(plan.ops, _full_leaf_empty(plan, b))
         return ex0.submit(st0.comp, {n: b.columns[n] for n in st0.inputs},
-                          keep_device=multi)
+                          row_local=local0, keep_device=multi)
 
     def drain_fn(pending, b):
         if isinstance(pending, Block):
@@ -297,4 +329,5 @@ def _run_static(plan: ExecPlan, leaf_blocks) -> List:
 
     return _pipeline.run_pipelined(leaf_blocks, serial_fn, submit_fn,
                                    drain_fn,
-                                   depth=_pipeline.stream_depth(ex0))
+                                   depth=_pipeline.stream_depth(ex0),
+                                   executor=ex0)

@@ -49,10 +49,9 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
-import os
-
 from ..computation import (Computation, TensorSpec, _probe_dims,
                            _run_probe, _run_probes)
+from ..utils.env import env_bool
 from ..utils.logging import get_logger
 from . import nodes as _n
 
@@ -68,10 +67,9 @@ MASK = "_tft_mask"
 def enabled() -> bool:
     """``TFT_FUSE`` gate (default on). ``TFT_FUSE=0`` disables every
     pass; forcing then runs the per-op thunks, bit-identical to the
-    fused path by construction. Parsed as the JAX package's ``env_bool``:
-    unset or empty is on, ``0``/``false``/``False`` off, anything else
-    on."""
-    return os.environ.get("TFT_FUSE", "") not in ("0", "false", "False")
+    fused path by construction: unset or empty is on,
+    ``0``/``false``/``False`` off, anything else on."""
+    return env_bool("TFT_FUSE", True)
 
 
 # ---------------------------------------------------------------------------
@@ -232,11 +230,12 @@ class Stage:
     schema for mid-chain empty results)."""
 
     __slots__ = ("comp", "inputs", "outputs", "passthrough", "mask",
-                 "label", "op_end", "boundary_schema")
+                 "label", "op_end", "boundary_schema", "row_local")
 
     def __init__(self, comp: Optional[Computation], inputs: Tuple[str, ...],
                  outputs: Tuple[str, ...], passthrough: Tuple[str, ...],
-                 mask: bool, label: str, op_end: int, boundary_schema):
+                 mask: bool, label: str, op_end: int, boundary_schema,
+                 row_local: bool):
         self.comp = comp
         self.inputs = inputs
         self.outputs = outputs
@@ -245,6 +244,12 @@ class Stage:
         self.label = label
         self.op_end = op_end  # index into ExecPlan.ops of the last op
         self.boundary_schema = boundary_schema
+        # every member is a vmapped map_rows (or a select): rows are
+        # independent by construction, so the stage keeps the per-op
+        # map_rows executor and with it the OOM row split. A stage with a
+        # map_blocks or filter member may be cross-row (z = x - mean(x))
+        # and runs on the default executor, like its per-op twin.
+        self.row_local = row_local
 
 
 class ExecPlan:
@@ -402,10 +407,13 @@ def build_plan(frame) -> Optional[ExecPlan]:
             in_specs = [ext[n] for n in sorted(ext)]
             comp = _compose(mem, in_specs, out_specs)
         if comp is not None:
+            row_local = (mask_member is None
+                         and all(m[0] in ("mr", "sel") for m in members)
+                         and any(m[0] == "mr" for m in members))
             stages.append(Stage(
                 comp, tuple(sorted(ext)), produced, passthrough,
                 mask_member is not None, "+".join(labels) or "pass",
-                idx, ops[idx].schema))
+                idx, ops[idx].schema, row_local))
         live = set(produced) | set(passthrough)
         for n in produced:
             origin[n] = "computed"

@@ -1,0 +1,50 @@
+"""Resilient execution: retries, deadlines, fault injection, classification.
+
+The port's counterpart of ``tensorframes_tpu/resilience/__init__.py``,
+with the same exports but ``chaos`` and ``invariants``, which are not
+ported yet (``ROADMAP.md`` A11):
+
+- **policy** (:mod:`.policy`): :class:`RetryPolicy` (bounded attempts,
+  exponential backoff with deterministic jitter, an overall deadline) and
+  the :func:`deadline` context; every retry and giveup is counted
+  (``retry.<op>.retries`` / ``.giveups``) and logged;
+- **classification** (:mod:`.classify`): which exceptions are transient
+  (retry), which are out of memory (split the block:
+  ``torch.cuda.OutOfMemoryError``, ``MemoryError``, the TPU's and
+  cuBLAS's status words), and which are permanent (fail fast; a kernel's
+  build or launch failure, :class:`KernelError`, always is);
+- **faults** (:mod:`.faults`): the deterministic fault-injection harness
+  (``with faults.inject("oom", fail_n=2): ...``) that drives every
+  recovery path on the CPU and on the card.
+
+Consumers: ``engine/executor.py`` (dispatch retry, the row split of an
+OOM'd row-local block), ``engine/pipeline.py`` (the drain's sync
+fallback), ``plan/execute.py`` (a fused plan handed back to the per-op
+path after an OOM its stage could not split).
+"""
+
+from .classify import (AdmissionDeadline, DeviceLost, InvariantViolation,
+                       KernelError, OverQuota, QueryCancelled,
+                       QueryInterrupted, QueryPreempted, QueryQuarantined,
+                       QueueFull, ServeRejected, WorkerLost, error_kind,
+                       is_device_lost, is_oom, is_permanent, is_transient,
+                       is_worker_lost)
+from .faults import InjectedFault, inject
+from .policy import (DEFAULT_POLICY, ClusterInitError, DeadlineExceeded,
+                     RetryPolicy, check_deadline, deadline, default_policy,
+                     env_bool, env_float, env_int, remaining_time)
+from . import faults
+
+__all__ = [
+    "RetryPolicy", "DeadlineExceeded", "ClusterInitError",
+    "DEFAULT_POLICY", "default_policy", "deadline", "remaining_time",
+    "check_deadline",
+    "is_transient", "is_oom", "is_permanent", "is_device_lost",
+    "is_worker_lost", "error_kind",
+    "ServeRejected", "QueueFull", "OverQuota", "AdmissionDeadline",
+    "QueryQuarantined", "InvariantViolation",
+    "DeviceLost", "WorkerLost", "KernelError",
+    "QueryInterrupted", "QueryPreempted", "QueryCancelled",
+    "env_bool", "env_float", "env_int",
+    "faults", "inject", "InjectedFault",
+]

@@ -1,9 +1,19 @@
-"""Host-side spans and always-on counters.
+"""Host-side spans, gauges, always-on counters and histograms.
 
-The counterpart of ``tensorframes_tpu/utils/tracing.py``'s :func:`span`
-and :data:`counters`. :func:`span` times a named stage into :data:`timings`
-when tracing is on (``TFT_TRACE=1`` or :func:`enable`) and costs one global
-read when it is off. :data:`counters` are always on.
+The counterpart of ``tensorframes_tpu/utils/tracing.py``'s :func:`span`,
+:func:`gauge`, :data:`counters`, :data:`histograms` and
+:func:`set_span_observer`. :func:`span` times a named stage into
+:data:`timings` when tracing is on (``TFT_TRACE=1`` or :func:`enable`) and
+costs one global read when it is off; while it times, it also opens a
+``torch.profiler.record_function`` range, so host stages line up with the
+card's kernels in a ``torch.profiler`` trace, and it credits the stage to
+the active query trace through the span observer that
+``observability`` installs. :func:`gauge` samples a level (the pipeline's
+window occupancy) under the same switch; gauges keep their own stat family
+(:meth:`Timings.gauges_snapshot`: ``count``/``mean``/``min``/``max``/
+``last``), apart from the spans' ``count``/``total_s``. :data:`counters`
+and :data:`histograms` are always on. ``profile`` and ``dump_stats`` are
+not in this package yet.
 
 Names keep the JAX package's. Spans: ``executor.convert`` (host->device,
 opened only when some input is on the host), ``executor.dispatch``,
@@ -21,7 +31,13 @@ uncompressed bytes of the column chunks a scan decoded), and
 ``relational.broadcast_joins`` / ``relational.sort_merge_joins`` (joins
 defined), ``relational.probe_dispatches`` (gather programs run),
 ``relational.rows_joined``, ``relational.sketch_folds`` and
-``relational.key_distinct_probes``.
+``relational.key_distinct_probes``; the resilience layer's
+``retry.<op>.retries`` / ``retry.<op>.giveups``, ``deadline.<op>.expired``,
+``oom_split.dispatches``, ``pipeline.sync_fallbacks`` and
+``faults.<site>.injected``; ``trace.queries``. Spans of the recovery:
+``executor.oom_split`` and ``resilience.<op>.attempt``. Gauge:
+``pipeline.occupancy``. Histogram: ``query_latency_seconds`` (by ``op``
+and ``outcome``).
 """
 
 from __future__ import annotations
@@ -30,17 +46,51 @@ import contextlib
 import os
 import threading
 import time
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
-__all__ = ["Timings", "timings", "Counters", "counters", "span", "enable",
-           "disable", "enabled"]
+from .logging import get_logger
+
+__all__ = ["Timings", "timings", "Counters", "counters", "Histograms",
+           "histograms", "span", "gauge", "enable", "disable", "enabled",
+           "set_span_observer"]
+
+_log = get_logger("utils.tracing")
+
+
+class _GaugeStat:
+    """Stats of a sampled level: unit-less, with the newest sample."""
+
+    __slots__ = ("count", "total", "min", "max", "last")
+
+    def __init__(self):
+        self.count = 0
+        self.total = 0.0
+        self.min = float("inf")
+        self.max = float("-inf")
+        self.last = 0.0
+
+    def add(self, value: float) -> None:
+        self.count += 1
+        self.total += value
+        self.min = min(self.min, value)
+        self.max = max(self.max, value)
+        self.last = value
+
+    def as_dict(self) -> Dict[str, float]:
+        return {"count": self.count,
+                "mean": self.total / self.count if self.count else 0.0,
+                "min": self.min if self.count else 0.0,
+                "max": self.max if self.count else 0.0,
+                "last": self.last}
 
 
 class Timings:
-    """Thread-safe per-stage timing registry: ``{name: {count, total_s}}``."""
+    """Thread-safe per-stage timing registry: ``{name: {count, total_s}}``,
+    and the gauges beside it."""
 
     def __init__(self):
         self._stats: Dict[str, Dict[str, float]] = {}
+        self._gauges: Dict[str, _GaugeStat] = {}
         self._lock = threading.Lock()
 
     def add(self, name: str, dt: float) -> None:
@@ -49,13 +99,26 @@ class Timings:
             s["count"] += 1
             s["total_s"] += dt
 
+    def add_gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = _GaugeStat()
+            g.add(value)
+
     def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """The spans (gauges are in :meth:`gauges_snapshot`)."""
         with self._lock:
             return {k: dict(v) for k, v in self._stats.items()}
+
+    def gauges_snapshot(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {k: v.as_dict() for k, v in self._gauges.items()}
 
     def reset(self) -> None:
         with self._lock:
             self._stats.clear()
+            self._gauges.clear()
 
 
 timings = Timings()
@@ -87,6 +150,68 @@ class Counters:
 
 counters = Counters()
 
+
+# Default histogram buckets (seconds), the JAX package's: per-query
+# latencies from sub-millisecond to tens of seconds. Each bucket holds its
+# own (non-cumulative) count.
+DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                   0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+class _Hist:
+    __slots__ = ("buckets", "counts", "sum", "count")
+
+    def __init__(self, buckets):
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)  # +1: the +Inf bucket
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float) -> None:
+        i = len(self.buckets)
+        for j, le in enumerate(self.buckets):
+            if value <= le:
+                i = j
+                break
+        self.counts[i] += 1
+        self.sum += value
+        self.count += 1
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"les": self.buckets + (float("inf"),),
+                "counts": list(self.counts), "sum": self.sum,
+                "count": self.count}
+
+
+class Histograms:
+    """Thread-safe histogram registry, always on like :class:`Counters`
+    (observations are rare: one per finished query). Keyed by
+    ``(family, sorted labels)``."""
+
+    def __init__(self):
+        self._hists: Dict[tuple, _Hist] = {}
+        self._lock = threading.Lock()
+
+    def observe(self, family: str, value: float, buckets=None,
+                **labels) -> None:
+        key = (family, tuple(sorted(labels.items())))
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = _Hist(buckets or DEFAULT_BUCKETS)
+            h.observe(float(value))
+
+    def snapshot(self) -> Dict[tuple, Dict[str, object]]:
+        with self._lock:
+            return {k: v.as_dict() for k, v in self._hists.items()}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._hists.clear()
+
+
+histograms = Histograms()
+
 _enabled = os.environ.get("TFT_TRACE", "") not in ("", "0", "false")
 
 
@@ -104,14 +229,59 @@ def enabled() -> bool:
     return _enabled
 
 
+# the observability layer's per-query stage attribution, called as
+# (name, dt_seconds) at the end of every recorded span; one slot, set at
+# import of tensorframes_tpu_torch.observability
+_span_observer: Optional[Callable[[str, float], None]] = None
+
+
+def set_span_observer(fn: Optional[Callable[[str, float], None]]) -> None:
+    global _span_observer
+    _span_observer = fn
+
+
+def _device_annotation(name: str):
+    """A ``torch.profiler`` range for the span (a no-op unless a profiler
+    records)."""
+    from torch.profiler import record_function
+    return record_function(name)
+
+
 @contextlib.contextmanager
 def span(name: str) -> Iterator[None]:
-    """Time a named host stage; a no-op when tracing is off."""
+    """Time a named host stage; a no-op when tracing is off.
+
+    The profiler range is decoration: one that fails to open or to close
+    neither loses the host timing nor masks the body's own exception."""
     if not _enabled:
         yield
         return
+    ann = _device_annotation(name)
+    try:
+        ann.__enter__()
+    except Exception as e:
+        _log.debug("profiler range enter failed for %s: %s", name, e)
+        ann = None
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        timings.add(name, time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        timings.add(name, dt)
+        obs = _span_observer
+        if obs is not None:
+            obs(name, dt)
+        if ann is not None:
+            try:
+                ann.__exit__(None, None, None)
+            except Exception as e:
+                _log.debug("profiler range exit failed for %s: %s", name,
+                           e)
+
+
+def gauge(name: str, value: float) -> None:
+    """Sample a level into :data:`timings`' gauges (for example the
+    pipeline's in-flight window into ``pipeline.occupancy``); a no-op
+    unless tracing is on."""
+    if _enabled:
+        timings.add_gauge(name, float(value))

@@ -414,3 +414,166 @@ def test_failing_device_fold_raises_on_the_card(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="device fold failed"):
         ttf.aggregate({"v": ttf.approx_distinct(bits=8)}, df.group_by("g"))
     assert calls == ["cuda"]  # tried on the card, never again on the host
+
+
+# ---------------------------------------------------------------------------
+# recovery from a real torch.cuda.OutOfMemoryError under a memory cap
+# ---------------------------------------------------------------------------
+
+# the random-feature program of chip_smoke.py's OOM phase at a test's size:
+# a [rows, 4096] f32 product; x @ W and + b hold two of them at once
+_RFF_ROWS, _RFF_D, _RFF_F = 131_072, 16, 4096
+
+
+@pytest.fixture
+def capped(cuda):
+    """Cap the process at 1.5 GiB over what it holds now, and put the
+    fraction back to 1.0 in a ``finally``; yields the cap in bytes."""
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    cap = torch.cuda.memory_allocated(cuda) + (3 << 29)
+    torch.cuda.set_per_process_memory_fraction(cap / total, cuda)
+    try:
+        yield cap
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, cuda)
+        torch.cuda.empty_cache()
+
+
+def _rff(cuda, rows=_RFF_ROWS, parts=1):
+    from chip_smoke import rff_query, rff_tables
+    tables = rff_tables(np, rows, _RFF_D, _RFF_F, keys=1000)
+    consts = tuple(torch.from_numpy(tables[k]).to(cuda)
+                   for k in ("W", "b", "beta"))
+    return tables, consts, lambda parts=parts: rff_query(
+        ttf, torch.cos, consts, tables, parts)
+
+
+def test_capture_of_a_closure_over_cuda_tensors(cuda):
+    """map_rows and map_blocks over programs that close over tensors on
+    the card capture (fake probes on the card's device) and run there."""
+    W = torch.arange(16 * 8, dtype=torch.float32, device=cuda).reshape(16, 8)
+    x = np.random.default_rng(0).standard_normal((50, 16)).astype(np.float32)
+    df = ttf.frame({"x": x}, num_partitions=2)
+    rows = df.map_rows(lambda x: {"z": x @ W})
+    blocks = df.map_blocks(lambda x: {"z": x @ W})
+    assert rows.schema["z"].dtype.name == "float"
+    want = (torch.from_numpy(x).to(cuda) @ W).cpu().numpy()
+    for out in (rows, blocks):
+        got = np.concatenate([b.columns["z"] for b in out.blocks()])
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_real_oom_under_a_cap_is_split_by_map_rows(capped):
+    """A block whose [131072, 4096] f32 product does not fit under the
+    cap runs out of memory for real; map_rows halves it until it fits
+    (the block and each half fail: 3 splits) and the result is bit-equal
+    to the run over the leaf shapes."""
+    from chip_smoke import rff_splits
+    from tensorframes_tpu_torch.utils.tracing import counters
+    _, _, query = _rff(torch.device("cuda"))
+    counters.reset()
+    sel, agg = query()
+    z = np.concatenate([b.columns["z"] for b in sel.blocks()])
+    assert counters.get("oom_split.dispatches") == rff_splits(
+        _RFF_ROWS, _RFF_D, _RFF_F, 3 << 29) == 3
+    assert counters.get("plan.oom_fallbacks") == 0
+    sel4, _ = query(parts=4)  # the leaf shapes fit under the cap
+    z4 = np.concatenate([b.columns["z"] for b in sel4.blocks()])
+    assert counters.get("oom_split.dispatches") == 3
+    assert np.array_equal(z.view(np.uint32), z4.view(np.uint32))
+
+
+def test_the_same_oom_raises_through_map_blocks(capped):
+    """map_blocks has no row-local contract: the real OOM propagates (and
+    the plan's per-op re-run of it as well), never split."""
+    from tensorframes_tpu_torch.utils.tracing import counters
+    tables, consts, _ = _rff(torch.device("cuda"))
+    W, b, beta = consts
+    counters.reset()
+    df = ttf.frame({"x": tables["x"]})
+    out = df.map_blocks(lambda x: {"z": torch.cos(x @ W + b) @ beta})
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        out.blocks()
+    assert counters.get("oom_split.dispatches") == 0
+
+
+def test_is_oom_accepts_the_real_exception(capped):
+    from tensorframes_tpu_torch import resilience
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(capped, dtype=torch.uint8, device="cuda")
+    assert resilience.is_oom(ei.value)
+    assert not resilience.is_transient(ei.value)
+    assert resilience.error_kind(ei.value) == "oom"
+
+
+def test_failed_submit_does_not_hold_the_attempts_memory(capped):
+    """A submit whose program ran out of memory records the error without
+    its frames: the 1 GiB the program's locals held when it failed is
+    back in the allocator before the drain, which recovers the block by
+    halving it."""
+    from tensorframes_tpu_torch.engine import ops as tops
+    from tensorframes_tpu_torch.engine.executor import BlockExecutor
+    from tensorframes_tpu_torch.utils.tracing import counters
+    tables, consts, _ = _rff(torch.device("cuda"), rows=32_768)
+    W, b, beta = consts
+    rows = tables["x"].shape[0]
+
+    def prog(d):
+        h = d["x"] @ W                  # 512 MiB, held by a local
+        g = torch.cos(h + b)            # 512 MiB more
+        if h.shape[0] == rows:          # the whole block asks for the cap
+            torch.empty(capped, dtype=torch.uint8, device=h.device)
+        return {"z": g @ beta}
+
+    df = ttf.frame({"x": tables["x"]})
+    comp = tops._map_computation(lambda x: {"z": x[:, 0]}, df.schema,
+                                 block_level=True)
+    comp = type(comp)(prog, comp.inputs, comp.outputs)
+    counters.reset()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pending = BlockExecutor().submit(comp, {"x": tables["x"]},
+                                     row_local=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    assert held < (64 << 20), f"the failed attempt still holds {held} B"
+    out = pending.drain()
+    assert out["z"].shape == (rows,) and np.isfinite(out["z"]).all()
+    assert counters.get("pipeline.sync_fallbacks") == 1
+    assert counters.get("oom_split.dispatches") == 1
+
+
+def test_a_broken_kernel_build_is_permanent_and_not_retried(
+        cuda, monkeypatch, tmp_path):
+    """A kernel source that does not compile raises KernelError from the
+    build: classified permanent, tried once by the retry policy, and the
+    keyed sum raises rather than fall back to the plain version."""
+    from tensorframes_tpu_torch import resilience
+    from tensorframes_tpu_torch.ops import _build
+    from tensorframes_tpu_torch.utils.tracing import counters
+    (tmp_path / "segment_sum.cu").write_text(
+        (_build.CSRC / "segment_sum.cu").read_text()
+        + "\nthis is not C++;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    counters.reset()
+    calls = []
+
+    def build():
+        calls.append(1)
+        return _build.load("segment_sum")
+
+    with pytest.raises(resilience.KernelError, match="nvcc failed") as ei:
+        resilience.default_policy().call(build, op="executor.dispatch")
+    assert calls == [1]
+    assert resilience.is_permanent(ei.value)
+    assert counters.get("retry.executor.dispatch.retries") == 0
+    before = segment_reduce.launches
+    df = ttf.frame({"k": np.arange(100) % 7, "v": np.arange(100.0)})
+    with pytest.raises(resilience.KernelError):
+        ttf.aggregate({"v": "sum"}, df.group_by("k"))
+    assert segment_reduce.launches == before

@@ -49,6 +49,18 @@ def test_imports_and_runs_without_jax():
         "         .map_rows(lambda z: {'w': z * 2.0}).select(['w']))\n"
         "assert [r['w'] for r in chain.collect()] == [10.0, 12.0, 14.0, 16.0]\n"
         "assert chain._plan_info, 'the chain did not fuse'\n"
+        "from tensorframes_tpu_torch import observability, resilience\n"
+        "from tensorframes_tpu_torch.utils import tracing\n"
+        "tracing.enable()\n"
+        "rows = ttf.frame({'x': np.arange(16.0)}).map_rows(\n"
+        "    lambda x: {'y': x * 2.0})\n"
+        "with resilience.faults.inject('oom', fail_n=2):\n"
+        "    assert [r['y'] for r in rows.collect()] == \\\n"
+        "        [2.0 * i for i in range(16)]\n"
+        "t = observability.last_query()\n"
+        "assert t.count('oom_split') == 2, t.events\n"
+        "assert len(observability.flight.for_query(t.query_id)) == 2\n"
+        "assert resilience.is_oom(MemoryError())\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [k for k in sys.modules if k == 'tensorframes_tpu'\n"
         "       or k.startswith('tensorframes_tpu.') or k.startswith('jax.')]\n"
@@ -77,7 +89,11 @@ def test_no_jax_or_reference_imports_in_port_sources():
     assert {"io.py", "dsl/__init__.py", "dsl/graph.py", "dsl/lower.py",
             "memory/estimate.py", "plan/__init__.py", "plan/nodes.py",
             "plan/predicates.py", "plan/optimize.py",
-            "plan/execute.py"} <= names
+            "plan/execute.py", "resilience/__init__.py",
+            "resilience/classify.py", "resilience/faults.py",
+            "resilience/policy.py", "observability/__init__.py",
+            "observability/events.py", "observability/flight.py",
+            "observability/device.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):
@@ -116,3 +132,27 @@ def test_chip_smoke_refuses_to_run_without_gpu(tmp_path):
                              timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_device_memory_reads_the_card_or_nothing(monkeypatch):
+    """``observability/device.py`` reads only the card's allocator: with
+    no CUDA, or a card the process has not touched, it reports ``None``,
+    never a host reading in its place."""
+    from tensorframes_tpu_torch.observability import device as obs_device
+
+    src = (PORT / "observability" / "device.py").read_text()
+    for host_probe in ("psutil", "resource", "/proc/", "os.sysconf"):
+        assert host_probe not in src, host_probe
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    obs_device._reset()
+    try:
+        assert obs_device.watermark() is None
+        assert not obs_device.supported()
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        monkeypatch.setattr(torch.cuda, "memory_stats", lambda i=None: {})
+        obs_device._reset()
+        assert obs_device.watermark() is None
+        assert obs_device.supported()
+    finally:
+        obs_device._reset()

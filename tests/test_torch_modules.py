@@ -243,6 +243,47 @@ def test_capture_of_a_closure_over_other_tensors_runs_nothing():
     assert seen and set(seen) == {"abstract"}
 
 
+def test_capture_probes_fake_tensors_on_the_default_cuda_device(
+        monkeypatch):
+    """A program closing over CUDA tensors (the card's constants) fails
+    every probe with CPU inputs, meta and fake alike (``mm`` will not mix
+    devices); capture then probes fake tensors on the package's default
+    CUDA device before it runs anything on the CPU. Without a card the
+    probe order is what can be checked here; ``tests/test_torch_cuda.py``
+    runs such a closure on the card."""
+    from tensorframes_tpu_torch import computation as tcomp
+
+    tried = []
+    real = tcomp._run_probe
+
+    def probe(dict_fn, specs, shapes, device):
+        tried.append(device)
+        if device != "fake:cuda":
+            raise RuntimeError("Expected all tensors to be on the same "
+                               "device")
+        return real(dict_fn, specs, shapes, device)
+
+    monkeypatch.setattr(tcomp, "_run_probe", probe)
+    prev = ttf.default_device()
+    try:
+        ttf.set_default_device("cuda")
+        comp = ttf.Computation.trace(
+            lambda v: {"y": v * 2.0},
+            [ttf.TensorSpec("v", ttf.dtypes.float32, ttf.Shape(-1, 3))])
+        assert repr(comp.outputs) == "(y:float[?,3],)"
+        assert tried[:4] == ["meta", "fake", "fake:cuda", "fake:cuda"]
+        assert "cpu" not in tried
+        tried.clear()
+        ttf.set_default_device("cpu")
+        with pytest.raises(RuntimeError, match="same device"):
+            ttf.Computation.trace(
+                lambda v: {"y": v * 2.0},
+                [ttf.TensorSpec("v", ttf.dtypes.float32, ttf.Shape(-1, 3))])
+        assert tried == ["meta", "fake", "cpu"]
+    finally:
+        ttf.set_default_device(prev)
+
+
 def test_analyze_graph_summaries():
     def build(m):
         comp = m.Computation.trace(
