@@ -74,7 +74,7 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3d for
+with each kernel's launches during its main path (phases 1-3e for
 segment_sum, phase 4 for flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
@@ -773,6 +773,41 @@ def rff_splits(rows, d, feats, cap_bytes) -> int:
         + rff_splits(rows - rows // 2, d, feats, cap_bytes)
 
 
+def ledger_spills(est, blocks, depth, limit, resident=()) -> dict:
+    """The ledger counters a pipelined stream of ``blocks`` blocks, each
+    admitted at ``est`` bytes, takes at ``depth`` under a ``limit``-byte
+    budget, by the memory manager's rules: a submit reserves with
+    ``try_reserve``, which spills the least recently used resident entry
+    (first ``resident``, the bytes already registered, then the pending
+    blocks, oldest first) while the reservation does not fit; the
+    reservation becomes a resident entry until its block drains, which
+    happens once ``depth`` blocks are in the window; a submit that
+    nothing can make room for runs synchronously (a sync dispatch) and
+    holds nothing."""
+    entries = [[b, "resident"] for b in resident]  # LRU first
+    window = []
+    spills = syncs = 0
+    for _ in range(blocks):
+        while sum(e[0] for e in entries) + est > limit:
+            victim = next((e for e in entries if e[0] > 0), None)
+            if victim is None:
+                break
+            victim[0] = 0
+            spills += 1
+        if sum(e[0] for e in entries) + est > limit:
+            syncs += 1
+            window.append(None)
+        else:
+            entry = [est, "pending"]
+            entries.append(entry)
+            window.append(entry)
+        if len(window) >= depth:
+            done = window.pop(0)
+            if done is not None:
+                entries = [e for e in entries if e is not done]
+    return {"memory.spills": spills, "memory.sync_dispatches": syncs}
+
+
 def phase_oom_recovery_rff(ttf, np, torch, segment_reduce, n=20_000_000,
                            parts=8, d=16, feats=4096, keys=100_000,
                            cap_gib=24.0, sample=10_000) -> dict:
@@ -977,6 +1012,448 @@ def phase_oom_recovery_rff(ttf, np, torch, segment_reduce, n=20_000_000,
             "z_max_abs_err_vs_f64": float(np.max(np.abs(z[idx] - want_z))),
             "sum_max_err_over_abs_sum": float(np.max(err / scale)),
             "drills": drills}
+
+
+def jl_tables(np, rows, feats=64, proj=16, keys=100_000, seed=7,
+              streams=8) -> dict:
+    """The budget phase's data from a numpy seed: ``x`` [rows, feats] f32
+    N(0, 1), ``key`` int64 in [0, keys), and ``P`` [feats, proj] f32, a
+    Johnson-Lindenstrauss random projection N(0, 1 / proj), so that
+    ``((x @ P) ** 2).sum(-1)`` estimates ``|x|^2``. ``x`` is filled by
+    ``streams`` generators spawned from the seed, one a thread, one
+    contiguous slice each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    seqs = np.random.SeedSequence(seed).spawn(streams + 1)
+    rng = np.random.default_rng(seqs[-1])
+    x = np.empty((rows, feats), np.float32)
+    bounds = np.linspace(0, rows, streams + 1).astype(np.int64)
+
+    def fill(args):
+        seq, a, b = args
+        np.random.default_rng(seq).standard_normal(out=x[a:b],
+                                                   dtype=np.float32)
+
+    with ThreadPoolExecutor(streams) as pool:
+        list(pool.map(fill, zip(seqs[:-1], bounds[:-1], bounds[1:])))
+    return {"x": x, "key": rng.integers(0, keys, rows),
+            "P": (rng.standard_normal((feats, proj))
+                  / np.sqrt(proj)).astype(np.float32)}
+
+
+def jl_select(m, P, tables, partitions):
+    """``frame -> map_rows(z = ((x @ P) ** 2).sum(-1)) -> select`` through
+    package ``m`` with ``P`` its array: lazy."""
+    df = m.frame({"key": tables["key"], "x": tables["x"]},
+                 num_partitions=partitions)
+    return df.map_rows(lambda x: {"z": ((x @ P) ** 2).sum(-1)}) \
+        .select(["key", "z"])
+
+
+def jl_aggregate(m, sel):
+    """``aggregate({"z": "sum"})`` of ``sel`` by ``key`` (forces it)."""
+    return m.aggregate({"z": "sum"}, sel.group_by("key"))
+
+
+def proactive_splits(rows, row_bytes, limit) -> int:
+    """The proactive splits a row-local block of ``rows`` takes under a
+    ``limit``-byte ledger: its estimate is 2x its input bytes, and a block
+    whose estimate alone is over the limit halves, recursively."""
+    if 2 * rows * row_bytes <= limit or rows < 2:
+        return 0
+    return 1 + proactive_splits(rows // 2, row_bytes, limit) \
+        + proactive_splits(rows - rows // 2, row_bytes, limit)
+
+
+def phase_memory_budget(ttf, np, torch, segment_reduce, n=20_000_000,
+                        parts=8, feats=64, proj=16, keys=100_000,
+                        cap_gib=8.0, ssb_rows=6_000_000,
+                        sample=10_000) -> dict:
+    """The port under a device-memory ledger, as users sharing a card run
+    it (module docstring, phase 3e).
+
+    The process is capped at ``cap_gib`` GiB with
+    ``torch.cuda.set_per_process_memory_fraction`` (put back to 1.0 in a
+    ``finally``) and the ledger reads its budget from that cap x the
+    default ``TFT_MEM_FRACTION`` 0.85. The data: 20M rows of an f32 cell
+    ``x`` of 64 features (5.12 GB) and an int64 ``key`` in [0, 100,000);
+    the program ``z = ((x @ P) ** 2).sum(-1)``, then ``aggregate({"z":
+    "sum"})`` by key through segment_sum. (a) one 20M-row partition: its
+    estimate (2 x 5.12 GB) is over the budget, so the executor splits it
+    once before dispatch and no allocation fails; (b) 8 partitions at
+    ``TFT_PIPELINE_DEPTH=8``: five 1.28 GB estimates fit, and each later
+    submit spills the oldest pending block (:func:`ledger_spills`); (c)
+    (b) in a ``PreemptionScope`` with three injected preemptions and
+    ``TFT_PERSIST_DIR`` set: three parks at strictly later blocks, each
+    written to disk, each resume dispatching only the blocks past its
+    checkpoint; then a cancel from another thread mid-stream raises
+    ``QueryCancelled``, frees the checkpoint and gives the card back to
+    its memory before the query; (d) SSB Q2.1 at SF 1 leaves its three
+    build tables resident in the ledger, (b) spills them first (the
+    coldest), and Q2.1 collected again from the same frame faults them
+    back; then Q2.1 under a 4 MB ledger probes its part build in chunks.
+    Checks, none caught: the counters as predicted; ``z`` bit-equal across
+    (a), (b), (c) and the unbudgeted runs, and within 1e-4 of f64 numpy
+    on ``sample`` rows; the keyed sums bit-equal to the unbudgeted run of
+    the same partitioning, and within 1e-5 of f64 numpy relative to the
+    group's sum of ``|z|``; Q2.1 equal to its numpy reference each time;
+    the peak allocation under the cap."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+
+    from tensorframes_tpu_torch import memory
+    from tensorframes_tpu_torch.engine import preempt
+    from tensorframes_tpu_torch.memory import persist
+    from tensorframes_tpu_torch.resilience import (QueryCancelled,
+                                                   QueryPreempted, faults)
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    assert not os.environ.get("TFT_MEM_LIMIT_BYTES"), \
+        "the phase reads its budget from the cap, not TFT_MEM_LIMIT_BYTES"
+    dev = ttf.default_device()
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    names = ("memory.proactive_splits", "oom_split.dispatches",
+             "memory.spills", "memory.spill_bytes", "memory.faults",
+             "memory.fault_bytes", "memory.sync_dispatches",
+             "memory.admission_waits", "memory.overflow_admissions",
+             "pipeline.submitted", "pipeline.parked_blocks",
+             "pipeline.resumed_blocks", "pipeline.preempted_streams",
+             "pipeline.cancelled_streams", "persist.checkpoint_writes",
+             "relational.build_chunks")
+
+    def counts():
+        return {k: counters.get(k) for k in names}
+
+    def delta(c0):
+        return {k: counters.get(k) - c0[k] for k in names
+                if counters.get(k) != c0[k]}
+
+    def spans_since(before, keys):
+        now = tracing.timings.snapshot()
+        return {k: {"count": now.get(k, {}).get("count", 0)
+                    - before.get(k, {}).get("count", 0),
+                    "total_s": now.get(k, {}).get("total_s", 0.0)
+                    - before.get(k, {}).get("total_s", 0.0)}
+                for k in keys}
+
+    def zs(sel):
+        return np.concatenate([b.columns["z"] for b in sel.blocks()])
+
+    def run(partitions):
+        """One chain and its aggregate: ``(z, sums, wall)``."""
+        t0 = time.perf_counter()
+        sel = jl_select(ttf, P, tables, partitions)
+        cols = jl_aggregate(ttf, sel).blocks()[0].columns
+        torch.cuda.synchronize()
+        return zs(sel), cols, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tables = jl_tables(np, n, feats, proj, keys)
+    P = torch.from_numpy(tables["P"]).to(dev)
+    data_s = time.perf_counter() - t0
+
+    # the unbudgeted runs of the same chain, one and eight partitions
+    memory.configure(limit_bytes=0)
+    z1, ref1, ref1_wall = run(1)
+    z8, ref8, ref8_wall = run(parts)
+    assert z1.dtype == np.float32 and z1.shape == (n,)
+    assert np.isfinite(z1).all(), "non-finite z"
+    assert np.array_equal(z1.view(np.uint32), z8.view(np.uint32)), \
+        "z of one 20M-row block differs from z of eight 2.5M-row blocks"
+    idx = np.random.default_rng(71).choice(n, sample, replace=False)
+    x64 = tables["x"][idx].astype(np.float64)
+    want_z = ((x64 @ tables["P"].astype(np.float64)) ** 2).sum(-1)
+    np.testing.assert_allclose(z1[idx], want_z, rtol=1e-4, atol=1e-4)
+    want = np.bincount(tables["key"], weights=z1.astype(np.float64),
+                       minlength=keys)
+    scale = np.bincount(tables["key"],
+                        weights=np.abs(z1.astype(np.float64)),
+                        minlength=keys)
+
+    def sums_ok(cols, what):
+        np.testing.assert_array_equal(cols["key"], np.arange(keys))
+        assert cols["z"].dtype == np.float32, what
+        err = np.abs(cols["z"].astype(np.float64) - want)
+        assert (err <= 1e-5 * scale).all(), (what, float(np.max(err / scale)))
+        return float(np.max(err / scale))
+
+    rel_err = {"unbudgeted_1": sums_ok(ref1, "unbudgeted 1 partition"),
+               "unbudgeted_8": sums_ok(ref8, "unbudgeted 8 partitions")}
+
+    def same_sums(cols, ref, what):
+        assert np.array_equal(cols["z"].view(np.uint32),
+                              ref["z"].view(np.uint32)), \
+            f"{what}: keyed sums not bit-equal to the unbudgeted run"
+
+    cap = int(cap_gib * (1 << 30))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    depth_prior = os.environ.get("TFT_PIPELINE_DEPTH")
+    persist_prior = os.environ.get("TFT_PERSIST_DIR")
+    persist_dir = tempfile.mkdtemp(prefix="tft-persist-")
+    out = {"rows": n, "partitions": parts, "features": feats, "keys": keys,
+           "cap_bytes": cap, "data_s": data_s,
+           "unbudgeted_wall_s": {"1": ref1_wall, "8": ref8_wall}}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    try:
+        mgr = memory.configure()  # the cap x TFT_MEM_FRACTION
+        limit_seen = torch.cuda.get_per_process_memory_fraction(dev) * total
+        out["budget_bytes"] = mgr.limit
+        out["budget_predicted"] = int(int(limit_seen) * 0.85)
+        out["budget_for_8_gib"] = int(cap * 0.85)
+        print(json.dumps({"cap_bytes": cap, "budget_bytes": mgr.limit,
+                          "snapshot": mgr.snapshot()}), flush=True)
+        assert mgr.limit == out["budget_predicted"], out
+        # the fraction cap / total is a float: the allocator's limit
+        # (total x fraction, truncated) may fall a few bytes under the cap
+        assert 0 <= int(cap * 0.85) - mgr.limit <= 16, out
+        torch.cuda.reset_peak_memory_stats(dev)
+        oom0 = counters.get("oom_split.dispatches")
+
+        # (a) one 20M-row block over the budget: split before dispatch
+        c0, s0 = counts(), tracing.timings.snapshot()
+        l0 = segment_reduce.launches
+        za, cols_a, wall_a = run(1)
+        got = delta(c0)
+        pred = {"memory.proactive_splits":
+                proactive_splits(n, feats * 4, mgr.limit),
+                "oom_split.dispatches": 0}
+        for k, v in pred.items():
+            assert got.get(k, 0) == v, (k, got, pred)
+        assert segment_reduce.launches - l0 == 1
+        assert np.array_equal(za.view(np.uint32), z1.view(np.uint32))
+        same_sums(cols_a, ref1, "(a)")
+        rel_err["a"] = sums_ok(cols_a, "(a)")
+        out["a"] = {"wall_s": wall_a, "counters": got, "predicted": pred,
+                    "segment_sum_launches": segment_reduce.launches - l0,
+                    "spans": spans_since(s0, ("executor.proactive_split",
+                                              "executor.dispatch",
+                                              "aggregate.segment_reduce"))}
+        del za
+
+        # (b) eight 2.5M-row blocks at depth 8: the window spills
+        os.environ["TFT_PIPELINE_DEPTH"] = "8"
+        est = 2 * (n // parts) * feats * 4
+        c0 = counts()
+        zb, cols_b, wall_b = run(parts)
+        got = delta(c0)
+        pred = ledger_spills(est, parts, 8, mgr.limit)
+        for k, v in pred.items():
+            assert got.get(k, 0) == v, (k, got, pred)
+        assert got.get("memory.spill_bytes", 0) == \
+            pred["memory.spills"] * est
+        assert np.array_equal(zb.view(np.uint32), z8.view(np.uint32))
+        same_sums(cols_b, ref8, "(b)")
+        rel_err["b"] = sums_ok(cols_b, "(b)")
+        out["b"] = {"wall_s": wall_b, "counters": got, "predicted": pred,
+                    "estimate_bytes": est}
+        del zb
+
+        # (c) preemption: three parks, resumes, then a cancel
+        os.environ["TFT_PERSIST_DIR"] = persist_dir
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        sel = jl_select(ttf, P, tables, parts)
+        scope = preempt.PreemptionScope("memory_budget_c")
+        faults.arm("preempt", 3)
+        attempts = []
+        try:
+            for _ in range(6):
+                c0 = counts()
+                t0 = time.perf_counter()
+                try:
+                    with preempt.activate(scope):
+                        cols_c = jl_aggregate(ttf, sel).blocks()[0].columns
+                except QueryPreempted:
+                    cp = scope.checkpoint
+                    attempts.append({
+                        "parked": cp.parked_blocks,
+                        "wall_s": time.perf_counter() - t0,
+                        "counters": delta(c0),
+                        "moved_device_bytes": cp.moved_bytes,
+                        "persist": persist.stats()})
+                    # the park left nothing of the query on the card
+                    torch.cuda.synchronize()
+                    attempts[-1]["allocated_after"] = \
+                        torch.cuda.memory_allocated(dev)
+                    assert attempts[-1]["allocated_after"] == base, \
+                        (attempts[-1], base)
+                    continue
+                torch.cuda.synchronize()
+                attempts.append({"parked": "done",
+                                 "wall_s": time.perf_counter() - t0,
+                                 "counters": delta(c0)})
+                break
+        finally:
+            faults.reset()
+        cursors = [a["parked"] for a in attempts]
+        assert cursors == [1, 2, 3, "done"], cursors
+        prev = 0
+        for a, nxt in zip(attempts, [1, 2, 3, parts]):
+            cnt = a["counters"]
+            assert cnt.get("pipeline.resumed_blocks", 0) == prev, a
+            assert cnt.get("pipeline.submitted", 0) == nxt - prev, a
+            if a["parked"] != "done":
+                assert cnt.get("persist.checkpoint_writes") == 1, a
+                assert a["persist"]["checkpoints"] == 1, a
+                assert cnt.get("pipeline.parked_blocks") == a["parked"], a
+            prev = nxt if a["parked"] != "done" else prev
+        assert attempts[-1]["counters"]["pipeline.submitted"] == parts - 3
+        zc = zs(sel)
+        assert np.array_equal(zc.view(np.uint32), z8.view(np.uint32))
+        same_sums(cols_c, ref8, "(c)")
+        rel_err["c"] = sums_ok(cols_c, "(c)")
+
+        # a cancel from another thread while the resumed stream runs
+        sel_x = jl_select(ttf, P, tables, parts)
+        scope_x = preempt.PreemptionScope("memory_budget_cancel")
+        faults.arm("preempt", 1)
+        try:
+            with preempt.activate(scope_x):
+                jl_aggregate(ttf, sel_x)
+            raise AssertionError("the injected preemption did not park")
+        except QueryPreempted:
+            pass
+        finally:
+            faults.reset()
+        assert not scope_x.checkpoint.empty
+        start = counters.get("pipeline.submitted")
+        stop = threading.Event()
+
+        def canceller():
+            while counters.get("pipeline.submitted") < start + 2 \
+                    and not stop.is_set():
+                time.sleep(0.001)
+            scope_x.request_cancel("from another thread")
+
+        th = threading.Thread(target=canceller)
+        th.start()
+        t0 = time.perf_counter()
+        cancel_msg = None
+        try:
+            with preempt.activate(scope_x):
+                jl_aggregate(ttf, sel_x)
+        except QueryCancelled as e:
+            cancel_msg = str(e)
+        finally:
+            stop.set()
+            th.join(timeout=120)
+        assert not th.is_alive()
+        cancel_wall = time.perf_counter() - t0
+        assert cancel_msg is not None, "the stream finished before the cancel"
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(dev)
+        assert scope_x.checkpoint.empty, "the cancel kept the checkpoint"
+        assert after == base, (after, base)
+        out["c"] = {"attempts": attempts, "cancel": {
+            "message": cancel_msg, "wall_s": cancel_wall,
+            "submitted_before_cancel":
+                counters.get("pipeline.submitted") - start,
+            "allocated_before_query": base, "allocated_after": after},
+            "persist": persist.stats()}
+        del zc, sel, sel_x
+        os.environ.pop("TFT_PERSIST_DIR")
+
+        # (d) the LRU across queries: SSB's builds, then (b), then SSB
+        # again from the same frame
+        os.environ.pop("TFT_PIPELINE_DEPTH")
+        ssb = ssb_tables(np, ssb_rows)
+        ssb_want = ssb_reference(np, ssb, True)
+
+        def ssb_ok(cols, what):
+            for k, col in ssb_want.items():
+                np.testing.assert_array_equal(cols[k], col, err_msg=what)
+
+        t0 = time.perf_counter()
+        chain, agg1 = ssb_query(ttf, ssb, parts)
+        q1 = agg1.blocks()[0].columns
+        ssb_first_s = time.perf_counter() - t0
+        ssb_ok(q1, "Q2.1 under the budget")
+        _, date, part, supplier = ssb
+        # each build's value columns (all but its key) lie on the card
+        build_bytes = [sum(int(v.nbytes) for j, v in enumerate(t.values())
+                           if j) for t in (date, part, supplier)]
+        snap = mgr.snapshot()
+        assert snap["resident_buffers"] == 3, snap
+        assert snap["resident_bytes"] == sum(build_bytes), (snap,
+                                                             build_bytes)
+        os.environ["TFT_PIPELINE_DEPTH"] = "8"
+        c0 = counts()
+        zd, cols_d, wall_d = run(parts)
+        got_b = delta(c0)
+        os.environ.pop("TFT_PIPELINE_DEPTH")
+        pred = ledger_spills(est, parts, 8, mgr.limit, resident=build_bytes)
+        for k, v in pred.items():
+            assert got_b.get(k, 0) == v, (k, got_b, pred)
+        assert np.array_equal(zd.view(np.uint32), z8.view(np.uint32))
+        same_sums(cols_d, ref8, "(d)")
+        snap_mid = mgr.snapshot()
+        assert snap_mid["spilled_buffers"] == 3, snap_mid
+        c0 = counts()
+        t0 = time.perf_counter()
+        chain.uncache()
+        q2 = ssb_aggregate(ttf, chain).blocks()[0].columns
+        ssb_again_s = time.perf_counter() - t0
+        got_f = delta(c0)
+        assert got_f.get("memory.faults", 0) == 3, got_f
+        assert got_f.get("memory.fault_bytes", 0) == sum(build_bytes)
+        ssb_ok(q2, "Q2.1 after its builds faulted back")
+        for k in q1:
+            np.testing.assert_array_equal(q2[k], q1[k])
+        assert mgr.snapshot()["spilled_buffers"] == 0
+        del zd, chain
+
+        # (d') Q2.1 under a 4 MB ledger: the 2.4 MB part build is over its
+        # resident threshold (half the budget) and probes in chunks
+        memory.configure(limit_bytes=4 << 20)
+        c0, s0 = counts(), tracing.timings.snapshot()
+        t0 = time.perf_counter()
+        _, agg3 = ssb_query(ttf, ssb, parts)
+        q3 = agg3.blocks()[0].columns
+        chunked_s = time.perf_counter() - t0
+        got_c = delta(c0)
+        ssb_ok(q3, "Q2.1 with a chunked part build")
+        assert got_c.get("relational.build_chunks", 0) == 3, got_c
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert peak <= cap, f"peak {peak} B over the {cap} B cap"
+        # spills hand tensors back to the caching allocator (no
+        # cudaFree): no allocation failed under the cap, with no
+        # empty_cache between the parts
+        assert counters.get("oom_split.dispatches") == oom0
+        out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
+        out["d"] = {
+            "build_bytes": build_bytes, "ssb_first_s": ssb_first_s,
+            "b_again_wall_s": wall_d, "b_again_counters": got_b,
+            "predicted": {**pred, "memory.faults": 3},
+            "ssb_again_s": ssb_again_s, "fault_counters": got_f,
+            "chunked_s": chunked_s, "chunked_counters": got_c,
+            "spans": spans_since(s0, ("join.probe_gather_chunk",
+                                      "join.probe_gather"))}
+        out["peak_bytes"] = peak
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        memory._reset()
+        faults.reset()
+        for key, prior in (("TFT_PIPELINE_DEPTH", depth_prior),
+                           ("TFT_PERSIST_DIR", persist_prior)):
+            if prior is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = prior
+        shutil.rmtree(persist_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["sum_max_err_over_abs_sum"] = rel_err
+    out["z_max_abs_err_vs_f64"] = float(np.max(np.abs(z1[idx] - want_z)))
+    print_card()
+    return out
 
 
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
@@ -1375,8 +1852,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     block of phase 2 (f64, S = 100,000), of phase 3 (f32 x 64,
     S = 1,024), of phase 3b (a 1M-row row group, f64, S = 100,000) and of
     phase 3c (the roll-up's 750k rows into 7,000 groups, and Q2.1's block
-    after its filter, about 6,000 rows into 280 groups, both f64) and of
-    phase 3d (2.5M rows of f32 ``z``, S = 100,000),
+    after its filter, about 6,000 rows into 280 groups, both f64), of
+    phase 3d (2.5M rows of f32 ``z``, S = 100,000) and of phase 3e's part
+    (a) (20M rows of f32 ``z`` in one block, S = 100,000),
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1391,6 +1869,8 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 6_000, 1, 280,
                                torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               100_000, torch.float32, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000, 1,
                                100_000, torch.float32, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
@@ -1483,7 +1963,9 @@ def main(argv=None) -> int:
         ("ssb_q21_sf1",
          lambda: phase_ssb_q21(ttf, np, torch, segment_reduce)),
         ("oom_recovery_rff_20M",
-         lambda: phase_oom_recovery_rff(ttf, np, torch, segment_reduce))),
+         lambda: phase_oom_recovery_rff(ttf, np, torch, segment_reduce)),
+        ("memory_budget_20M",
+         lambda: phase_memory_budget(ttf, np, torch, segment_reduce))),
         counters)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"

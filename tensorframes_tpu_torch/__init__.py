@@ -27,6 +27,14 @@ correlates what a query did (``query_trace``, ``last_query``, the
 always-on ``flight`` recorder, the card's memory watermarks) when
 ``TFT_TRACE`` is set.
 
+``memory`` budgets the card (``TFT_MEM_LIMIT_BYTES``, or the card's limit
+x ``TFT_MEM_FRACTION``): every dispatch is admitted against the ledger, a
+row-local block over the whole budget splits before it dispatches, and
+cold resident buffers (pending blocks, join build tables) spill to pinned
+host memory. ``engine.preempt.PreemptionScope`` lets a running query park
+at a block boundary and resume later from its checkpoint
+(``memory.persist`` writes it to ``TFT_PERSIST_DIR``).
+
 The entry points run on ``cuda`` unless the caller asks for the CPU, with
 :func:`set_default_device` or ``executor=BlockExecutor(device="cpu")``.
 This package imports neither ``jax`` nor ``tensorframes_tpu``.
@@ -52,6 +60,7 @@ from .io import (from_pandas, read_csv, read_npz, read_parquet, to_pandas,
                  write_csv, write_npz, write_parquet)
 from . import dsl
 from . import io
+from . import memory
 from . import plan
 from . import interop
 from . import ops
@@ -98,6 +107,7 @@ __all__ = [
     "write_csv",
     "dsl",
     "io",
+    "memory",
     "plan",
     "utils",
     "interop",

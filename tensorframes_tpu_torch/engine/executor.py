@@ -50,8 +50,31 @@ split, and never replaced by its plain version.
 plan chains its stages on them), and a ``torch.Tensor`` passed as an input
 is used where it lies: no copy to the host and no second H2D copy.
 
-Not in this package yet: the compile-cache interner and the
-memory-manager admission with its proactive split (``ROADMAP.md`` A3, A7).
+Memory admission (``memory/manager.py``), under an active device budget
+only (with none it is one global read per dispatch):
+
+- every dispatch reserves its estimate, ``2 x`` its inputs' bytes in their
+  device dtypes (outputs assumed input-sized), taken from the host arrays
+  BEFORE they are copied to the device, so that a block that will split
+  never holds its whole device copy while its halves run. The JAX package
+  estimates after its host->device conversion and scales by its padding
+  (``pad_to / n_rows``); the port never pads, so the two agree whenever a
+  row-local block's rows are a power of two of at least 8;
+- ``run`` reserves with the bounded wait (spill cold residents, wait for
+  in-flight work, then admit over budget, loudly); a ``row_local`` block
+  whose estimate alone exceeds the whole budget splits in two BEFORE
+  dispatch, recursively (``memory.proactive_splits``, span
+  ``executor.proactive_split``), counted apart from the reactive OOM
+  split it makes unnecessary;
+- ``submit`` only tries: under pressure it runs the block synchronously
+  through the admitted ``run`` (``memory.sync_dispatches``) rather than
+  block a stream that holds its own window. An admitted pending block
+  becomes a resident ledger entry until its drain: the ledger may spill
+  it, which for a block copying to pinned host buffers means waiting on
+  its event and letting its device tensors go, and for a ``keep_device``
+  block copying its outputs to the host and letting them go.
+
+Not in this package yet: the compile-cache interner (``ROADMAP.md`` A3).
 """
 
 from __future__ import annotations
@@ -66,6 +89,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as _dt
+from .. import memory as _memory
 from ..computation import Computation
 from ..device import resolve_device
 from ..observability import flight as _flight
@@ -254,6 +278,50 @@ def _run_half(executor, comp: Computation, arrays: Mapping, n_rows: int,
                           keep_device)
 
 
+def _dispatch_estimate(comp: Computation, arrays: Mapping) -> int:
+    """Admission estimate of one dispatch's device footprint: its inputs'
+    bytes in their device dtypes plus outputs assumed input-sized, 2x the
+    inputs. Read from what the caller passed (host arrays or device
+    tensors), before any host->device copy."""
+    total = 0
+    for spec in comp.inputs:
+        a = arrays[spec.name]
+        n = a.numel() if isinstance(a, torch.Tensor) else np.size(a)
+        total += int(n) * _dt.device_dtype(spec.dtype).itemsize
+    return 2 * total
+
+
+def _splittable(comp: Computation, row_local: bool, n_rows) -> bool:
+    """Whether the proactive pre-dispatch split is legal: the row-locality
+    contract of the reactive OOM split (every output row-dimensioned, at
+    least 2 rows to halve)."""
+    return bool(row_local and n_rows and n_rows >= 2
+                and all(_row_dim(s) for s in comp.outputs))
+
+
+def _proactive_split_run(executor, comp: Computation, arrays: Mapping,
+                         n_rows: int, est: int, keep_device: bool):
+    """Split a block BEFORE dispatch when its admission estimate alone
+    exceeds the whole device budget (the reactive ``oom_split`` would
+    wait for the allocator to fail first). Counted apart
+    (``memory.proactive_splits``); each half re-enters
+    :meth:`BlockExecutor.run` and splits again if still over."""
+    counters.inc("memory.proactive_splits")
+    _obs_event("proactive_split", rows=n_rows, est_bytes=est)
+    mgr = _memory.active()
+    _flight.record("memory.proactive_split", rows=n_rows, bytes=est,
+                   limit=mgr.limit if mgr is not None else None)
+    _log.info("block of %d rows (~%d B estimated) exceeds the device "
+              "budget; splitting before dispatch", n_rows, est)
+    first, second = _split_rows(comp, arrays, n_rows)
+    with span("executor.proactive_split"):
+        out_a = executor.run(comp, first, row_local=True,
+                             keep_device=keep_device)
+        out_b = executor.run(comp, second, row_local=True,
+                             keep_device=keep_device)
+    return _concat_outputs(comp, out_a, out_b)
+
+
 class PendingBlock:
     """One in-flight block: launched on the device, its outputs copying
     to pinned host buffers behind a CUDA event, or the failure its
@@ -274,11 +342,23 @@ class PendingBlock:
     same size, and splits at once (the counters are the same). A permanent
     error is raised at the drain instead, attributed to its block by the
     FIFO drain order, without a second run.
+
+    Under a device budget an admitted pending block is a ledger entry
+    (``mem_*``, the protocol of :class:`~..memory.manager.MemoryManager`)
+    holding its estimate until the drain, which unregisters it first.
+    A spill lets its device tensors go early and takes the drain result
+    then: a block copying to pinned host buffers waits on its event,
+    which it already owns, so nothing is copied twice; a ``keep_device``
+    block copies its outputs to the host in their storage dtypes, and its
+    drain returns those host arrays, which every consumer of a
+    ``keep_device`` drain accepts. A spilled block's drain passes no
+    ``drain`` fault site, as in the JAX package.
     """
 
     __slots__ = ("_executor", "_comp", "_arrays", "_row_local",
                  "_keep_device", "_held", "_host", "_event", "_device_out",
-                 "_error")
+                 "_error", "_mem_mgr", "_mem_bytes", "_early",
+                 "__weakref__")
 
     def __init__(self, executor, comp: Computation, arrays, row_local: bool,
                  keep_device: bool = False, held=None,
@@ -296,11 +376,59 @@ class PendingBlock:
         self._event = event
         self._device_out = device_out
         self._error = error
+        self._mem_mgr = None
+        self._mem_bytes = 0
+        self._early = None  # a spilled block's drain result, host arrays
+
+    # -- memory-ledger entry protocol --------------------------------------
+    def mem_name(self) -> str:
+        return f"pending-block-{id(self):x}"
+
+    def mem_is_spilled(self) -> bool:
+        return self._held is None
+
+    def mem_device_bytes(self) -> int:
+        return self._mem_bytes if self._held is not None else 0
+
+    def mem_host_bytes(self) -> int:
+        return 0  # a spilled pending IS its drain result; never faults
+
+    def mem_fault(self) -> int:
+        return 0
+
+    def mem_spill(self) -> int:
+        """Let the device tensors go before the drain (called under the
+        ledger lock, so it cannot race :meth:`drain`, which unregisters
+        first): the block's drain result is taken now, in host arrays. A
+        failure is recorded for the drain's recovery."""
+        if self._held is None or self._error is not None:
+            return 0
+        try:
+            if self._keep_device:
+                self._early = {
+                    s.name: to_storage_dtype(to_host(self._device_out[s.name]),
+                                             s.dtype)
+                    for s in self._comp.outputs}
+            else:
+                if self._event is not None:
+                    self._event.synchronize()
+                self._early = {
+                    s.name: to_storage_dtype(self._host[s.name].numpy(),
+                                             s.dtype)
+                    for s in self._comp.outputs}
+        except Exception as e:
+            self._error = _released(e)
+        self._held = self._device_out = self._event = None
+        freed, self._mem_bytes = self._mem_bytes, 0
+        return freed
 
     def _drop(self) -> None:
         self._held = self._host = self._event = self._device_out = None
+        self._early = None
 
     def _result(self) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+        if self._early is not None:
+            return self._early  # spilled: the drain result is in hand
         faults.check("drain")
         if self._keep_device:
             return self._device_out
@@ -311,6 +439,12 @@ class PendingBlock:
                 for spec in self._comp.outputs}
 
     def drain(self) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+        m = self._mem_mgr
+        if m is not None:
+            # unregister FIRST (under the ledger lock): after this no
+            # concurrent spill can touch the block's buffers
+            self._mem_mgr = None
+            m.drop(self)
         if self._error is None:
             try:
                 out = self._result()
@@ -398,29 +532,45 @@ class BlockExecutor:
         """Run a computation on host arrays (or device tensors); returns
         host arrays in the outputs' storage dtypes, or with
         ``keep_device`` the device outputs. Transient failures retry; an
-        OOM of a ``row_local`` dispatch splits the block in two."""
+        OOM of a ``row_local`` dispatch splits the block in two. Under a
+        device budget the dispatch is admitted first, and a ``row_local``
+        block over the whole budget splits before it dispatches."""
         device = self.resolve()
-        dev = self._inputs(comp, arrays, device, pin=False)
-        n_rows = _row_count(comp, dev)
+        mgr = _memory.active()
+        mem_tok = 0
+        if mgr is not None:
+            est = _dispatch_estimate(comp, arrays)
+            n_rows = _row_count(comp, arrays)
+            if mgr.would_overflow(est) and _splittable(comp, row_local,
+                                                       n_rows):
+                return _proactive_split_run(self, comp, arrays, n_rows, est,
+                                            keep_device)
+            mem_tok = mgr.reserve(est, op="executor.run")
         try:
-            out = self._dispatch(comp, dev)
-        except Exception as e:
-            if not (row_local and n_rows and is_oom(e)):
-                raise
-            cause = _released(e)
-        else:
-            if keep_device:
-                return {s.name: out[s.name] for s in comp.outputs}
-            with span("executor.convert_back"):
-                return {s.name: to_storage_dtype(to_host(out[s.name]),
-                                                 s.dtype)
-                        for s in comp.outputs}
-        dev = None  # the halves copy their own rows
-        return _oom_split_run(self, comp, arrays, n_rows, cause, keep_device)
+            dev = self._inputs(comp, arrays, device, pin=False)
+            n_rows = _row_count(comp, dev)
+            try:
+                out = self._dispatch(comp, dev)
+            except Exception as e:
+                if not (row_local and n_rows and is_oom(e)):
+                    raise
+                cause = _released(e)
+            else:
+                if keep_device:
+                    return {s.name: out[s.name] for s in comp.outputs}
+                with span("executor.convert_back"):
+                    return {s.name: to_storage_dtype(to_host(out[s.name]),
+                                                     s.dtype)
+                            for s in comp.outputs}
+            dev = None  # the halves copy their own rows
+            return _oom_split_run(self, comp, arrays, n_rows, cause,
+                                  keep_device)
+        finally:
+            if mem_tok:
+                mgr.release(mem_tok)
 
     def submit(self, comp: Computation, arrays: Mapping[str, np.ndarray],
-               row_local: bool = False, keep_device: bool = False
-               ) -> PendingBlock:
+               row_local: bool = False, keep_device: bool = False):
         """Asynchronous half of :meth:`run`: pinned non-blocking H2D
         copies, the launch, and non-blocking D2H copies into pinned
         buffers, with no host wait and no retry loop. With ``keep_device``
@@ -430,7 +580,12 @@ class BlockExecutor:
         Never raises: a failure (a fault, a device OOM at an allocation)
         is recorded on the returned :class:`PendingBlock`, released of its
         frames so that it pins no device memory until the drain, whose
-        ``drain()`` recovers it through :meth:`run`."""
+        ``drain()`` recovers it through :meth:`run`.
+
+        Under a device budget the block is admitted without waiting: when
+        the ledger cannot make room it runs synchronously through the
+        admitted :meth:`run` instead (``memory.sync_dispatches``) and
+        comes back as a finished ``ReadyResult``."""
         try:
             return self._submit(comp, arrays, row_local, keep_device)
         except Exception as e:
@@ -441,8 +596,38 @@ class BlockExecutor:
                             error=_released(error))
 
     def _submit(self, comp: Computation, arrays: Mapping, row_local: bool,
-                keep_device: bool) -> PendingBlock:
+                keep_device: bool):
         device = self.resolve()
+        mgr = _memory.active()
+        if mgr is None:
+            return self._launch(comp, arrays, row_local, keep_device, device)
+        est = _dispatch_estimate(comp, arrays)
+        tok = mgr.try_reserve(est, op="executor.submit")
+        if tok is None:
+            # pressure: the async fast path never blocks (a stream waiting
+            # here while holding its own window could deadlock the
+            # budget); the admitted run may wait, spill or split
+            counters.inc("memory.sync_dispatches")
+            _obs_event("mem_sync_dispatch", rows=_row_count(comp, arrays),
+                       est_bytes=est)
+            from .pipeline import ReadyResult
+            return ReadyResult(self.run(comp, arrays, row_local=row_local,
+                                        keep_device=keep_device))
+        try:
+            pending = self._launch(comp, arrays, row_local, keep_device,
+                                   device)
+        except BaseException:
+            mgr.release(tok)
+            raise
+        # the reservation becomes a resident ledger entry: while the block
+        # sits in the window its device buffers are a spill candidate
+        pending._mem_mgr = mgr
+        pending._mem_bytes = est
+        mgr.convert_reservation(tok, pending)
+        return pending
+
+    def _launch(self, comp: Computation, arrays: Mapping, row_local: bool,
+                keep_device: bool, device: torch.device) -> PendingBlock:
         cuda = device.type == "cuda"
         dev = self._inputs(comp, arrays, device, pin=cuda)
         out = self._call(comp, dev)

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as _dt
+from .. import memory as _memory
 from ..computation import Computation, TensorSpec
 from ..memory.estimate import propagate_hints
 from ..frame import Block, GroupedFrame, TensorFrame
@@ -340,12 +341,24 @@ def _validate_reduce(comp: Computation, schema: Schema,
 # ---------------------------------------------------------------------------
 
 def _stream_thunk(df: TensorFrame, ex, run_block, submit_block,
-                  drain_block):
+                  drain_block, tag: Optional[str] = None):
     """The lazy forcing every streaming op shares: blocks through the
-    bounded in-flight window, drained FIFO."""
+    bounded in-flight window, drained FIFO. ``tag`` is the stream's stable
+    identity for preemption checkpoints (:func:`_stream_tag`); ``None``
+    makes the stream preemptible WITHOUT checkpointing."""
     return lambda: _pipeline.run_pipelined(
         df.blocks(), run_block, submit_block, drain_block,
-        depth=_pipeline.stream_depth(ex), executor=ex)
+        depth=_pipeline.stream_depth(ex), executor=ex, tag=tag)
+
+
+def _stream_tag(op: str, comp, plan: str) -> str:
+    """The checkpoint identity of one op stream: the op, the computation's
+    input/output names, and the output frame's plan string. Two DIFFERENT
+    sibling streams in one query must never share a tag and block count
+    (a parked checkpoint restores only into its own stream,
+    ``engine/preempt.py``)."""
+    return (f"{op}[{','.join(comp.input_names)}->"
+            f"{','.join(comp.output_names)}]{plan}")
 
 
 def _drain_with(finish):
@@ -432,10 +445,13 @@ def map_blocks(fetches: Fetches, df: TensorFrame, trim: bool = False,
         return _pipeline.submit(ex, comp, arrays)
 
     rows_h, bytes_h = propagate_hints(df, out_schema)
+    plan_s = f"map_blocks({df._plan})"
     out = TensorFrame(out_schema,
                       _stream_thunk(df, ex, run_block, submit_block,
-                                    _drain_with(finish_block)),
-                      df.num_partitions, plan=f"map_blocks({df._plan})",
+                                    _drain_with(finish_block),
+                                    tag=_stream_tag("map_blocks", comp,
+                                                    plan_s)),
+                      df.num_partitions, plan=plan_s,
                       rows_hint=None if trim else rows_h,
                       bytes_hint=None if trim else bytes_h)
     if executor is None:
@@ -533,10 +549,13 @@ def map_rows(fetches: Fetches, df: TensorFrame,
         return _pipeline.submit(ex, vcomp, arrays, row_local=True)
 
     rows_h, bytes_h = propagate_hints(df, out_schema)
+    plan_s = f"map_rows({df._plan})"
     out = TensorFrame(out_schema,
                       _stream_thunk(df, ex, run_block, submit_block,
-                                    _drain_with(attach_outputs)),
-                      df.num_partitions, plan=f"map_rows({df._plan})",
+                                    _drain_with(attach_outputs),
+                                    tag=_stream_tag("map_rows", comp,
+                                                    plan_s)),
+                      df.num_partitions, plan=plan_s,
                       rows_hint=rows_h, bytes_hint=bytes_h)
     if executor is None:
         from ..plan.nodes import MapRowsNode, attach, node_for
@@ -620,10 +639,13 @@ def filter_rows(predicate: Fetches, df: TensorFrame,
 
     # the hint is an upper bound: a filter keeps at most its input
     rows_h, bytes_h = propagate_hints(df, df.schema)
+    plan_s = f"filter_rows({df._plan})"
     out = TensorFrame(df.schema,
                       _stream_thunk(df, ex, run_block, submit_block,
-                                    _drain_with(apply_mask)),
-                      df.num_partitions, plan=f"filter_rows({df._plan})",
+                                    _drain_with(apply_mask),
+                                    tag=_stream_tag("filter_rows", comp,
+                                                    plan_s)),
+                      df.num_partitions, plan=plan_s,
                       rows_hint=rows_h, bytes_hint=bytes_h)
     if executor is None:
         from ..plan.nodes import FilterNode, attach, node_for
@@ -661,7 +683,8 @@ def reduce_blocks(fetches: Fetches, df: TensorFrame,
             lambda b: ex.run(comp, block_arrays(b)),
             lambda b: _pipeline.submit(ex, comp, block_arrays(b)),
             lambda p, b: p.drain(),
-            depth=_pipeline.stream_depth(ex), executor=ex)
+            depth=_pipeline.stream_depth(ex), executor=ex,
+            tag=_stream_tag("reduce_blocks", comp, f"({df._plan})"))
     if not partials:
         raise ValueError("reduce_blocks on an empty frame")
     if len(partials) == 1:
@@ -973,6 +996,7 @@ def _monoid_aggregate(col_combiners: Mapping[str, str],
     combine_np = {"sum": np.add, "prod": np.multiply,
                   "min": np.minimum, "max": np.maximum}
     cols: Dict[str, np.ndarray] = {k: u for k, u in zip(keys, uniques)}
+    mem_mgr = _memory.active()
     with span("aggregate.sketch_fold"):
         for f in sketch_names:
             sk = col_combiners[f]
@@ -980,8 +1004,17 @@ def _monoid_aggregate(col_combiners: Mapping[str, str],
             for b, ids in zip(blocks, ids_blocks):
                 if b.num_rows == 0:
                     continue
-                part = sk.block_partial(np.asarray(b.columns[f]), ids,
-                                        num_groups, device=device)
+                vals = np.asarray(b.columns[f])
+                mem_tok = (mem_mgr.reserve(
+                    2 * int(vals.nbytes) + int(ids.nbytes),
+                    op="aggregate.sketch_fold")
+                    if mem_mgr is not None else 0)
+                try:
+                    part = sk.block_partial(vals, ids, num_groups,
+                                            device=device)
+                finally:
+                    if mem_tok:
+                        mem_mgr.release(mem_tok)
                 table = part if table is None else sk.combine_np(table, part)
             counters.inc("relational.sketch_folds")
             cols.update(sk.finalize(f, table))

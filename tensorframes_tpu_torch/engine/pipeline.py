@@ -22,6 +22,18 @@ through ``executor.run``, and so through the retry and the OOM row split
 executor without a ``submit`` half runs its blocks eagerly at submit
 through :class:`ReadyResult`.
 
+Preemption composition: when the caller activates a
+:class:`~.preempt.PreemptionScope` around a forcing, the stream polls it
+between submits. A cancel raises a classified ``QueryCancelled`` at the
+boundary (the undrained window is let go: its blocks' device buffers are
+released with it); a preempt drains the in-flight window, parks the
+drained prefix as a ``QueryCheckpoint`` (``memory/checkpoint.py``), and
+raises ``QueryPreempted``. On resume the parked outputs restore and only
+the remaining blocks dispatch (``pipeline.resumed_blocks``). A stream is
+checkpointed only under its ``tag``: a tagless stream yields without one
+and re-runs whole. With no scope active the cost is one contextvar read
+per stream.
+
 Observability: ``pipeline.submitted`` / ``pipeline.drained`` are
 always-on counters; the window's occupancy is sampled into the
 ``pipeline.occupancy`` gauge at every submit, and submit and drain run in
@@ -32,8 +44,7 @@ depth 1), an ``occupancy`` sample per submit and the card's memory
 watermark at each drain.
 
 Not in this package yet: the serving layer's slot pool
-(``SlotPool``/``install_slot_pool``, ``ROADMAP.md`` A11) and preemption
-scopes (A7).
+(``SlotPool``/``install_slot_pool``, ``ROADMAP.md`` A11).
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from ..observability import device as _obs_device
 from ..observability import events as _obs
 from ..resilience import env_int
 from ..utils.tracing import counters, gauge, span
+from . import preempt as _preempt
 
 __all__ = ["DEFAULT_DEPTH", "pipeline_depth", "stream_depth", "submit",
            "run_pipelined", "ReadyResult", "PipelinedExecutor"]
@@ -103,7 +115,7 @@ def run_pipelined(blocks: Sequence[B],
                   submit_fn: Callable[[B], object],
                   drain_fn: Callable[[object, B], R],
                   depth: Optional[int] = None,
-                  executor=None) -> List[R]:
+                  executor=None, tag: Optional[str] = None) -> List[R]:
     """Run a block stream through a bounded in-flight window, in order.
 
     ``serial_fn(b)`` is the serial per-block function, used verbatim when
@@ -113,18 +125,42 @@ def run_pipelined(blocks: Sequence[B],
     ``drain_fn(pending, b)`` completes it. Drains are strictly FIFO.
     ``executor`` is the one the blocks run on: a traced drain samples the
     memory watermark of its device (``observability.device.sample``).
+    ``tag`` names the logical stream for preemption checkpoints
+    (``engine/preempt.py``): a checkpoint parked here only ever restores
+    into a stream with the SAME tag and block count. Untagged streams
+    (``None``) are still preemptible but never checkpoint.
     """
     blocks = list(blocks)
     d = pipeline_depth(depth)
     trace = _obs.current_trace()
+    scope = _preempt.current_scope()
     device = None
     if trace is not None and hasattr(executor, "resolve"):
         device = executor.resolve()
-    if d <= 1 or len(blocks) <= 1:
-        if trace is None:
+    start = 0
+    restored: Optional[List[R]] = None
+    if scope is not None:
+        if tag is not None:
+            # disambiguate same-tag sibling streams within one run
+            # attempt: the Nth same-tag stream parked only ever restores
+            # into the Nth same-tag stream of the resume
+            tag = f"{tag}#{scope.stream_ordinal(tag)}"
+        # resume: a parked checkpoint restores the drained prefix and the
+        # stream dispatches only the remaining blocks
+        restored = _preempt.resume_stream(scope, len(blocks), tag)
+        if restored:
+            start = len(restored)
+    if d <= 1 or len(blocks) - start <= 1:
+        if trace is None and scope is None:
             return [serial_fn(b) for b in blocks]
-        out0: List[R] = []
-        for i, b in enumerate(blocks):
+        out0: List[R] = list(restored or ())
+        for i in range(start, len(blocks)):
+            b = blocks[i]
+            if scope is not None and _preempt.boundary(scope, i > start):
+                _preempt.park(scope, out0, len(blocks), tag)  # raises
+            if trace is None:
+                out0.append(serial_fn(b))
+                continue
             rows, nbytes = _obs.block_meta(b)
             t0 = trace.clock()
             r = serial_fn(b)
@@ -135,7 +171,7 @@ def run_pipelined(blocks: Sequence[B],
             out0.append(r)
         return out0
 
-    out: List[R] = []
+    out: List[R] = list(restored or ())
     # window entries: (pending, block, index, submit_end_ts)
     window: "deque" = deque()
 
@@ -159,27 +195,42 @@ def run_pipelined(blocks: Sequence[B],
                       rows_out=rows_out)
             _obs_device.sample(trace, "block_drain", device=device)
 
-    for i, b in enumerate(blocks):
-        t0 = 0.0
-        rows = nbytes = None
-        if trace is not None:
-            rows, nbytes = _obs.block_meta(b)
-            t0 = trace.clock()
-        with span("pipeline.submit"):
-            pending = submit_fn(b)
-        t1 = trace.clock() if trace is not None else 0.0
-        window.append((pending, b, i, t1))
-        counters.inc("pipeline.submitted")
-        gauge("pipeline.occupancy", len(window))
-        if trace is not None:
-            trace.add("block_submit", name=f"submit b{i}", ts=t0,
-                      dur=t1 - t0, track=i % d + 1, block=i, rows=rows,
-                      bytes=nbytes)
-            trace.add("occupancy", value=len(window))
-        if len(window) >= d:
+    pending = None
+    try:
+        for i in range(start, len(blocks)):
+            b = blocks[i]
+            if scope is not None and _preempt.boundary(scope, i > start):
+                # preempt: finish what is in flight (never kill a
+                # dispatched block), park the drained prefix, raise
+                while window:
+                    drain_one()
+                _preempt.park(scope, out, len(blocks), tag)  # raises
+            t0 = 0.0
+            rows = nbytes = None
+            if trace is not None:
+                rows, nbytes = _obs.block_meta(b)
+                t0 = trace.clock()
+            with span("pipeline.submit"):
+                pending = submit_fn(b)
+            t1 = trace.clock() if trace is not None else 0.0
+            window.append((pending, b, i, t1))
+            counters.inc("pipeline.submitted")
+            gauge("pipeline.occupancy", len(window))
+            if trace is not None:
+                trace.add("block_submit", name=f"submit b{i}", ts=t0,
+                          dur=t1 - t0, track=i % d + 1, block=i, rows=rows,
+                          bytes=nbytes)
+                trace.add("occupancy", value=len(window))
+            if len(window) >= d:
+                drain_one()
+        while window:
             drain_one()
-    while window:
-        drain_one()
+    finally:
+        # a stream unwinding mid-window (a cancel, a failed drain) lets
+        # its undrained blocks go here, not when the exception is
+        # collected: their device buffers return to the allocator
+        window.clear()
+        pending = None
     return out
 
 

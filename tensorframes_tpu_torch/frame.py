@@ -27,10 +27,14 @@ Beyond the six ops, a frame joins another (:meth:`TensorFrame.join`, the
 ``np.lexsort``), samples, shows, and pads a ragged column to a dense one
 (:meth:`TensorFrame.pad_column`).
 
-Not in this package yet: the plan-fingerprint result cache, the memory
-manager and the query traces that the JAX package also hooks into
-``blocks()``, ``submit`` (the serve layer), and the hot-key observations of
-a salted ``daggregate`` (``hot_keys`` returns none).
+Under an active device budget a forced frame's block cache joins the
+memory manager's host-side gauge (``memory.note_frame_cache``), and
+:meth:`TensorFrame.uncache` leaves it.
+
+Not in this package yet: the plan-fingerprint result cache that the JAX
+package also hooks into ``blocks()`` (with ``plan/adaptive.py``),
+``submit`` (the serve layer), and the hot-key observations of a salted
+``daggregate`` (``hot_keys`` returns none).
 """
 
 from __future__ import annotations
@@ -320,12 +324,19 @@ class TensorFrame:
             if before is not None:
                 self._spans = _span_delta(before,
                                           tracing.timings.snapshot())
+            # under an active device budget the forced block cache joins
+            # the host-side gauge; one global read otherwise
+            from . import memory as _memory
+            _memory.note_frame_cache(self)
         return self._cache
 
     def uncache(self) -> "TensorFrame":
-        """Drop the forced block cache; the next ``blocks()`` re-runs the
-        thunk chain. The inverse of :meth:`cache`."""
+        """Drop the forced block cache (the next ``blocks()`` re-runs the
+        thunk chain) and release it from the memory manager's host-side
+        gauge. The inverse of :meth:`cache`."""
         self._cache = None
+        from . import memory as _memory
+        _memory.forget_frame_cache(self)
         return self
 
     def estimated_rows(self) -> Optional[int]:

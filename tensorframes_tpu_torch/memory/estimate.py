@@ -9,8 +9,9 @@ bound for ``filter``, exact for ``select``). An unforced frame with a plan
 node answers from the node's per-column cost model instead
 (:meth:`~..plan.nodes.PlanNode.estimate`).
 
-Not in this package yet: the device-memory manager, spill and the
-distributed/exchange estimates of the JAX package.
+Not in this package yet: the distributed/exchange estimates of the JAX
+package (``dist_frame_estimate``, ``exchange_buffer_bytes``; with the
+parallel layer, ``ROADMAP.md`` A10).
 """
 
 from __future__ import annotations

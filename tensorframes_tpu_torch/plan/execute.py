@@ -33,12 +33,16 @@ execution contract (what makes fused == unfused bit-identical):
   ``plan.oom_fallback`` flight record), whose op-granular dispatches may
   fit or split; any other error propagates;
 - ``faults.slowdown("perf")`` sleeps inside the timed forcing when the
-  ``perf`` site is armed.
+  ``perf`` site is armed;
+- the fused stream carries a stable tag (:func:`_plan_tag`: the leaf,
+  the op kinds, the columns read and the output schema), so that a
+  preempted fused chain parks a checkpoint and resumes from it; a resume
+  whose forcing took another path discards it.
 
 Left out, against the JAX package: the adaptive layout (re-bucketed
-streams and mid-plan re-plans), preemption scopes and the
-row-conservation ledger of ``resilience/invariants.py``; the port runs
-the static layout, which is what ``TFT_ADAPTIVE=0`` gives there.
+streams and mid-plan re-plans) and the row-conservation ledger of
+``resilience/invariants.py``; the port runs the static layout, which is
+what ``TFT_ADAPTIVE=0`` gives there.
 """
 
 from __future__ import annotations
@@ -269,6 +273,15 @@ def _full_leaf_empty(plan: ExecPlan, b):
     return Block(cols, 0)
 
 
+def _plan_tag(plan: ExecPlan) -> str:
+    """Stable stream identity of a plan shape: preemption checkpoints key
+    on it."""
+    return (f"plan[{plan.leaf.describe()};"
+            f"{','.join(o.kind for o in plan.ops)};"
+            f"{sorted(plan.leaf_required)}]"
+            f"({plan.final_schema.names})")
+
+
 def _run(plan: ExecPlan, leaf_blocks) -> List:
     if not plan.stages:
         # pure projection over a pruned scan: no device work at all
@@ -327,7 +340,11 @@ def _run_static(plan: ExecPlan, leaf_blocks) -> List:
             return pending
         return finish(b, pending.drain())
 
+    # the stream's identity for preemption checkpoints: a resume whose
+    # forcing no longer takes the fused path must discard, not restore
+    # these FINAL per-block results into a per-op stream of the same
+    # length
     return _pipeline.run_pipelined(leaf_blocks, serial_fn, submit_fn,
                                    drain_fn,
                                    depth=_pipeline.stream_depth(ex0),
-                                   executor=ex0)
+                                   executor=ex0, tag=_plan_tag(plan))

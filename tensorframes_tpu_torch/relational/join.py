@@ -30,8 +30,16 @@ INTO the join: build columns the chain never names are not gathered, and a
 join's left side is read with only the columns the join needs (a left side
 that is itself a join prunes in turn).
 
-Not in this package yet: the chunked probe of a build side the memory
-manager refuses to hold resident (the memory layer), the mesh sort-merge
+Under an active device budget the build table is a ledger entry: a build
+over the ledger's resident threshold
+(:meth:`~..memory.manager.MemoryManager.external_sort_threshold`) stays
+on the host and is probed in contiguous-group chunks, each chunk's rows
+copied for its own dispatch (``relational.build_chunks``, span
+``join.probe_gather_chunk``); any other build makes room first and is
+held as :class:`~..memory.spill.SpillableColumns`, so it can be spilled
+under pressure and faults back at its next probe.
+
+Not in this package yet: the mesh sort-merge
 and the shuffle-partitioned joins (the parallel layer), the streaming
 enrichment ``StreamingFrame.join`` (the stream layer), and the flight
 record and metrics families of the routing decision (observability). The
@@ -46,13 +54,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import dtypes as _dt
+from .. import memory as _memory
 from ..frame import Block, TensorFrame, _split_even
 from ..schema import Field, Schema
 from ..shape import Shape, Unknown
+from ..utils.logging import get_logger
 from ..utils.tracing import counters, span
 
 __all__ = ["join", "broadcast_join", "sort_merge_join",
            "partitioned_hash_join", "BuildTable", "approx_key_distinct"]
+
+_log = get_logger("relational.join")
 
 
 def _fill_value(field):
@@ -177,7 +189,10 @@ class BuildTable:
     counts[g])``: the unique-key fast path gathers row ``g`` directly, and
     the duplicate-key expansion gathers contiguous runs. The tensor value
     columns go to ``executor``'s device (default: the process executor's)
-    at construction, in their device dtypes, and stay there.
+    at construction, in their device dtypes, and stay there (as a
+    spillable ledger entry under a device budget), unless the budget is
+    too small to hold them: then they stay on the host and each probe
+    gathers chunk by chunk (``chunks``: contiguous-group row spans).
     """
 
     def __init__(self, frame: TensorFrame, on: Sequence[str],
@@ -227,18 +242,58 @@ class BuildTable:
                 self.host_cols[f.name] = [col[i] for i in order]
         self._sorted_host = sorted_tensor
         self.dev_bytes = sum(int(a.nbytes) for a in sorted_tensor.values())
-        # resident: one host->device copy per column, here and never again
         self.executor = executor or default_executor()
+        # ledger admission: hold the build table device-resident when it
+        # fits, else keep it host-side and probe in budget-sized
+        # contiguous-group chunks
+        mgr = _memory.active()
+        self.chunks: Optional[List[Tuple[int, int]]] = None  # row spans
         self.dev_cols = {}
-        if sorted_tensor:
+        threshold = (mgr.external_sort_threshold()
+                     if mgr is not None and mgr.spill_enabled else None)
+        if threshold is not None and self.dev_bytes > threshold \
+                and self.build_rows:
+            # chunks sized so that the executor's 2x dispatch estimate
+            # still admits under the threshold (no overflow admissions)
+            n_chunks = int(np.ceil(self.dev_bytes / max(1, threshold // 2)))
+            self.chunks = self._chunk_spans(n_chunks)
+            self.dev_cols = None
+            counters.inc("relational.build_chunks", len(self.chunks))
+            _log.info(
+                "join build side (%d B) exceeds the ledger's resident "
+                "threshold (%d B); probing in %d contiguous-group chunk(s) "
+                "instead of holding it resident", self.dev_bytes, threshold,
+                len(self.chunks))
+        elif sorted_tensor:
+            # resident: one host->device copy per column, here and never
+            # again (a spill and its fault-back aside)
+            if mgr is not None and self.dev_bytes:
+                mgr.make_room(self.dev_bytes)
             device = self.executor.resolve()
-            self.dev_cols = {
-                name: to_device(a, _dt.device_dtype(self.schema[name].dtype),
-                                device)
-                for name, a in sorted_tensor.items()}
+            dev = {name: to_device(a, _dt.device_dtype(
+                       self.schema[name].dtype), device)
+                   for name, a in sorted_tensor.items()}
+            self.dev_cols = (_memory.spillable_columns(
+                f"join.build@{id(self):x}", dev, mgr)
+                if mgr is not None else dev)
         # cached probe computations: (names, rows) -> Computation
         self._comps: Dict[Tuple, object] = {}
         self._comp_lock = threading.Lock()
+
+    def _chunk_spans(self, n_chunks: int) -> List[Tuple[int, int]]:
+        """Contiguous-GROUP row spans of roughly equal rows: a key lives in
+        exactly one chunk, so per-chunk probe results combine exactly."""
+        n_chunks = max(1, min(n_chunks, self.num_groups or 1))
+        bounds = np.linspace(0, self.build_rows, n_chunks + 1)
+        gbounds = np.searchsorted(self.starts, bounds[1:-1], side="left")
+        row_bounds = [0] + [int(self.starts[g]) if g < self.num_groups
+                            else self.build_rows for g in gbounds] \
+            + [self.build_rows]
+        spans = []
+        for a, b in zip(row_bounds[:-1], row_bounds[1:]):
+            if b > a:
+                spans.append((a, b))
+        return spans or [(0, self.build_rows)]
 
     # -- key matching ------------------------------------------------------
     def match(self, key_arrays: List[np.ndarray]
@@ -307,21 +362,43 @@ class BuildTable:
                       gid: np.ndarray, executor=None
                       ) -> Dict[str, np.ndarray]:
         """Gather the named build columns at ``idx`` (build-row per output
-        row): ONE dispatch through the executor, whose only host input is
-        the int32 index."""
+        row): ONE dispatch through the executor on the resident path, whose
+        only host input is the int32 index; one per chunk on the chunked
+        path."""
         names = tuple(n for n in names if n in self._sorted_host)
         if not names:
             return {}
         ex = executor or self.executor
         if not len(idx):
             return {n: self._sorted_host[n][:0].copy() for n in names}
-        arrays = {"_tft_idx": idx.astype(np.int32)}
-        for n in names:
-            arrays[f"_tft_t_{n}"] = self.dev_cols[n]
-        comp = self._probe_comp(names, self.build_rows)
-        counters.inc("relational.probe_dispatches")
-        with span("join.probe_gather"):
-            return ex.run(comp, arrays)
+        if self.chunks is None:
+            arrays = {"_tft_idx": idx.astype(np.int32)}
+            for n in names:
+                arrays[f"_tft_t_{n}"] = self.dev_cols[n]
+            comp = self._probe_comp(names, self.build_rows)
+            counters.inc("relational.probe_dispatches")
+            with span("join.probe_gather"):
+                return ex.run(comp, arrays)
+        # chunked probe: each chunk's rows are copied for this dispatch only
+        # (admitted by the executor's own reservation); results select by
+        # span membership, a build row lying in exactly one span
+        out = {n: None for n in names}
+        for a, b in self.chunks:
+            sel = (idx >= a) & (idx < b)
+            local = np.where(sel, idx - a, 0).astype(np.int32)
+            arrays = {"_tft_idx": local}
+            for n in names:
+                arrays[f"_tft_t_{n}"] = self._sorted_host[n][a:b]
+            comp = self._probe_comp(names, b - a)
+            counters.inc("relational.probe_dispatches")
+            with span("join.probe_gather_chunk"):
+                part = ex.run(comp, arrays)
+            for n in names:
+                if out[n] is None:
+                    out[n] = part[n].copy()
+                else:
+                    out[n][sel] = part[n][sel]
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -32,22 +32,30 @@ drain       ``engine.executor.PendingBlock.drain`` pipelined readback
 perf        ``plan.execute`` forcings: NEVER raises; :func:`slowdown`
             consumes the budget and sleeps ``TFT_FAULT_PERF_S`` seconds
             (default 0.05) inside the timed forcing
+preempt     ``engine.preempt.boundary`` pipelined block boundary: NOT
+            raised out of the query; the active preemption scope turns
+            the fault into a preempt request, so ``TFT_FAULTS=preempt:N``
+            parks a running query at its next N block boundaries
+disk        ``memory.persist`` artifact reads: never raised out of a
+            query (the persist tier is best-effort, a failed read is a
+            cold path); armed with a message containing ``corrupt`` it
+            flips a payload byte instead, for the checksum path
 ========== ===========================================================
 
 ``pad_compile`` has no counterpart: the port has no padding buckets, so
 there is no bucketed compile to fail. The other sites of the JAX package
-(``cluster_init``, ``dmap``, ``batch``, ``device``, ``preempt``,
-``worker``, ``disk``, ``pjrt_execute``), with the shaping of their faults
-(device loss, worker loss, a failed read), come with their layers
-(``ROADMAP.md`` A10, A11); arming one now warns, as any unknown site
-does, and nothing checks it.
+(``cluster_init``, ``dmap``, ``batch``, ``device``, ``worker``,
+``pjrt_execute``), with the shaping of their faults (device loss, worker
+loss), come with their layers (``ROADMAP.md`` A10, A11); arming one now
+warns, as any unknown site does, and nothing checks it.
 
 Counting is deterministic (a lock-guarded integer per site, decremented
 per check), so a test asserting "succeeds on the 3rd attempt" is exact.
 Seeded chaos schedules (``TFT_CHAOS``, ``resilience/chaos.py`` in the JAX
 package, and the consult hook it installs here) are not ported
 (``ROADMAP.md`` A11): with ``TFT_CHAOS`` set, the first check raises
-``NotImplementedError``.
+``NotImplementedError``, and :func:`may_fire` is true only while a
+scripted budget is armed.
 """
 
 from __future__ import annotations
@@ -62,7 +70,7 @@ from ..utils.logging import get_logger
 from ..utils.tracing import counters
 
 __all__ = ["InjectedFault", "inject", "check", "arm", "reset", "active",
-           "slowdown", "sites"]
+           "may_fire", "slowdown", "sites"]
 
 _log = get_logger("resilience.faults")
 
@@ -76,6 +84,10 @@ _SITES = {
     "drain": "engine.executor.PendingBlock.drain pipelined readback",
     "perf": "plan.execute forcings (slowdown: sleeps TFT_FAULT_PERF_S "
             "inside the forcing, never raises)",
+    "preempt": "engine.preempt.boundary (converted to a park request, "
+               "never raised out of the query)",
+    "disk": "memory.persist artifact reads (read failure, or checksum "
+            "corruption when armed with a 'corrupt' message)",
 }
 
 
@@ -117,6 +129,12 @@ _state = _State()
 _OOM_MESSAGE = ("RESOURCE_EXHAUSTED: injected fault: out of memory "
                 "allocating scratch for block")
 
+# the "disk" site never escapes memory.persist (its reads are best-effort
+# try/except); non-transient so nothing would retry it if an
+# instrumentation point outside that layer ever picked it up
+_DISK_MESSAGE = ("injected disk fault: persist artifact read failed "
+                 "(I/O error simulated)")
+
 
 def _arm_from_env() -> None:
     """Parse ``TFT_FAULTS="site:count,site:count"`` once per process;
@@ -149,7 +167,7 @@ def arm(site: str, fail_n: int = 1, message: Optional[str] = None,
 
     ``transient`` defaults to True except for the ``oom`` site, whose
     faults must reach the OOM classifier (the row split), not the retry
-    loop.
+    loop, and the ``disk`` site (the persist cold path, never a retry).
     """
     if fail_n < 0:
         raise ValueError(f"fail_n must be >= 0, got {fail_n}")
@@ -165,6 +183,11 @@ def arm(site: str, fail_n: int = 1, message: Optional[str] = None,
     if site == "oom":
         if message is None:
             message = _OOM_MESSAGE
+        if transient is None:
+            transient = False
+    elif site == "disk":
+        if message is None:
+            message = _DISK_MESSAGE
         if transient is None:
             transient = False
     elif transient is None:
@@ -194,6 +217,14 @@ def active(site: str) -> int:
     _arm_from_env()
     with _state.lock:
         return _state.budgets.get(site, 0)
+
+
+def may_fire(site: str) -> bool:
+    """True when a :func:`check` of ``site`` could raise right now: a
+    scripted budget is armed. For gated instrumentation points
+    (``engine.preempt.boundary``) that enter their fault branch only when
+    something might fire."""
+    return active(site) > 0
 
 
 def _consume(site: str):

@@ -36,11 +36,16 @@ RTOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 @pytest.fixture
 def cuda():
+    """The card as the default device. The memory ledger resolves its
+    budget from the card (or a test's cap) at the test's first dispatch
+    and is dropped after, so that no test inherits another's budget."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     prev = ttf.default_device()
     ttf.set_default_device("cuda")
+    ttf.memory._reset()
     yield torch.device("cuda")
+    ttf.memory._reset()
     ttf.set_default_device(prev)
 
 
@@ -577,3 +582,124 @@ def test_a_broken_kernel_build_is_permanent_and_not_retried(
     with pytest.raises(resilience.KernelError):
         ttf.aggregate({"v": "sum"}, df.group_by("k"))
     assert segment_reduce.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the memory ledger and preemption on the card
+# ---------------------------------------------------------------------------
+
+def _pinned_base(a) -> bool:
+    """Whether numpy array ``a`` views a pinned torch host tensor."""
+    while a is not None and not isinstance(a, torch.Tensor):
+        a = getattr(a, "base", None)
+    return a is not None and a.is_pinned()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.int64], ids=str)
+def test_spill_and_fault_back_through_pinned_memory(cuda, dtype):
+    """A CUDA tensor spills to a pinned host buffer, bit for bit, gives its
+    device bytes back to the allocator, and faults back to the card in its
+    dtype."""
+    rng = np.random.default_rng(11)
+    t = torch.from_numpy(rng.standard_normal(100_003) * 1000).to(cuda, dtype)
+    buf = ttf.memory.SpillableBuffer("t", {"x": t.clone()})
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(cuda)
+    freed = buf.spill()
+    assert freed == t.numel() * t.element_size()
+    assert torch.cuda.memory_allocated(cuda) <= live - freed
+    host = buf._host["x"][0]
+    assert _pinned_base(host)
+    assert host.dtype == (np.uint16 if dtype == torch.bfloat16
+                          else t.cpu().numpy().dtype)
+    back = buf.get("x")
+    assert back.is_cuda and back.dtype == dtype
+    assert torch.equal(back.view(torch.uint8), t.view(torch.uint8))
+
+
+@pytest.mark.parametrize("keep_device", [True, False],
+                         ids=["keep_device", "pinned_readback"])
+def test_pending_block_spilled_early_on_the_card(cuda, keep_device):
+    """A pending block the ledger spills lets its device tensors go before
+    its drain: a keep_device block (a fused stage edge) copies its outputs
+    to the host; a block already copying to pinned buffers waits on its
+    event. The drain hands back the same values."""
+    mgr = ttf.memory.configure(limit_bytes=1 << 30)
+    comp = ttf.Computation.trace(
+        lambda x: {"z": x * 2.0},
+        [ttf.TensorSpec("x", ttf.dtypes.float32, ttf.Shape(-1))])
+    x = np.random.default_rng(12).standard_normal(1 << 20).astype(np.float32)
+    pending = ttf.BlockExecutor().submit(comp, {"x": x},
+                                         keep_device=keep_device)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(cuda)
+    assert mgr.snapshot()["resident_bytes"] == 2 * x.nbytes
+    assert mgr.make_room(mgr.limit)
+    assert pending.mem_is_spilled() and pending._held is None
+    assert torch.cuda.memory_allocated(cuda) <= live - 2 * x.nbytes
+    out = pending.drain()
+    assert isinstance(out["z"], np.ndarray) and out["z"].dtype == np.float32
+    np.testing.assert_array_equal(out["z"], x * 2.0)
+    assert mgr.snapshot()["resident_buffers"] == 0
+
+
+def test_star_schema_with_chunked_builds_on_the_card(cuda):
+    """Q2.1 at a small size under a budget that makes the date build probe
+    in chunks (``relational.build_chunks`` > 1): equal to the resident
+    builds' run and to the numpy reference."""
+    from chip_smoke import ssb_query, ssb_reference, ssb_tables
+    from tensorframes_tpu_torch.utils.tracing import counters
+    tables = ssb_tables(np, 5000, parts=200, suppliers=20, customers=300)
+    want = ssb_reference(np, tables, True)
+    ttf.memory.configure(limit_bytes=0)
+    resident = ssb_query(ttf, tables, 3)[1].blocks()[0].columns
+    ttf.memory.configure(limit_bytes=40_000)
+    c0 = counters.get("relational.build_chunks")
+    cols = ssb_query(ttf, tables, 3)[1].blocks()[0].columns
+    assert counters.get("relational.build_chunks") - c0 > 1
+    for name, col in want.items():
+        np.testing.assert_array_equal(cols[name], col)
+        np.testing.assert_array_equal(cols[name], resident[name])
+
+
+def test_fused_chain_parks_and_resumes_on_the_card(cuda, monkeypatch):
+    """A fused two-stage chain, its first stage's edge device-resident,
+    under a budget that spills pending edges: two injected preemptions
+    park it at strictly later blocks, each resume dispatches only the
+    blocks past its checkpoint, and the result equals the undisturbed
+    run."""
+    from tensorframes_tpu_torch.engine import preempt
+    from tensorframes_tpu_torch.resilience import QueryPreempted, faults
+    from tensorframes_tpu_torch.utils.tracing import counters
+    monkeypatch.setenv("TFT_PIPELINE_DEPTH", "4")
+    x = np.random.default_rng(13).standard_normal(8 * 4096)
+
+    def chain():
+        return (ttf.frame({"x": x}, num_partitions=8)
+                .map_blocks(lambda x: {"y0": x * 2.0})
+                .filter(lambda y0: y0 > -1.0)
+                .map_blocks(lambda y0: {"y": y0 + 1.0}))
+    want = np.concatenate([b.columns["y"] for b in chain().blocks()])
+    ttf.memory.configure(limit_bytes=int(2 * 4096 * 8 * 2.5))
+    df = chain()
+    sc = preempt.PreemptionScope("q")
+    counters.reset()
+    faults.arm("preempt", 2)
+    cursors = []
+    try:
+        for _ in range(5):
+            try:
+                with preempt.activate(sc):
+                    blocks = df.blocks()
+                break
+            except QueryPreempted:
+                cursors.append(sc.checkpoint.parked_blocks)
+    finally:
+        faults.reset()
+    assert cursors == [1, 2] and df._plan_info
+    assert counters.get("pipeline.resumed_blocks") == 3
+    assert counters.get("pipeline.submitted") == 8
+    assert counters.get("memory.spills") > 0
+    got = np.concatenate([b.columns["y"] for b in blocks])
+    np.testing.assert_array_equal(got, want)

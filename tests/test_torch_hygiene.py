@@ -61,6 +61,29 @@ def test_imports_and_runs_without_jax():
         "assert t.count('oom_split') == 2, t.events\n"
         "assert len(observability.flight.for_query(t.query_id)) == 2\n"
         "assert resilience.is_oom(MemoryError())\n"
+        "from tensorframes_tpu_torch import memory\n"
+        "from tensorframes_tpu_torch.engine import preempt\n"
+        "from tensorframes_tpu_torch.utils.tracing import counters\n"
+        "memory.configure(limit_bytes=4096)\n"
+        "big = ttf.frame({'x': np.arange(1024.0)}).map_rows(\n"
+        "    lambda x: {'y': x + 1.0})\n"
+        "assert [r['y'] for r in big.collect()][-1] == 1024.0\n"
+        "assert counters.get('memory.proactive_splits') == 3\n"
+        "memory.configure(limit_bytes=0)\n"
+        "four = ttf.frame({'x': np.arange(8.0)}, num_partitions=4)\n"
+        "four = four.map_rows(lambda x: {'y': x * 2.0})\n"
+        "sc = preempt.PreemptionScope('q')\n"
+        "resilience.faults.arm('preempt', 1)\n"
+        "try:\n"
+        "    with preempt.activate(sc):\n"
+        "        four.blocks()\n"
+        "    raise AssertionError('no park')\n"
+        "except resilience.QueryPreempted:\n"
+        "    pass\n"
+        "with preempt.activate(sc):\n"
+        "    assert [r['y'] for r in four.collect()] == \\\n"
+        "        [2.0 * i for i in range(8)]\n"
+        "assert counters.get('pipeline.resumed_blocks') == 1\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [k for k in sys.modules if k == 'tensorframes_tpu'\n"
         "       or k.startswith('tensorframes_tpu.') or k.startswith('jax.')]\n"
@@ -93,7 +116,9 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "resilience/classify.py", "resilience/faults.py",
             "resilience/policy.py", "observability/__init__.py",
             "observability/events.py", "observability/flight.py",
-            "observability/device.py"} <= names
+            "observability/device.py", "memory/__init__.py",
+            "memory/spill.py", "memory/manager.py", "memory/checkpoint.py",
+            "memory/persist.py", "engine/preempt.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):

@@ -13,11 +13,15 @@ guarantee. A float ``sum`` beside a sketch is held to rtol 1e-12 (the two
 packages' segment sums add in different orders); the star-schema revenue is
 integral, so its sums are exact in any order and compared for equality.
 
+Under a device budget (``TestChunkedBuild``) a build table over the
+ledger's resident threshold is probed in chunks and any other is a
+spillable ledger entry; both packages are held to the same rows and the
+same ``relational.build_chunks`` / ``memory.*`` counters.
+
 Not mirrored here yet: the ``mesh8`` cases (mesh sort-merge, device loss,
 external sort, partitioned joins, ``daggregate`` sketches, hot keys of a
 salted ``daggregate``) wait for the parallel layer (ROADMAP A10); the
-ledger-chunked build for the memory layer (A7); the stream join and the
-stream sketch fold for the stream layer (A9).
+stream join and the stream sketch fold for the stream layer (A9).
 """
 
 import importlib
@@ -336,6 +340,132 @@ class TestBroadcastJoin:
         assert [s.shape.dims for s in comp.inputs] == [(-1,), (3,)]
         got = build.gather_device(["w"], np.array([2, 0, 0]), None)
         np.testing.assert_array_equal(got["w"], [500., 200., 200.])
+
+
+# ---------------------------------------------------------------------------
+# the build table under the memory ledger
+# ---------------------------------------------------------------------------
+
+_MEM = {"jax": importlib.import_module("tensorframes_tpu.memory"),
+        "torch": importlib.import_module("tensorframes_tpu_torch.memory")}
+_COUNTERS = {"jax": importlib.import_module(
+    "tensorframes_tpu.utils.tracing").counters, "torch": counters}
+_WATCHED = ("memory.", "relational.build_chunks",
+            "relational.probe_dispatches", "pipeline.")
+
+
+def _budgeted(run, limit):
+    """``run(package, relational)`` in each package under a ``limit``-byte
+    budget (``0``: none); returns ``{pkg: (value, watched counters)}``."""
+    out = {}
+    for name, (m, rel) in (("jax", (jtf, jrel)), ("torch", (ttf, trel))):
+        c = _COUNTERS[name]
+        c.reset()
+        _MEM[name].configure(limit_bytes=limit)
+        try:
+            v = run(m, rel)
+        finally:
+            _MEM[name]._reset()
+        out[name] = (v, {k: n for k, n in c.snapshot().items()
+                         if k.startswith(_WATCHED)})
+    assert out["torch"][1] == out["jax"][1], (out["torch"][1],
+                                              out["jax"][1])
+    return out
+
+
+class TestChunkedBuild:
+    def test_over_budget_build_bit_identical(self):
+        n = 20000
+        right = {"k": np.arange(n, dtype=np.int64),
+                 "w": np.arange(n, dtype=np.float64),
+                 "w2": np.arange(n, dtype=np.float64)}
+        left = {"k": np.array([0, 5, n - 1, n + 7, 123], np.int64)}
+
+        def run(m, rel):
+            return _rows(rel.broadcast_join(
+                m.frame(left, num_partitions=2), m.frame(right), on="k",
+                how="left"))
+        unlimited = _budgeted(run, 0)
+        # build tensor bytes about 4x the budget
+        res = _budgeted(run, int(n * 16 // 4))
+        got = res["torch"][0]
+        assert _eq(got, res["jax"][0])
+        assert _eq(got, unlimited["torch"][0])
+        assert _eq(got, _oracle_for(ttf.frame(left), ttf.frame(right), "k",
+                                    "left"))
+        assert res["torch"][1]["relational.build_chunks"] == 16
+        assert res["torch"][1]["relational.probe_dispatches"] == 2 * 16
+        assert "relational.build_chunks" not in unlimited["torch"][1]
+
+    def test_chunk_spans_hold_whole_key_groups(self):
+        """A key's duplicate rows never straddle two chunks: the spans cut
+        at group starts."""
+        right = {"k": np.repeat(np.arange(50, dtype=np.int64), 7),
+                 "w": np.arange(350, dtype=np.float64)}
+        spans = {}
+        for name, m in (("jax", jtf), ("torch", ttf)):
+            _MEM[name].configure(limit_bytes=700)  # threshold 350 B
+            try:
+                mod = jjoin if m is jtf else tjoin
+                bt = mod.BuildTable(m.frame(right), "k")
+                assert bt.chunks is not None and len(bt.chunks) == 16
+                starts = set(bt.starts.tolist()) | {bt.build_rows}
+                assert all(a in starts and b in starts
+                           for a, b in bt.chunks)
+                spans[name] = bt.chunks
+            finally:
+                _MEM[name]._reset()
+        assert spans["torch"] == spans["jax"]
+        left = {"k": np.array([3, 3, 49, 60, 0], np.int64)}
+
+        def run(m, rel):
+            return _rows(rel.broadcast_join(m.frame(left), m.frame(right),
+                                            on="k", how="inner"))
+        res = _budgeted(run, 700)
+        assert _eq(res["torch"][0], res["jax"][0])
+        assert len(res["torch"][0]) == 4 * 7
+
+    def test_resident_build_spills_and_faults_back(self):
+        """Under a budget that holds it, the build is a spillable ledger
+        entry: spilled under pressure, faulted back at its next probe,
+        with the same rows."""
+        right = _right_unique_cols()
+        left = _left_cols()
+
+        def run(m, rel):
+            mgr = _MEM["jax" if m is jtf else "torch"].active()
+            out = rel.broadcast_join(m.frame(left, num_partitions=2),
+                                     m.frame(right), on="k", how="left")
+            first = _rows(out)
+            snap = mgr.snapshot()
+            assert mgr.make_room(mgr.limit)  # everything must go
+            spilled = mgr.snapshot()["spilled_buffers"]
+            out.uncache()
+            return first, _rows(out), snap["resident_buffers"], spilled
+        res = _budgeted(run, 10 ** 6)
+        first, again, resident, spilled = res["torch"][0]
+        assert _eq(first, again) and _eq(first, res["jax"][0][0])
+        assert (resident, spilled) == (1, 1) == res["jax"][0][2:]
+        assert res["torch"][1]["memory.spills"] == 1
+        assert res["torch"][1]["memory.faults"] == 1
+
+    def test_star_schema_with_chunked_builds(self):
+        """Q2.1 at a small size with a budget under which the date and part
+        builds probe in chunks: equal to the resident builds' result and
+        to the numpy reference."""
+        tables = ssb_small()
+        want = ssb_reference(np, tables, True)
+
+        def run(m, rel):
+            return ssb_query(m, tables)[1].blocks()[0].columns
+        resident = _budgeted(run, 0)["torch"][0]
+        res = _budgeted(run, 40_000)
+        assert res["torch"][1]["relational.build_chunks"] > 1
+        for name, col in want.items():
+            np.testing.assert_array_equal(res["torch"][0][name], col)
+            np.testing.assert_array_equal(res["torch"][0][name],
+                                          resident[name])
+            np.testing.assert_array_equal(res["jax"][0][name], col)
 
 
 # ---------------------------------------------------------------------------

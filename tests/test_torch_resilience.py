@@ -266,7 +266,7 @@ class TestFaults:
 
     def test_sites_are_the_ports_and_chaos_waits(self, monkeypatch):
         assert set(faults.sites()) == {"compile", "dispatch", "oom",
-                                       "drain", "perf"}
+                                       "drain", "perf", "preempt", "disk"}
         assert set(faults.sites()) <= set(jrz.faults.sites())
         monkeypatch.setenv("TFT_CHAOS", "seed:1,rate:0.5")
         faults._state._armed_env = False
@@ -282,12 +282,11 @@ class TestFaults:
         faults.reset()
         assert counters.get("faults.unknown_sites") == 1
 
-    @pytest.mark.parametrize("site", ["device", "worker", "disk"])
+    @pytest.mark.parametrize("site", ["device", "worker"])
     def test_sites_of_later_layers_are_unknown_and_unshaped(self, site):
-        """The mesh's, the fabric's and the persist layer's sites come
-        with those layers: arming one warns like any unknown site, and
-        its fault carries none of the JAX package's shaping (device loss,
-        worker loss, a failed read)."""
+        """The mesh's and the fabric's sites come with those layers:
+        arming one warns like any unknown site, and its fault carries none
+        of the JAX package's shaping (device loss, worker loss)."""
         with faults.inject(site, fail_n=1):
             with pytest.raises(trz.InjectedFault) as ei:
                 faults.check(site)
@@ -297,6 +296,21 @@ class TestFaults:
             with pytest.raises(jrz.InjectedFault) as ej:
                 jrz.faults.check(site)
         assert jrz.error_kind(ej.value) != "transient"
+
+    def test_disk_site_is_shaped_like_the_jax_package(self):
+        """The persist tier's site came with ``memory/persist.py``: it is
+        known, and its fault is the JAX package's failed read,
+        non-transient."""
+        with faults.inject("disk", fail_n=1):
+            with pytest.raises(trz.InjectedFault) as ei:
+                faults.check("disk")
+        with jrz.faults.inject("disk", fail_n=1):
+            with pytest.raises(jrz.InjectedFault) as ej:
+                jrz.faults.check("disk")
+        assert counters.get("faults.unknown_sites") == 0
+        assert str(ei.value) == str(ej.value)
+        assert trz.error_kind(ei.value) == jrz.error_kind(ej.value)
+        assert not ei.value.transient
 
     def test_perf_slowdown_sleeps_and_never_raises(self, monkeypatch):
         monkeypatch.setenv("TFT_FAULT_PERF_S", "0.001")
