@@ -55,6 +55,37 @@ paths through its public entry points and checks every result:
    flight records as the memory model predicts; then injected OOM,
    dispatch, drain and give-up drills, each bit-equal to the undisturbed
    run;
+3e. the port under a device-memory ledger with the process capped at
+   8 GiB (``memory_budget_20M``, :func:`phase_memory_budget`): proactive
+   splits, pending blocks spilled, preemption parks and resumes, join
+   builds spilled, faulted back and probed in chunks;
+3f. the Yahoo Streaming Benchmark's advertising query as a stream
+   (Chintapalli et al., IPDPSW 2016; github.com/yahoo/streaming-benchmarks):
+   20M events at 100,000 a second with the benchmark's seven fields
+   (string fields as integer codes), in batches of 400,000 from a
+   ``GeneratorSource`` -> ``filter_rows(event_type == view)`` -> a stream
+   join to the ads table (1,000 ads, 10 to a campaign) ->
+   ``map_blocks(n = 1.0)`` -> ``select`` -> count per campaign per 10 s
+   tumbling window (``{"n": "sum"}``, watermark delay 1 s), then a late
+   batch for the first window: every (window, campaign) count equal to
+   numpy's, 20 windows of 100 campaigns, the late views counted, no batch
+   skipped, segment_sum launched once per batch and window; (b) with
+   ``approx_distinct(user_id)`` beside it (the live windows' registers
+   bit-equal to the CPU executor's fold, the estimates within 5 sigma of
+   numpy's exact counts); (c) one transient ``batch`` fault (retried, not
+   counted twice) and one drifted batch through a ``QueueSource``
+   (skipped and counted); (d) the background pump over a bounded queue
+   fed by a producer thread, with a ``SlotPool(2)`` and a
+   ``ParquetSink`` whose file reads back equal;
+3g. phase 3b's parquet file tailed a row group a poll
+   (``ParquetTailSource``): ``{"x": "sum", "y": "max"}`` by ``key`` over
+   sliding windows of 4M rows every 2M (``ts``): 11 windows, each equal
+   to numpy's (sums to rtol 1e-12, maxima exactly); (b) with a 4M
+   watermark delay, ``max_state_rows`` 250,000 and a ledger, and row group
+   15 appended again after the last: the held windows spill to pinned
+   host memory, the repeat faults them back, none is force-emitted; (c)
+   the first 4 row groups through ``map_rows`` -> ``filter_rows`` ->
+   ``select``, bit-equal to the batch path;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -74,7 +105,7 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3e for
+with each kernel's launches during its main path (phases 1-3g for
 segment_sum, phase 4 for flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
@@ -1456,6 +1487,466 @@ def phase_memory_budget(ttf, np, torch, segment_reduce, n=20_000_000,
     return out
 
 
+# the Yahoo Streaming Benchmark's advertising events (Chintapalli et al.,
+# IPDPSW 2016; github.com/yahoo/streaming-benchmarks): seven fields, the
+# string fields as integer codes, event types view/click/purchase as 0/1/2
+YSB_VIEW = 0
+
+
+def ysb_events(np, n, batch, rate, ads=1_000, users=100_000, seed=21,
+               late=1_000) -> tuple:
+    """``n`` events in time order at ``rate`` a second, in batches of
+    ``batch``; ``late`` more with event times in the first 10 s; and the
+    ads table (``ads`` ads, 10 to a campaign)."""
+    rng = np.random.default_rng(seed)
+
+    def events(m, times):
+        return {"user_id": rng.integers(0, users, m),
+                "page_id": rng.integers(0, 1_000, m),
+                "ad_id": rng.integers(0, ads, m),
+                "ad_type": rng.integers(0, 5, m).astype(np.int32),
+                "event_type": rng.integers(0, 3, m).astype(np.int32),
+                "event_time": times,
+                "ip_address": rng.integers(0, 2 ** 32, m)}
+
+    batches = [events(min(batch, n - s),
+                      np.arange(s, min(s + batch, n)) / float(rate))
+               for s in range(0, n, batch)]
+    late_b = events(late, rng.random(late) * 10.0)
+    table = {"ad_id": np.arange(ads, dtype=np.int64),
+             "campaign_id": np.arange(ads, dtype=np.int64) // 10}
+    return batches, late_b, table
+
+
+def ysb_reference(np, batches, table, window=10.0) -> dict:
+    """numpy's view counts and exact distinct users per (window,
+    campaign), and each view's window, campaign and user."""
+    views = [b["event_type"] == YSB_VIEW for b in batches]
+    w = np.concatenate([np.floor(b["event_time"][v] / window)
+                        for b, v in zip(batches, views)]).astype(np.int64)
+    c = np.concatenate([table["campaign_id"][b["ad_id"][v]]
+                        for b, v in zip(batches, views)])
+    u = np.concatenate([b["user_id"][v] for b, v in zip(batches, views)])
+    n_w, n_c = int(w.max()) + 1, int(table["campaign_id"].max()) + 1
+    counts = np.bincount(w * n_c + c, minlength=n_w * n_c).reshape(n_w, n_c)
+    users = int(u.max()) + 1
+    pairs = np.unique((w * n_c + c) * users + u) // users
+    distinct = np.bincount(pairs, minlength=n_w * n_c).reshape(n_w, n_c)
+    return {"counts": counts, "distinct": distinct, "w": w, "c": c,
+            "u": u}
+
+
+def ysb_query(ttf, torch, source, table, distinct=False):
+    """The benchmark's query over ``source``: views, joined to their
+    campaigns, counted per campaign per 10 s window (as an f64 sum of
+    ones, so that the fold is a float sum); ``distinct`` adds the
+    distinct users."""
+    from tensorframes_tpu_torch import stream
+
+    keep = ["campaign_id", "event_time", "n"] + (["user_id"]
+                                                  if distinct else [])
+    fetches = {"n": "sum"}
+    if distinct:
+        fetches["user_id"] = ttf.relational.approx_distinct()
+    return (stream.from_source(source)
+            .filter_rows(lambda event_type: event_type == YSB_VIEW)
+            .join(ttf.frame(dict(table)), on="ad_id", how="inner")
+            .map_blocks(lambda campaign_id: {
+                "n": (campaign_id >= 0).to(torch.float64)})
+            .select(keep)
+            .group_by("campaign_id")
+            .aggregate(fetches, window=stream.tumbling(10.0),
+                       time_col="event_time", watermark_delay=1.0))
+
+
+def ysb_check(np, frames, counts) -> int:
+    """Every emitted (window, campaign) count equals numpy's exactly and
+    every window emits once; returns the windows checked."""
+    n_windows, n_campaigns = counts.shape
+    assert len(frames) == n_windows, (len(frames), n_windows)
+    seen = set()
+    for f in frames:
+        cols = f.blocks()[0].columns
+        w = int(cols["window_start"][0] // 10.0)
+        assert w not in seen, f"window {w} emitted twice"
+        seen.add(w)
+        assert np.array_equal(cols["campaign_id"], np.arange(n_campaigns))
+        assert np.array_equal(cols["n"], counts[w].astype(np.float64)), \
+            f"window {w}: counts differ from numpy"
+    return len(seen)
+
+
+STREAM_COUNTERS = ("stream.batches", "stream.batches_skipped",
+                   "stream.late_rows", "stream.windows_emitted",
+                   "stream.merge_compiles", "stream.state_spills",
+                   "stream.state_faults", "stream.state_evictions",
+                   "retry.stream.batch.retries", "stream.slot_waits")
+
+
+def stream_counts() -> dict:
+    from tensorframes_tpu_torch.utils.tracing import counters
+    return {k: counters.get(k) for k in STREAM_COUNTERS}
+
+
+def count_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in stream_counts().items()}
+
+
+def phase_stream_ysb(ttf, np, torch, segment_reduce, n=20_000_000,
+                     batch=400_000, rate=100_000, seed=21) -> dict:
+    """The Yahoo Streaming Benchmark's query as a stream (see the module
+    docstring, phase 3f)."""
+    import threading
+
+    from tensorframes_tpu_torch import stream
+    from tensorframes_tpu_torch.engine import pipeline
+    from tensorframes_tpu_torch.observability import metrics
+    from tensorframes_tpu_torch.resilience import faults
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    t0 = time.perf_counter()
+    batches, late_b, table = ysb_events(np, n, batch, rate, seed=seed)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = ysb_reference(np, batches, table)
+    reference_s = time.perf_counter() - t0
+    counts = ref["counts"]
+    late_views = int(np.sum(late_b["event_type"] == YSB_VIEW))
+    # the folds: one per batch and 10 s window its span touches
+    predicted = sum(len(np.unique(np.floor(
+        b["event_time"][[0, -1]] / 10.0))) for b in batches)
+    schema = ttf.frame(dict(batches[0])).schema
+    out = {"events": n, "batch_events": batch, "batches": len(batches),
+           "windows": counts.shape[0], "campaigns": counts.shape[1],
+           "late_events": len(late_b["user_id"]), "late_views": late_views,
+           "predicted_launches": predicted, "gen_s": gen_s,
+           "reference_s": reference_s,
+           "note": "part b's distinct users are not in the benchmark's "
+                   "published query"}
+
+    def source(extra=()):
+        return stream.GeneratorSource(
+            iter([dict(b) for b in batches] + [dict(e) for e in extra]))
+
+    # (a) the query, then a late batch for the first window
+    c0, l0 = stream_counts(), segment_reduce.launches
+    t0 = time.perf_counter()
+    h = ysb_query(ttf, torch, source([late_b]), table).start(name="ysb-a")
+    h.run()
+    wall = time.perf_counter() - t0
+    ysb_check(np, h.collect_updates(), counts)
+    c = count_delta(c0)
+    assert c["stream.batches_skipped"] == 0, c
+    assert c["stream.late_rows"] == late_views, c
+    assert c["stream.windows_emitted"] == counts.shape[0], c
+    launches = segment_reduce.launches - l0
+    assert launches == predicted, (launches, predicted)
+    out["a_query"] = {"wall_s": wall, "launches": launches, "counters": c,
+                      "events_per_s": (n + late_b["user_id"].size) / wall}
+
+    # (b) with distinct users: the live windows' HLL registers after
+    # `mid` batches against the CPU executor's fold of the same rows,
+    # then every estimate against numpy's exact count
+    probe = ttf.relational.approx_distinct()
+    l0 = segment_reduce.launches
+    t0 = time.perf_counter()
+    agg = ysb_query(ttf, torch, source(), table, distinct=True)
+    h = agg.start(name="ysb-b")
+    mid = min(10, len(batches) - 1)
+    for _ in range(mid):
+        assert h.step()
+    seen_views = sum(int(np.sum(b["event_type"] == YSB_VIEW))
+                     for b in batches[:mid])
+    w_mid, c_mid, u_mid = (ref[k][:seen_views] for k in ("w", "c", "u"))
+    checked = 0
+    for s, st in list(agg._windows.items()):
+        regs = st.values["user_id"]
+        assert regs.device.type == ttf.default_device().type, regs.device
+        m = w_mid == int(s // 10.0)
+        keys = st.keys_u[0]
+        cpu = probe.block_partial(u_mid[m], np.searchsorted(keys, c_mid[m]),
+                                  len(keys), device=torch.device("cpu"))
+        assert np.array_equal(regs.cpu().numpy(), cpu), \
+            f"window {s}: registers differ from the CPU executor's fold"
+        checked += 1
+    assert checked >= 1
+    h.run()
+    wall = time.perf_counter() - t0
+    frames = h.collect_updates()
+    assert len(frames) == counts.shape[0]
+    worst = 0.0
+    for f in frames:
+        cols = f.blocks()[0].columns
+        w = int(cols["window_start"][0] // 10.0)
+        assert np.array_equal(cols["n"], counts[w].astype(np.float64))
+        exact = ref["distinct"][w][cols["campaign_id"]]
+        dev = np.abs(cols["user_id"] - exact) / (probe.relative_error
+                                                 * exact)
+        worst = max(worst, float(dev.max()))
+        assert dev.max() <= 5.0, (w, float(dev.max()))
+    out["b_distinct_users"] = {
+        "wall_s": wall, "launches": segment_reduce.launches - l0,
+        "windows_registers_checked": checked, "worst_sigma": worst,
+        "hll_bits": probe.bits}
+
+    # (c) one transient batch fault (retried, never counted twice) and one
+    # drifted batch through a QueueSource: event_type arrives as per-row
+    # cells, which pass the producer's column check and poison the batch
+    # at its forcing (skipped and counted); the drifted batch is an extra
+    # copy of a batch, so the counts stay numpy's
+    c0, l0 = stream_counts(), segment_reduce.launches
+    src = stream.QueueSource(schema, maxsize=len(batches) + 1)
+    for i, b in enumerate(batches):
+        src.put(dict(b))
+        if i == min(7, len(batches) - 1):
+            bad = dict(b)
+            bad["event_type"] = [np.array(v) for v in b["event_type"]]
+            src.put(bad)
+    src.close()
+    t0 = time.perf_counter()
+    h = ysb_query(ttf, torch, src, table).start(name="ysb-c")
+    h.run(max_batches=5)
+    with faults.inject("batch", fail_n=1):  # transient: retried
+        h.run()
+    wall = time.perf_counter() - t0
+    c = count_delta(c0)
+    assert c["stream.batches_skipped"] == 1, c
+    assert c["retry.stream.batch.retries"] == 1, c
+    ysb_check(np, h.collect_updates(), counts)
+    launches = segment_reduce.launches - l0
+    assert launches == predicted, (launches, predicted)
+    out["c_failure_isolation"] = {"wall_s": wall, "launches": launches,
+                                  "counters": c}
+
+    # (d) the background pump: a producer thread feeds a bounded queue,
+    # a slot pool is installed and the windows go to a parquet sink
+    c0, l0 = stream_counts(), segment_reduce.launches
+    v0 = counters.get("invariants.violations")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "data")
+    os.makedirs(root, exist_ok=True)
+    sink_path = os.path.join(root, "ysb_windows.parquet")
+    if os.path.exists(sink_path):
+        os.remove(sink_path)
+    src = stream.QueueSource(schema, maxsize=4)
+    pool = pipeline.SlotPool(2)
+    prev = pipeline.install_slot_pool(pool)
+    try:
+        t0 = time.perf_counter()
+        h = ysb_query(ttf, torch, src, table).start(
+            name="ysb", sink=stream.ParquetSink(sink_path))
+        h.start_background(poll_interval=0.001)
+
+        def produce():
+            for b in batches:
+                src.put(dict(b))  # waits while the queue is full
+            src.close()
+
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        give_up = time.monotonic() + 600
+        while not h.done() and time.monotonic() < give_up:
+            time.sleep(0.005)
+        producer.join(timeout=60)
+        wall = time.perf_counter() - t0
+        assert h.done() and h.error is None, h.error
+        text = metrics.metrics_text()
+        h.stop()
+    finally:
+        pipeline.install_slot_pool(prev)
+    assert pool.leased() == 0, pool.leased()
+    assert counters.get("invariants.violations") == v0
+    assert f'tft_stream_batches_total{{stream="ysb"}} {len(batches)}' \
+        in text
+    frames = h.collect_updates()
+    ysb_check(np, frames, counts)
+    back = ttf.read_parquet(sink_path)
+    assert back.count() == counts.size
+    for col in ("window_start", "campaign_id", "n"):
+        got = np.concatenate([b.columns[col] for b in back.blocks()])
+        want = np.concatenate([f.blocks()[0].columns[col] for f in frames])
+        assert np.array_equal(got, want), f"the sink's {col} differs"
+    c = count_delta(c0)
+    assert c["stream.batches_skipped"] == 0, c
+    launches = segment_reduce.launches - l0
+    assert launches == predicted, (launches, predicted)
+    out["d_background_pump"] = {"wall_s": wall, "launches": launches,
+                                "counters": c,
+                                "sink_row_groups": back.num_partitions}
+    return out
+
+
+def tail_file(np, src_path, groups, repeat) -> tuple:
+    """``src_path``'s ``ts``, ``key``, ``x`` and ``y`` row groups, then
+    group ``repeat`` once more (the appended group), written under
+    ``build/data/`` unless there already; returns the path and the
+    seconds spent writing."""
+    import pyarrow.parquet as pq
+
+    path = src_path.replace(".parquet", f"_tail{repeat}.parquet")
+    if os.path.exists(path) and \
+            pq.read_metadata(path).num_row_groups == groups + 1:
+        return path, 0.0
+    t0 = time.perf_counter()
+    tmp = path + ".tmp"
+    writer = None
+    with pq.ParquetFile(src_path) as pf:
+        for g in list(range(groups)) + [repeat]:
+            tbl = pf.read_row_group(g, columns=["ts", "key", "x", "y"])
+            if writer is None:
+                writer = pq.ParquetWriter(tmp, tbl.schema)
+            writer.write_table(tbl, row_group_size=tbl.num_rows)
+    writer.close()
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t0
+
+
+def window_reference(np, ts, key, x, y, starts, size, keys) -> dict:
+    """numpy's per-window ``x`` sums (f64 bincount) and ``y`` maxima over
+    the rows with ``start <= ts < start + size``."""
+    out = {}
+    for s in starts:
+        m = (ts >= s) & (ts < s + size)
+        k = key[m]
+        present = np.bincount(k, minlength=keys) > 0
+        sums = np.bincount(k, weights=x[m], minlength=keys)
+        mx = np.full(keys, -np.inf)
+        np.maximum.at(mx, k, y[m])
+        out[float(s)] = (np.flatnonzero(present), sums[present],
+                         mx[present])
+    return out
+
+
+def check_windows(np, frames, want) -> int:
+    """Emitted windows against :func:`window_reference`: keys in order,
+    ``x`` sums to rtol 1e-12, ``y`` maxima exactly, every window once."""
+    seen = []
+    for f in frames:
+        cols = f.blocks()[0].columns
+        s = float(cols["window_start"][0])
+        keys, sums, mx = want[s]
+        assert np.array_equal(cols["key"], keys), f"window {s}: keys"
+        np.testing.assert_allclose(cols["x"], sums, rtol=1e-12, atol=0,
+                                   err_msg=f"window {s}: x sums")
+        assert np.array_equal(cols["y"], mx), f"window {s}: y maxima"
+        seen.append(s)
+    assert sorted(seen) == sorted(want), (sorted(seen), sorted(want))
+    return len(seen)
+
+
+def phase_stream_windows_parquet(ttf, np, torch, segment_reduce,
+                                 n=20_000_000, groups=20, keys=100_000,
+                                 seed=11) -> dict:
+    """Keyed sliding windows over the plan phase's parquet file, tailed a
+    row group a poll (see the module docstring, phase 3g)."""
+    import pyarrow.parquet as pq
+
+    from tensorframes_tpu_torch import stream
+
+    path, write_s = scan_file(np, n, groups, keys, seed)
+    cols = ["ts", "key", "x", "y"]
+    per = n // groups
+    size, slide = 4 * per, 2 * per
+    tbl = pq.read_table(path, columns=cols)
+    ts, key, x, y = (tbl.column(c).to_numpy() for c in cols)
+    del tbl
+    starts = np.arange(-slide, n, slide)
+    t0 = time.perf_counter()
+    want = window_reference(np, ts, key, x, y, starts, size, keys)
+    reference_s = time.perf_counter() - t0
+    out = {"rows": n, "row_groups": groups, "keys": keys,
+           "window": {"size": size, "slide": slide},
+           "windows": int(starts.size), "write_s": write_s,
+           "reference_s": reference_s}
+
+    def query(src_path, **kw):
+        return (stream.from_source(stream.ParquetTailSource(
+                    src_path, columns=cols, follow=False))
+                .group_by("key")
+                .aggregate({"x": "sum", "y": "max"},
+                           window=stream.sliding(size, slide),
+                           time_col="ts", **kw))
+
+    def drive(h):
+        peak = during = 0
+        while not h.done():
+            if h.step():
+                peak = max(peak, h.metrics()["state_rows"])
+                during = h.metrics()["windows_emitted"]
+        return peak, during
+
+    # (a) the query: each row group folds into two windows
+    c0, l0 = stream_counts(), segment_reduce.launches
+    t0 = time.perf_counter()
+    h = query(path).start(name="windows-a")
+    peak, during = drive(h)
+    wall = time.perf_counter() - t0
+    checked = check_windows(np, h.collect_updates(), want)
+    c = count_delta(c0)
+    launches = segment_reduce.launches - l0
+    assert launches == 2 * groups, launches
+    assert c["stream.windows_emitted"] == starts.size, c
+    assert c["stream.batches_skipped"] == 0, c
+    out["a_query"] = {"wall_s": wall, "launches": launches,
+                      "emitted_during_stream": during,
+                      "emitted_at_finalize": checked - during,
+                      "peak_state_rows": peak, "counters": c,
+                      "rows_per_s": n / wall}
+
+    # (b) under a ledger and a state cap, the watermark held back a
+    # window, and row group `repeat` appended again after the last
+    repeat = (3 * groups) // 4
+    tpath, tail_s = tail_file(np, path, groups, repeat)
+    rep = slice(repeat * per, (repeat + 1) * per)
+    want_b = window_reference(
+        np, *(np.concatenate([a, a[rep]]) for a in (ts, key, x, y)),
+        starts, size, keys)
+    cap = (5 * keys) // 2
+    c0, l0 = stream_counts(), segment_reduce.launches
+    ttf.memory.configure(limit_bytes=2 << 30)
+    try:
+        t0 = time.perf_counter()
+        h = query(tpath, watermark_delay=size,
+                  max_state_rows=cap).start(name="windows-b")
+        peak_b, _ = drive(h)
+        wall = time.perf_counter() - t0
+        checked_b = check_windows(np, h.collect_updates(), want_b)
+    finally:
+        ttf.memory._reset()
+    c = count_delta(c0)
+    assert c["stream.state_spills"] >= 1, c
+    assert c["stream.state_evictions"] == 0, c
+    assert c["stream.state_faults"] >= 1, c
+    out["b_budget"] = {"wall_s": wall, "max_state_rows": cap,
+                       "repeated_group": repeat, "tail_write_s": tail_s,
+                       "launches": segment_reduce.launches - l0,
+                       "windows_checked": checked_b,
+                       "peak_state_rows": peak_b, "counters": c}
+
+    # (c) the first 4 row groups through a row-local chain, bit-equal to
+    # the batch path over the same groups
+    def chain(sf):
+        return (sf.map_rows(lambda x, y: {"z": x * y + 1.0})
+                  .filter(lambda z: z > 1.25)
+                  .select(["ts", "key", "z"]))
+
+    h = chain(stream.from_source(stream.ParquetTailSource(
+        path, columns=cols, follow=False))).start(name="windows-c")
+    assert h.run(max_batches=4) == 4
+    got = h.collect_updates()
+    h.stop()
+    batch = chain(ttf.read_parquet(path, columns=cols,
+                                   row_group_limit=4)).blocks()
+    assert len(got) == len(batch) == 4
+    for g, b in zip(got, batch):
+        for col in ("ts", "key", "z"):
+            assert np.array_equal(g.blocks()[0].columns[col],
+                                  b.columns[col]), col
+    out["c_finite_equivalence"] = {
+        "row_groups": 4, "rows_out": int(sum(b.num_rows for b in batch))}
+    return out
+
+
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
 
 
@@ -1853,8 +2344,10 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     S = 1,024), of phase 3b (a 1M-row row group, f64, S = 100,000) and of
     phase 3c (the roll-up's 750k rows into 7,000 groups, and Q2.1's block
     after its filter, about 6,000 rows into 280 groups, both f64), of
-    phase 3d (2.5M rows of f32 ``z``, S = 100,000) and of phase 3e's part
-    (a) (20M rows of f32 ``z`` in one block, S = 100,000),
+    phase 3d (2.5M rows of f32 ``z``, S = 100,000), of phase 3e's part
+    (a) (20M rows of f32 ``z`` in one block, S = 100,000) and of phase
+    3f's fold (a batch's views of one window, about 133,000 f64 ones, S =
+    100 campaigns; phase 3g's 1M-row fold is phase 3b's shape),
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1871,7 +2364,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
                                100_000, torch.float32, flush),
               time_segment_sum(np, torch, segment_reduce, 20_000_000, 1,
-                               100_000, torch.float32, flush)]
+                               100_000, torch.float32, flush),
+              time_segment_sum(np, torch, segment_reduce, 133_000, 1, 100,
+                               torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -1888,10 +2383,11 @@ def print_card() -> None:
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
 
-def run_path(torch, phases, counters) -> dict:
+def run_path(torch, phases, counters, per_phase=None) -> dict:
     """Run one main path's phases with every kernel's launch count set to
     0 just before and read just after; each phase reports its own counts
-    and the engine's host spans. Returns the path's counts."""
+    and the engine's host spans (``per_phase``, when given, collects each
+    phase's counts by name). Returns the path's counts."""
     from tensorframes_tpu_torch.utils import tracing
 
     for mod in counters.values():
@@ -1903,10 +2399,12 @@ def run_path(torch, phases, counters) -> dict:
         before = {k: m.launches for k, m in counters.items()}
         info = run()
         torch.cuda.synchronize()
+        launches = {k: m.launches - before[k] for k, m in counters.items()}
+        if per_phase is not None:
+            per_phase[name] = launches
         emit({"phase": name, "ok": True, "wall_s": time.perf_counter() - t0,
-              "launches": {k: m.launches - before[k]
-                           for k, m in counters.items()},
-              **info, "spans": tracing.timings.snapshot()})
+              "launches": launches, **info,
+              "spans": tracing.timings.snapshot()})
     tracing.disable()
     return {k: m.launches for k, m in counters.items()}
 
@@ -1953,6 +2451,7 @@ def main(argv=None) -> int:
 
     # the main paths: each kernel's launches are counted from 0 around each
     counters = {"segment_sum": segment_reduce, "flash_attention": fa}
+    per_phase = {}
     frame_path = run_path(torch, (
         ("readme_x_plus_3", lambda: phase_readme(ttf, np)),
         ("reference_workload_20M",
@@ -1965,10 +2464,18 @@ def main(argv=None) -> int:
         ("oom_recovery_rff_20M",
          lambda: phase_oom_recovery_rff(ttf, np, torch, segment_reduce)),
         ("memory_budget_20M",
-         lambda: phase_memory_budget(ttf, np, torch, segment_reduce))),
-        counters)
+         lambda: phase_memory_budget(ttf, np, torch, segment_reduce)),
+        ("stream_ysb_20M",
+         lambda: phase_stream_ysb(ttf, np, torch, segment_reduce)),
+        ("stream_windows_parquet_20M",
+         lambda: phase_stream_windows_parquet(ttf, np, torch,
+                                              segment_reduce))),
+        counters, per_phase)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"
+    for name in ("stream_ysb_20M", "stream_windows_parquet_20M"):
+        assert per_phase[name]["segment_sum"] > 0, \
+            f"the stream's fold never launched segment_sum in {name}"
     state = {}
     lm_path = run_path(torch, (
         ("transformer_score_8x2048",

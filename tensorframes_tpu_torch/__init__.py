@@ -35,6 +35,12 @@ host memory. ``engine.preempt.PreemptionScope`` lets a running query park
 at a block boundary and resume later from its checkpoint
 (``memory.persist`` writes it to ``TFT_PERSIST_DIR``).
 
+``stream`` runs the same ops over a continuous source
+(``stream.from_source``): per-batch transforms, a stream-table join, and
+keyed window folds into state on the device through the same segment
+reductions, with failure isolation, a slot pool and live metrics
+(``observability.metrics_text``, :func:`timeline`).
+
 The entry points run on ``cuda`` unless the caller asks for the CPU, with
 :func:`set_default_device` or ``executor=BlockExecutor(device="cpu")``.
 This package imports neither ``jax`` nor ``tensorframes_tpu``.
@@ -68,6 +74,8 @@ from . import models
 from . import relational
 from . import observability
 from . import resilience
+from . import stream
+from .observability.timeline import timeline
 from .relational import (approx_distinct, approx_quantile, approx_top_k,
                          join)
 
@@ -116,6 +124,8 @@ __all__ = [
     "relational",
     "observability",
     "resilience",
+    "stream",
+    "timeline",
     "join",
     "approx_distinct",
     "approx_quantile",

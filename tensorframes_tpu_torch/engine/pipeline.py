@@ -43,28 +43,105 @@ query trace open each block records ``block_submit`` / ``block_compute`` /
 depth 1), an ``occupancy`` sample per submit and the card's memory
 watermark at each drain.
 
-Not in this package yet: the serving layer's slot pool
-(``SlotPool``/``install_slot_pool``, ``ROADMAP.md`` A11).
+Slot pool: with a :class:`SlotPool` installed (``install_slot_pool``),
+every pipelined stream leases one slot per in-flight block from it, so
+concurrent streams share one process-wide in-flight bound. A stream that
+cannot lease drains its own oldest block first (``pipeline.slot_waits``)
+and waits only when it holds none, honouring the resilience deadline;
+the lease is released in the drain's ``finally``. The stream layer
+(``stream/runtime.py``) leases one slot per single-block batch. The
+serving scheduler that installs a pool of its own is not in this package
+yet (``ROADMAP.md`` A11).
 """
 
 from __future__ import annotations
 
+import threading
 from collections import deque
 from typing import Callable, List, Optional, Sequence, TypeVar
 
 from ..observability import device as _obs_device
 from ..observability import events as _obs
-from ..resilience import env_int
+from ..resilience import check_deadline, env_int
+from ..resilience import invariants as _invariants
 from ..utils.tracing import counters, gauge, span
 from . import preempt as _preempt
 
 __all__ = ["DEFAULT_DEPTH", "pipeline_depth", "stream_depth", "submit",
-           "run_pipelined", "ReadyResult", "PipelinedExecutor"]
+           "run_pipelined", "ReadyResult", "PipelinedExecutor",
+           "SlotPool", "install_slot_pool", "current_slot_pool"]
 
 DEFAULT_DEPTH = 3
 
 B = TypeVar("B")
 R = TypeVar("R")
+
+
+class SlotPool:
+    """A process-wide budget of in-flight pipeline blocks, leased by
+    concurrent streams.
+
+    Without a pool, N queries racing into the engine each open their own
+    ``TFT_PIPELINE_DEPTH`` window, so the in-flight memory scales with
+    whoever shows up. With one installed, every pipelined stream leases a
+    slot per in-flight block and the concurrency is bounded globally.
+
+    Deadlock-free by construction: a stream that cannot lease drains its
+    OWN oldest in-flight block first (freeing a slot it holds) and waits
+    only when it holds none, at which point every held slot belongs to a
+    stream that is computing and will drain.
+    """
+
+    __slots__ = ("slots", "_sem", "_leased", "_lock")
+
+    def __init__(self, slots: int):
+        if slots < 1:
+            raise ValueError(f"SlotPool needs >= 1 slot, got {slots}")
+        self.slots = int(slots)
+        self._sem = threading.Semaphore(self.slots)
+        # the lease count beside the semaphore: the invariant auditors
+        # (resilience/invariants.py) READ the balance, and a Semaphore's
+        # value is not inspectable
+        self._leased = 0
+        self._lock = threading.Lock()
+
+    def try_acquire(self, timeout: float = 0.0) -> bool:
+        if timeout <= 0:
+            got = self._sem.acquire(blocking=False)
+        else:
+            got = self._sem.acquire(timeout=timeout)
+        if got:
+            with self._lock:
+                self._leased += 1
+        return got
+
+    def release(self) -> None:
+        with self._lock:
+            self._leased -= 1
+        self._sem.release()
+
+    def leased(self) -> int:
+        """Outstanding leases (negative: a release without an acquire;
+        the auditors flag both directions)."""
+        with self._lock:
+            return self._leased
+
+
+_slot_pool: Optional[SlotPool] = None
+
+
+def install_slot_pool(pool: Optional[SlotPool]) -> Optional[SlotPool]:
+    """Install (or clear with ``None``) the process slot pool; returns the
+    previous one so that callers can restore it. Streams snapshot the pool
+    at entry, so a swap mid-stream never mismatches a lease."""
+    global _slot_pool
+    prev = _slot_pool
+    _slot_pool = pool
+    return prev
+
+
+def current_slot_pool() -> Optional[SlotPool]:
+    return _slot_pool
 
 
 def pipeline_depth(explicit: Optional[int] = None) -> int:
@@ -150,6 +227,11 @@ def run_pipelined(blocks: Sequence[B],
         restored = _preempt.resume_stream(scope, len(blocks), tag)
         if restored:
             start = len(restored)
+            # the restored prefix's filter counts were noted in the PRIOR
+            # attempt's row ledger: this attempt's can no longer balance,
+            # so it is voided rather than faked
+            _invariants.taint_rows(
+                f"resumed {start} restored block(s) of stream {tag!r}")
     if d <= 1 or len(blocks) - start <= 1:
         if trace is None and scope is None:
             return [serial_fn(b) for b in blocks]
@@ -172,28 +254,54 @@ def run_pipelined(blocks: Sequence[B],
         return out0
 
     out: List[R] = list(restored or ())
-    # window entries: (pending, block, index, submit_end_ts)
+    # window entries: (pending, block, index, submit_end_ts, leased)
     window: "deque" = deque()
+    pool = _slot_pool  # snapshot: a mid-stream swap must not mismatch
 
     def drain_one() -> None:
-        pending, b, i, t_sub = window.popleft()
+        pending, b, i, t_sub, leased = window.popleft()
         slot = i % d + 1
-        t0 = 0.0
+        try:
+            t0 = 0.0
+            if trace is not None:
+                t0 = trace.clock()
+                # the block's in-flight residency: submit end -> drain
+                # start
+                trace.add("block_compute", name=f"compute b{i}", ts=t_sub,
+                          dur=max(t0 - t_sub, 0.0), track=slot, block=i)
+            with span("pipeline.drain"):
+                result = drain_fn(pending, b)
+            out.append(result)
+            counters.inc("pipeline.drained")
+            if trace is not None:
+                rows_out, _ = _obs.block_meta(result)
+                trace.add("block_drain", name=f"drain b{i}", ts=t0,
+                          dur=trace.clock() - t0, track=slot, block=i,
+                          rows_out=rows_out)
+                _obs_device.sample(trace, "block_drain", device=device)
+        finally:
+            if leased:
+                pool.release()
+
+    def lease_slot() -> bool:
+        """One slot from the pool, draining our own window to make room
+        when the pool is exhausted (a stream holding no slots only waits
+        on streams that are computing)."""
+        if pool is None:
+            return False
+        if pool.try_acquire():
+            return True
+        counters.inc("pipeline.slot_waits")
+        t0 = trace.clock() if trace is not None else 0.0
+        # while we hold blocks, draining our own oldest frees a slot at
+        # once; only a stream holding none waits on the others
+        while not pool.try_acquire(timeout=0.0 if window else 0.05):
+            check_deadline("pipeline.slot")
+            if window:
+                drain_one()
         if trace is not None:
-            t0 = trace.clock()
-            # the block's in-flight residency: submit end -> drain start
-            trace.add("block_compute", name=f"compute b{i}", ts=t_sub,
-                      dur=max(t0 - t_sub, 0.0), track=slot, block=i)
-        with span("pipeline.drain"):
-            result = drain_fn(pending, b)
-        out.append(result)
-        counters.inc("pipeline.drained")
-        if trace is not None:
-            rows_out, _ = _obs.block_meta(result)
-            trace.add("block_drain", name=f"drain b{i}", ts=t0,
-                      dur=trace.clock() - t0, track=slot, block=i,
-                      rows_out=rows_out)
-            _obs_device.sample(trace, "block_drain", device=device)
+            trace.add("slot_wait", ts=t0, dur=trace.clock() - t0)
+        return True
 
     pending = None
     try:
@@ -205,15 +313,23 @@ def run_pipelined(blocks: Sequence[B],
                 while window:
                     drain_one()
                 _preempt.park(scope, out, len(blocks), tag)  # raises
-            t0 = 0.0
-            rows = nbytes = None
-            if trace is not None:
-                rows, nbytes = _obs.block_meta(b)
-                t0 = trace.clock()
-            with span("pipeline.submit"):
-                pending = submit_fn(b)
-            t1 = trace.clock() if trace is not None else 0.0
-            window.append((pending, b, i, t1))
+            leased = lease_slot()
+            # a failure between the lease and the window's append would
+            # strand the lease outside the window
+            try:
+                t0 = 0.0
+                rows = nbytes = None
+                if trace is not None:
+                    rows, nbytes = _obs.block_meta(b)
+                    t0 = trace.clock()
+                with span("pipeline.submit"):
+                    pending = submit_fn(b)
+                t1 = trace.clock() if trace is not None else 0.0
+            except BaseException:
+                if leased:
+                    pool.release()
+                raise
+            window.append((pending, b, i, t1, leased))
             counters.inc("pipeline.submitted")
             gauge("pipeline.occupancy", len(window))
             if trace is not None:
@@ -228,8 +344,11 @@ def run_pipelined(blocks: Sequence[B],
     finally:
         # a stream unwinding mid-window (a cancel, a failed drain) lets
         # its undrained blocks go here, not when the exception is
-        # collected: their device buffers return to the allocator
-        window.clear()
+        # collected: their device buffers return to the allocator, and
+        # their leases to the pool
+        while window:
+            if window.popleft()[4]:
+                pool.release()
         pending = None
     return out
 

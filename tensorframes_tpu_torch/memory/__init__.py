@@ -33,9 +33,13 @@ statistics) resolves again at the next use instead of latching
 unlimited, so the card's budget takes effect from the first dispatch
 that finds the card initialized.
 
-Not in this package yet: the ``tft_memory_*`` metrics provider (with
-``observability/metrics.py``, ``ROADMAP.md`` A11) and the external sort
-(with ``dsort``, A10).
+The ``tft_memory_*`` gauges and counters render through
+``observability/metrics.py`` (the ``memory`` provider, registered when
+the manager resolves). Stream window state (``stream/aggregate.py``)
+registers in the LRU under a budget, so the ledger spills it too.
+
+Not in this package yet: the external sort (with ``dsort``,
+``ROADMAP.md`` A10).
 """
 
 from __future__ import annotations
@@ -66,6 +70,16 @@ _lock = threading.Lock()
 _manager: Optional[MemoryManager] = None
 _active: Optional[MemoryManager] = None
 _resolved = False
+_provider_registered = False
+
+
+def _register_provider() -> None:
+    global _provider_registered
+    if _provider_registered:
+        return
+    from ..observability.metrics import register_metrics_provider
+    register_metrics_provider("memory", _metrics_lines)
+    _provider_registered = True
 
 
 def _card_untouched() -> bool:
@@ -87,6 +101,7 @@ def _resolve() -> None:
         _manager = m
         _active = m if m.limited else None
         _resolved = m.limited or not _card_untouched()
+    _register_provider()
 
 
 def manager() -> MemoryManager:
@@ -119,6 +134,7 @@ def configure(limit_bytes: Optional[int] = None,
         _manager = m
         _active = m if m.limited else None
         _resolved = True
+    _register_provider()
     return m
 
 
@@ -171,3 +187,49 @@ def forget_frame_cache(frame) -> None:
     m = _active
     if m is not None:
         m.forget_frame_cache(frame)
+
+
+def _metrics_lines() -> list:
+    """``tft_memory_*`` exposition lines for the metrics endpoint."""
+    from ..utils.tracing import counters as _counters
+    m = manager()
+    snap = m.snapshot()
+    lines = []
+    gauges = (
+        ("tft_memory_budget_bytes",
+         "Configured device budget (0 = unlimited).",
+         snap["limit_bytes"]),
+        ("tft_memory_inflight_bytes",
+         "Bytes reserved by in-flight block dispatches.",
+         snap["inflight_bytes"]),
+        ("tft_memory_resident_bytes",
+         "Device bytes held by registered spillable buffers.",
+         snap["resident_bytes"]),
+        ("tft_memory_spilled_bytes",
+         "Host bytes held by spilled buffers awaiting fault-back.",
+         snap["spilled_bytes"]),
+        ("tft_memory_resident_buffers",
+         "Registered spillable buffers (spilled or resident).",
+         snap["resident_buffers"]),
+        ("tft_memory_frame_cache_bytes",
+         "Host bytes held by forced TensorFrame block caches.",
+         m.frame_cache_bytes()),
+    )
+    for name, help_s, value in gauges:
+        lines.append(f"# HELP {name} {help_s}")
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {int(value)}")
+    for name, counter in (
+            ("tft_memory_spills_total", "memory.spills"),
+            ("tft_memory_spill_bytes_total", "memory.spill_bytes"),
+            ("tft_memory_faults_total", "memory.faults"),
+            ("tft_memory_fault_bytes_total", "memory.fault_bytes"),
+            ("tft_memory_proactive_splits_total",
+             "memory.proactive_splits"),
+            ("tft_memory_admission_waits_total",
+             "memory.admission_waits"),
+            ("tft_memory_overflow_admissions_total",
+             "memory.overflow_admissions")):
+        lines.append(f"# TYPE {name} counter")
+        lines.append(f"{name} {_counters.get(counter)}")
+    return lines

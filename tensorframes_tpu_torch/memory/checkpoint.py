@@ -28,6 +28,8 @@ stream's results are already cached on their frames. On resume the first
 stream whose block count and tag match restores; a mismatch (the plan
 changed under the query) discards the checkpoint and re-runs from
 scratch: never wrong, at worst cold (``serve.checkpoint_discards``).
+A cursor past its stream's end is an invariant violation
+(``resilience/invariants.py``): counted, and the checkpoint is discarded.
 
 With the persist tier on (``TFT_PERSIST_DIR``), every park is written
 through to disk (:func:`~.persist.save_checkpoint`), as numpy.
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence, Tuple
 
+from ..resilience import invariants as _invariants
 from ..utils.logging import get_logger
 from ..utils.tracing import counters
 from . import spill as _spill
@@ -103,6 +106,13 @@ class QueryCheckpoint:
         identity ``tag``. Returns the device bytes moved to host."""
         stats = {"moved": 0}
         vals = [_park(v, stats) for v in outputs]
+        # cursor consistency: the parked prefix can never exceed the
+        # stream it came from; a longer one would resume duplicate rows
+        # (strict mode raises; always-on counts and flight-records)
+        _invariants.check(
+            len(vals) <= int(total), "checkpoint",
+            f"query {self.query_id}: parked {len(vals)} block(s) of a "
+            f"{total}-block stream {tag!r}", point="checkpoint.park")
         self._parked = (vals, int(total), str(tag))
         self.parked_blocks = len(vals)
         self.moved_bytes = int(stats["moved"])
@@ -134,13 +144,24 @@ class QueryCheckpoint:
             return None
         vals, t, parked_tag = self._parked
         self._parked = None
-        if t != int(total) or parked_tag != str(tag) or len(vals) > t:
+        if t != int(total) or parked_tag != str(tag):
             counters.inc("serve.checkpoint_discards")
             _log.warning(
                 "checkpoint of query %s parked %d/%d block(s) of stream "
                 "%r but the resumed stream is %r over %d block(s); "
                 "discarding and re-running from scratch",
                 self.query_id, len(vals), t, parked_tag, tag, total)
+            self.parked_blocks = 0
+            self.moved_bytes = 0
+            return None
+        if not _invariants.check(
+                len(vals) <= t, "checkpoint",
+                f"query {self.query_id}: checkpoint cursor {len(vals)} "
+                f"past the {t}-block stream {tag!r}; discarding",
+                point="checkpoint.resume"):
+            # always-on mode: cold-path the inconsistent checkpoint
+            # rather than resume duplicate rows
+            counters.inc("serve.checkpoint_discards")
             self.parked_blocks = 0
             self.moved_bytes = 0
             return None

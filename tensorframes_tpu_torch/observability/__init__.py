@@ -17,35 +17,80 @@ for the part the engine's recovery calls:
   decisions (an OOM split, a plan handed back to the per-op path, a retry
   given up) with the inputs each was decided from.
 
+- :mod:`.metrics`: :func:`metrics_text` renders the counters, spans,
+  gauges, histograms and every registered provider (the flight
+  recorder's, the memory ledger's, the timeline's, the live streams') in
+  the Prometheus text format; :func:`serve_metrics` serves it on
+  loopback (``TFT_METRICS_PORT=<port>`` starts it at import);
+- :mod:`.timeline`: the always-on bounded ring of periodic snapshots
+  (:func:`timeline` answers deltas and rates over a window).
+
 Zero cost when off: with ``TFT_TRACE`` unset :func:`query_trace` yields
 ``None`` and every hook is one ``None`` check. Importing this package
 installs :func:`.events._on_span` as the span observer, so every span is
 also credited to the active query's stage breakdown.
 
-Not in this package yet (``ROADMAP.md`` A11): the metrics endpoint and
-Prometheus families, SLOs, the timeline, the performance baseline, the
-durable history, ``why``/``doctor``, ``health`` and the text report.
+Not in this package yet (``ROADMAP.md`` A11): SLOs, the performance
+baseline, the durable history, ``why``/``doctor``, ``health`` and the
+text report.
 """
 
 from __future__ import annotations
 
+import os
+
 from ..utils import tracing as _tracing
+from ..utils.logging import get_logger
 from .events import (DEVICE_TRACK_BASE, Event, QueryTrace, add_event,
                      block_meta, bypass, clear_ring, current_trace,
                      last_query, query_trace, recent_events, traced_query,
                      wrap_context)
 from . import device
 from . import flight
+from . import metrics
+from . import timeline
+from .metrics import metrics_port, metrics_text, serve_metrics, stop_metrics
 
 __all__ = [
     "Event", "QueryTrace", "query_trace", "current_trace", "add_event",
     "wrap_context", "traced_query", "last_query", "recent_events",
     "clear_ring", "block_meta", "bypass", "DEVICE_TRACK_BASE", "device",
-    "flight",
+    "flight", "metrics", "timeline", "metrics_text",
+    "serve_metrics", "stop_metrics", "metrics_port",
 ]
+
+_log = get_logger("observability")
 
 # credit every span to the active query's stage breakdown as well as to
 # the flat registry (one slot; this package owns it)
 from .events import _on_span as _span_observer  # noqa: E402
 
 _tracing.set_span_observer(_span_observer)
+
+# the flight recorder's and the timeline's families register once the
+# provider registry exists (deferred: flight is imported by metrics' own
+# import chain)
+flight._register_metrics()
+timeline._register_metrics()
+
+
+def _maybe_autostart() -> None:
+    """Opt-in metrics endpoint: ``TFT_METRICS_PORT=<port>`` starts the
+    loopback server at import (``0`` picks a free port)."""
+    raw = os.environ.get("TFT_METRICS_PORT")
+    if not raw:
+        return
+    try:
+        port = int(raw)
+    except ValueError:
+        _log.warning("ignoring malformed TFT_METRICS_PORT=%r", raw)
+        return
+    try:
+        serve_metrics(port)
+    except (OSError, OverflowError, ValueError) as e:
+        # a bad env value must warn, never break the package's import
+        _log.warning("metrics endpoint failed to start on port %s: %s",
+                     raw, e)
+
+
+_maybe_autostart()

@@ -21,8 +21,8 @@ was decided from, after the fact and with ``TFT_TRACE`` off:
 
 The recorder is on unless ``TFT_FLIGHT=0``, as in the JAX package: with it
 off every hook returns at one environment check, and nothing is recorded
-or dumped. Its Prometheus family waits for the metrics layer, which this
-package does not have yet.
+or dumped. Its Prometheus family (``tft_flight_*``) renders through
+``observability/metrics.py``.
 """
 
 from __future__ import annotations
@@ -377,3 +377,35 @@ def _dump_at_exit() -> None:
             maybe_dump("exit")
     except Exception as e:  # noqa: BLE001 - interpreter is shutting down
         _log.debug("exit flight dump failed: %s", e)
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+
+def _render_metrics() -> List[str]:
+    s = stats()
+    return [
+        "# HELP tft_flight_records_total Decisions recorded by the "
+        "flight recorder (lifetime; the ring holds the newest).",
+        "# TYPE tft_flight_records_total counter",
+        f"tft_flight_records_total {s['recorded_total']}",
+        "# HELP tft_flight_ring_records Decisions currently held in "
+        "the bounded flight ring.",
+        "# TYPE tft_flight_ring_records gauge",
+        f"tft_flight_ring_records {s['records']}",
+        "# HELP tft_flight_dumps_total JSONL flight snapshots written "
+        "(slow query / giveup / exit / manual).",
+        "# TYPE tft_flight_dumps_total counter",
+        f"tft_flight_dumps_total {s['dumps']}",
+        "# HELP tft_flight_dump_evictions_total Old dump snapshot "
+        "sections pruned past TFT_FLIGHT_DUMP_KEEP.",
+        "# TYPE tft_flight_dump_evictions_total counter",
+        f"tft_flight_dump_evictions_total {s['dump_evictions']}",
+    ]
+
+
+def _register_metrics() -> None:
+    # deferred: metrics imports events, which imports this module
+    from .metrics import register_metrics_provider
+    register_metrics_provider("flight", _render_metrics)

@@ -37,11 +37,13 @@ execution contract (what makes fused == unfused bit-identical):
 - the fused stream carries a stable tag (:func:`_plan_tag`: the leaf,
   the op kinds, the columns read and the output schema), so that a
   preempted fused chain parks a checkpoint and resumes from it; a resume
-  whose forcing took another path discards it.
+  whose forcing took another path discards it;
+- a row-local chain (``ExecPlan.row_local_chain``) runs inside the
+  row-conservation ledger of ``resilience/invariants.py``: rows in ==
+  rows out + rows its filters masked out.
 
 Left out, against the JAX package: the adaptive layout (re-bucketed
-streams and mid-plan re-plans) and the row-conservation ledger of
-``resilience/invariants.py``; the port runs the static layout, which is
+streams and mid-plan re-plans); the port runs the static layout, which is
 what ``TFT_ADAPTIVE=0`` gives there.
 """
 
@@ -55,6 +57,7 @@ import torch
 from ..engine.executor import default_executor, to_host, to_storage_dtype
 from ..observability import flight as _flight
 from ..resilience import faults as _faults
+from ..resilience import invariants as _invariants
 from ..resilience import is_oom
 from ..shape import Unknown
 from ..utils.logging import get_logger
@@ -217,6 +220,10 @@ def _apply_stage_result(plan, st, env, out, n_rows):
         if fnode.kind == "filter":
             from .nodes import record_selectivity
             record_selectivity(fnode.comp, mask.size, keep)
+        # row-conservation ledger: the masked-out rows are FILTERED, not
+        # lost (noted before the keep == 0 short-circuit, so that a
+        # drop-everything mask balances too)
+        _invariants.note_filtered(mask.size - keep)
         dev_mask = raw.bool() if isinstance(raw, torch.Tensor) else None
         if keep == 0:
             empty = {k: _mask_value(v, mask, dev_mask)
@@ -296,7 +303,18 @@ def _run(plan: ExecPlan, leaf_blocks) -> List:
         return out
     # the perf drill's slowdown lands inside the timed forcing
     _faults.slowdown("perf")
-    return _run_static(plan, leaf_blocks)
+    if not plan.row_local_chain:
+        return _run_static(plan, leaf_blocks)
+    # per-query row conservation (resilience/invariants.py): a row-local
+    # chain only ever drops rows through filter masks, so rows in == rows
+    # out + rows filtered must balance exactly; a preemption resume
+    # taints the ledger instead (the restored prefix's filter counts
+    # belong to the prior attempt)
+    with _invariants.row_ledger(sum(b.num_rows for b in leaf_blocks),
+                                _plan_tag(plan)):
+        out = _run_static(plan, leaf_blocks)
+        _invariants.note_emitted(sum(b.num_rows for b in out))
+    return out
 
 
 def _run_static(plan: ExecPlan, leaf_blocks) -> List:

@@ -256,10 +256,12 @@ class ExecPlan:
     """The optimizer's output: leaf + stages + pruning decisions."""
 
     __slots__ = ("leaf", "ops", "stages", "final_schema", "leaf_required",
-                 "scan_names", "device_ops", "pruned", "scan_atoms")
+                 "scan_names", "device_ops", "pruned", "scan_atoms",
+                 "row_local_chain")
 
     def __init__(self, leaf, ops, stages, final_schema, leaf_required,
-                 scan_names, device_ops, pruned, scan_atoms=()):
+                 scan_names, device_ops, pruned, scan_atoms=(),
+                 row_local_chain=False):
         self.leaf = leaf
         self.ops = ops
         self.stages = stages
@@ -269,6 +271,11 @@ class ExecPlan:
         self.device_ops = device_ops
         self.pruned = pruned                # leaf columns NOT read
         self.scan_atoms = scan_atoms        # parquet pushdown predicates
+        # every op provably row-local (vmapped map_rows, selects,
+        # atom-proven filter predicates): rows only ever leave through
+        # filter masks, so the executor audits rows in == rows out + rows
+        # filtered (resilience/invariants.row_ledger)
+        self.row_local_chain = row_local_chain
 
     def describe(self) -> List[str]:
         """``explain()``'s plan section: fused groups, pruned columns,
@@ -468,9 +475,14 @@ def build_plan(frame) -> Optional[ExecPlan]:
             return None
     pruned = tuple(f.name for f in leaf.schema if f.name not in need) \
         if prunable_leaf else ()
+    from .predicates import extract_atoms
+    row_local_chain = bool(stages) and all(
+        o.kind in ("map_rows", "select")
+        or (o.kind == "filter" and bool(extract_atoms(o.comp)))
+        for o in ops)
     return ExecPlan(leaf, list(ops), stages, final_schema, leaf_required,
                     frozenset(scan_names), device_ops, pruned,
-                    _scan_atoms(leaf, ops))
+                    _scan_atoms(leaf, ops), row_local_chain=row_local_chain)
 
 
 def _scan_atoms(leaf, ops):

@@ -1,8 +1,8 @@
 """Resilient execution: retries, deadlines, fault injection, classification.
 
 The port's counterpart of ``tensorframes_tpu/resilience/__init__.py``,
-with the same exports but ``chaos`` and ``invariants``, which are not
-ported yet (``ROADMAP.md`` A11):
+with the same exports but ``chaos``, which is not ported yet
+(``ROADMAP.md`` A11):
 
 - **policy** (:mod:`.policy`): :class:`RetryPolicy` (bounded attempts,
   exponential backoff with deterministic jitter, an overall deadline) and
@@ -15,12 +15,16 @@ ported yet (``ROADMAP.md`` A11):
   build or launch failure, :class:`KernelError`, always is);
 - **faults** (:mod:`.faults`): the deterministic fault-injection harness
   (``with faults.inject("oom", fail_n=2): ...``) that drives every
-  recovery path on the CPU and on the card.
+  recovery path on the CPU and on the card;
+- **invariants** (:mod:`.invariants`): the auditors that hold the slot
+  pool's leases, the memory ledger and a fused query's rows against each
+  other at quiesce points (a stream's batch boundary, a query's close).
 
 Consumers: ``engine/executor.py`` (dispatch retry, the row split of an
 OOM'd row-local block), ``engine/pipeline.py`` (the drain's sync
 fallback), ``plan/execute.py`` (a fused plan handed back to the per-op
-path after an OOM its stage could not split).
+path after an OOM its stage could not split), ``stream/runtime.py``
+(a poisoned batch skipped and counted, a transient one retried).
 """
 
 from .classify import (AdmissionDeadline, DeviceLost, InvariantViolation,
@@ -34,6 +38,7 @@ from .policy import (DEFAULT_POLICY, ClusterInitError, DeadlineExceeded,
                      RetryPolicy, check_deadline, deadline, default_policy,
                      env_bool, env_float, env_int, remaining_time)
 from . import faults
+from . import invariants
 
 __all__ = [
     "RetryPolicy", "DeadlineExceeded", "ClusterInitError",
@@ -46,5 +51,5 @@ __all__ = [
     "DeviceLost", "WorkerLost", "KernelError",
     "QueryInterrupted", "QueryPreempted", "QueryCancelled",
     "env_bool", "env_float", "env_int",
-    "faults", "inject", "InjectedFault",
+    "faults", "inject", "InjectedFault", "invariants",
 ]

@@ -40,11 +40,14 @@ disk        ``memory.persist`` artifact reads: never raised out of a
             query (the persist tier is best-effort, a failed read is a
             cold path); armed with a message containing ``corrupt`` it
             flips a payload byte instead, for the checksum path
+batch       ``stream.runtime.StreamHandle`` per-batch processing: a
+            transient fault retries the batch, a permanent one skips and
+            counts it
 ========== ===========================================================
 
 ``pad_compile`` has no counterpart: the port has no padding buckets, so
 there is no bucketed compile to fail. The other sites of the JAX package
-(``cluster_init``, ``dmap``, ``batch``, ``device``, ``worker``,
+(``cluster_init``, ``dmap``, ``device``, ``worker``,
 ``pjrt_execute``), with the shaping of their faults (device loss, worker
 loss), come with their layers (``ROADMAP.md`` A10, A11); arming one now
 warns, as any unknown site does, and nothing checks it.
@@ -88,6 +91,7 @@ _SITES = {
                "never raised out of the query)",
     "disk": "memory.persist artifact reads (read failure, or checksum "
             "corruption when armed with a 'corrupt' message)",
+    "batch": "stream.runtime.StreamHandle per-batch processing",
 }
 
 

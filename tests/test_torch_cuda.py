@@ -703,3 +703,151 @@ def test_fused_chain_parks_and_resumes_on_the_card(cuda, monkeypatch):
     assert counters.get("memory.spills") > 0
     got = np.concatenate([b.columns["y"] for b in blocks])
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the stream layer on the card
+# ---------------------------------------------------------------------------
+
+def _stream_batches(n, rows, keys, seed):
+    rng = np.random.default_rng(seed)
+    return [{"k": rng.integers(0, keys, rows).astype(np.int64),
+             "v": rng.random(rows),
+             "ts": np.full(rows, float(i))} for i in range(n)]
+
+
+def _stream_windows(stream, batches, **kw):
+    h = (stream.from_source(stream.GeneratorSource(iter(batches)))
+         .group_by("k")
+         .aggregate({"v": "sum"}, window=stream.tumbling(4.0),
+                    time_col="ts", **kw)
+         .start())
+    return h
+
+
+def _numpy_windows(batches, size):
+    allc = {c: np.concatenate([b[c] for b in batches]) for c in batches[0]}
+    out = {}
+    for w in np.unique(np.floor(allc["ts"] / size) * size):
+        m = (allc["ts"] >= w) & (allc["ts"] < w + size)
+        keys = np.unique(allc["k"][m])
+        sums = np.array([allc["v"][m][allc["k"][m] == k].sum()
+                         for k in keys])
+        out[float(w)] = (keys, sums)
+    return out
+
+
+def test_windowed_stream_folds_through_the_kernel_on_the_card(cuda):
+    from tensorframes_tpu_torch import stream
+    batches = _stream_batches(8, 5000, 300, seed=31)
+    h = _stream_windows(stream, batches, watermark_delay=100.0)
+    before = segment_reduce.launches
+    assert h.step()
+    # the window's state stays on the card between batches
+    (state,) = h._agg._windows.values()
+    assert state.values["v"].device.type == "cuda"
+    h.run()
+    # one fold per batch (each batch lies in one tumbling window), each a
+    # kernel launch
+    assert segment_reduce.launches - before == 8
+    frames = h.collect_updates()
+    want = _numpy_windows(batches, 4.0)
+    assert len(frames) == len(want) == 2
+    for f in frames:
+        cols = f.blocks()[0].columns
+        keys, sums = want[float(cols["window_start"][0])]
+        np.testing.assert_array_equal(cols["k"], keys)
+        np.testing.assert_allclose(cols["v"], sums, rtol=1e-12)
+    assert h.metrics()["batches_skipped"] == 0
+
+
+def test_window_state_spills_and_faults_back_through_pinned_memory(cuda):
+    from tensorframes_tpu_torch import stream
+    batches = _stream_batches(6, 2000, 100, seed=32)
+    # window 4 arrives, window 0 spills (cap 150 rows), then rows for
+    # window 0 fault it back
+    batches.append({"k": np.arange(100, dtype=np.int64),
+                    "v": np.full(100, 0.5), "ts": np.full(100, 1.0)})
+    ttf.memory.configure(limit_bytes=1 << 30)
+    h = _stream_windows(stream, batches, watermark_delay=100.0,
+                        max_state_rows=150)
+    h.run(max_batches=6)
+    agg = h._agg
+    spilled = [w for w in agg._windows.values() if w.spilled]
+    assert agg.state_spills >= 1 and spilled
+    host, dev, dtype = spilled[0].values["v"]
+    assert dev.type == "cuda" and dtype == torch.float64
+    h.run()
+    assert agg.state_faults >= 1 and agg.state_evictions == 0
+    frames = h.collect_updates()
+    want = _numpy_windows(batches, 4.0)
+    for f in frames:
+        cols = f.blocks()[0].columns
+        keys, sums = want[float(cols["window_start"][0])]
+        np.testing.assert_array_equal(cols["k"], keys)
+        np.testing.assert_allclose(cols["v"], sums, rtol=1e-12)
+
+
+def test_background_pump_drives_the_card(cuda):
+    import time
+
+    from tensorframes_tpu_torch import stream
+    from tensorframes_tpu_torch.engine import pipeline
+    batches = _stream_batches(6, 3000, 50, seed=33)
+    src = stream.QueueSource(ttf.frame(dict(batches[0])).schema, maxsize=2)
+    pool = pipeline.SlotPool(2)
+    prev = pipeline.install_slot_pool(pool)
+    try:
+        h = (stream.from_source(src).group_by("k")
+             .aggregate({"v": "sum"}, window=stream.tumbling(4.0),
+                        time_col="ts")
+             .start(name="bg-cuda"))
+        before = segment_reduce.launches
+        h.start_background(poll_interval=0.005)
+        for b in batches:
+            src.put(b)
+        src.close()
+        deadline = time.monotonic() + 60
+        while not h.done() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert h.done() and h.error is None
+        h.stop()
+    finally:
+        pipeline.install_slot_pool(prev)
+    assert segment_reduce.launches - before == 6
+    assert pool.leased() == 0
+    want = _numpy_windows(batches, 4.0)
+    frames = h.collect_updates()
+    assert len(frames) == len(want)
+    for f in frames:
+        cols = f.blocks()[0].columns
+        keys, sums = want[float(cols["window_start"][0])]
+        np.testing.assert_allclose(cols["v"], sums, rtol=1e-12)
+
+
+def test_stream_join_on_the_card_equals_the_cpu(cuda):
+    from tensorframes_tpu_torch import stream
+    rng = np.random.default_rng(34)
+    batches = [{"k": rng.integers(0, 40, 2000).astype(np.int64),
+                "x": rng.normal(size=2000)} for _ in range(3)]
+    table = {"k": np.arange(30, dtype=np.int64),
+             "w": rng.random(30), "c": np.arange(30, dtype=np.int32) % 7}
+
+    def run():
+        sf = (stream.from_source(stream.GeneratorSource(
+                  iter([dict(b) for b in batches])))
+              .join(ttf.frame(dict(table)), on="k", how="inner")
+              .map_blocks(lambda x, w: {"y": x * w}))
+        h = sf.start()
+        h.run()
+        return h.collect_updates()
+
+    on_card = run()
+    ttf.set_default_device("cpu")
+    try:
+        on_cpu = run()
+    finally:
+        ttf.set_default_device("cuda")
+    assert len(on_card) == len(on_cpu) == 3
+    for a, b in zip(on_cpu, on_card):
+        assert_frames_match(a, b)

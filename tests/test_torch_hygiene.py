@@ -84,6 +84,23 @@ def test_imports_and_runs_without_jax():
         "    assert [r['y'] for r in four.collect()] == \\\n"
         "        [2.0 * i for i in range(8)]\n"
         "assert counters.get('pipeline.resumed_blocks') == 1\n"
+        "from tensorframes_tpu_torch import stream\n"
+        "from tensorframes_tpu_torch.observability import metrics\n"
+        "def gen():\n"
+        "    for i in range(12):\n"
+        "        yield {'k': np.arange(4) % 2, 'v': np.arange(4.0) + i,\n"
+        "               'ts': np.full(4, float(i))}\n"
+        "h = (stream.from_source(stream.GeneratorSource(gen()))\n"
+        "     .group_by('k').aggregate({'v': 'sum'},\n"
+        "                              window=stream.tumbling(4.0),\n"
+        "                              time_col='ts', watermark_delay=1.0)\n"
+        "     .start(name='hyg'))\n"
+        "h.run()\n"
+        "sums = [float(f.blocks()[0].columns['v'].sum())\n"
+        "        for f in h.collect_updates()]\n"
+        "assert sums == [48.0, 112.0, 176.0], sums\n"
+        "assert 'tft_stream_batches_total{stream=\"hyg\"} 12' in \\\n"
+        "    metrics.metrics_text()\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [k for k in sys.modules if k == 'tensorframes_tpu'\n"
         "       or k.startswith('tensorframes_tpu.') or k.startswith('jax.')]\n"
@@ -118,7 +135,11 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "observability/events.py", "observability/flight.py",
             "observability/device.py", "memory/__init__.py",
             "memory/spill.py", "memory/manager.py", "memory/checkpoint.py",
-            "memory/persist.py", "engine/preempt.py"} <= names
+            "memory/persist.py", "engine/preempt.py",
+            "resilience/invariants.py", "observability/metrics.py",
+            "observability/timeline.py", "stream/__init__.py",
+            "stream/source.py", "stream/frame.py", "stream/aggregate.py",
+            "stream/runtime.py", "stream/sink.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):
@@ -142,6 +163,38 @@ def test_first_dispatch_raises_without_gpu(monkeypatch):
         with pytest.raises(RuntimeError, match="no GPU"):
             ttf.reduce_blocks(lambda x_input: {"x": x_input.sum(0)},
                               df.select(["x"]))
+    finally:
+        ttf.set_default_device(prev)
+
+
+def test_stream_fold_never_falls_back_to_the_cpu(monkeypatch):
+    """A stream on the default CUDA device without a GPU: every batch's
+    failure is counted as a skipped batch and nothing is emitted, and with
+    ``TFT_STREAM_FAIL_FAST=1`` the error raises; no fold ever runs on the
+    host instead."""
+    from tensorframes_tpu_torch import stream
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = ttf.default_device()
+    ttf.set_default_device("cuda")
+
+    def agg():
+        return (stream.from_source(stream.GeneratorSource(
+            {"k": np.arange(4) % 2, "v": np.arange(4.0),
+             "ts": np.full(4, float(i))} for i in range(2)))
+            .group_by("k").aggregate({"v": "sum"},
+                                     window=stream.tumbling(4.0),
+                                     time_col="ts"))
+
+    try:
+        h = agg().start()
+        h.run()
+        assert h.metrics()["batches_skipped"] == 2
+        assert h.metrics()["batches"] == 0
+        assert h.collect_updates() == []
+        monkeypatch.setenv("TFT_STREAM_FAIL_FAST", "1")
+        with pytest.raises(RuntimeError, match="no GPU"):
+            agg().start().run()
     finally:
         ttf.set_default_device(prev)
 

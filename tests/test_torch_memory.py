@@ -14,11 +14,14 @@ use power-of-two row counts of at least 8, where the JAX package's padded
 estimate equals the port's (the port never pads); one case pins the
 difference elsewhere.
 
+The stream's window state spills instead of force-emitting under a
+budget (``TestStreamStateSpill``: the JAX file's class of that name with
+its ledger-driven spill, fault-back and audit), and the ``tft_memory_*``
+metrics families render through the port's metrics layer.
+
 Not mirrored here: the external sort and the larger-than-budget mesh
 suite (with ``dsort``, ``ROADMAP.md`` A10), the serve scheduler's
-estimates and headroom (A11), the stream state spill (A9), the
-``tft_memory_*`` metrics families (A11) and the external-sort explain line
-(A10).
+estimates and headroom (A11) and the external-sort explain line (A10).
 """
 
 import gc
@@ -42,6 +45,8 @@ from tensorframes_tpu.engine.executor import BlockExecutor as JBlockExecutor
 from tensorframes_tpu.memory import checkpoint as jcheckpoint
 from tensorframes_tpu.memory import persist as jpersist
 from tensorframes_tpu.observability import flight as jflight
+from tensorframes_tpu.observability import metrics as jmetrics
+from tensorframes_tpu.resilience import invariants as jinvariants
 from tensorframes_tpu.resilience import faults as jfaults
 from tensorframes_tpu.utils import tracing as jtracing
 from tensorframes_tpu.utils.tracing import counters as jcounters
@@ -52,6 +57,8 @@ from tensorframes_tpu_torch.engine.pipeline import ReadyResult
 from tensorframes_tpu_torch.memory import checkpoint as tcheckpoint
 from tensorframes_tpu_torch.memory import persist as tpersist
 from tensorframes_tpu_torch.observability import flight as tflight
+from tensorframes_tpu_torch.observability import metrics as tmetrics
+from tensorframes_tpu_torch.resilience import invariants as tinvariants
 from tensorframes_tpu_torch.resilience import faults as tfaults
 from tensorframes_tpu_torch.utils import tracing as ttracing
 from tensorframes_tpu_torch.utils.tracing import counters as tcounters
@@ -780,6 +787,144 @@ class TestObservability:
         assert (ev.name, ev.args) == ("a", {"bytes": 800})
         recs = [r for r in tflight.recent() if r["kind"] == "memory.fault"]
         assert recs[-1]["name"] == "a" and recs[-1]["bytes"] == 800
+
+
+    def test_metrics_families_present(self):
+        def fn(m, mem):
+            m.frame({"x": np.arange(2048.0)}).map_rows(
+                lambda x: {"z": x + 1.0}).blocks()
+            text = (jmetrics if m is jtf else tmetrics).metrics_text()
+            return [family in text for family in (
+                "tft_memory_budget_bytes", "tft_memory_inflight_bytes",
+                "tft_memory_spilled_bytes", "tft_memory_spills_total",
+                "tft_memory_proactive_splits_total")]
+        assert same(both(fn, limit=4096)) == [True] * 5
+
+
+# ---------------------------------------------------------------------------
+# stream state: spill instead of force-evict
+# ---------------------------------------------------------------------------
+
+def _stream_modules(m):
+    if m is jtf:
+        from tensorframes_tpu import stream
+    else:
+        from tensorframes_tpu_torch import stream
+    return stream
+
+
+def _stream_rows(h):
+    return sorted(tuple(map(float, r))
+                  for f in h.collect_updates() for r in f.collect())
+
+
+class TestStreamStateSpill:
+    """Each case runs one stream per package under the same budget and
+    compares the emitted rows, the aggregation's spill/fault/eviction
+    counts and the ledger counters."""
+
+    @staticmethod
+    def _run_stream(m, cap):
+        stream = _stream_modules(m)
+
+        def batches():
+            for i in range(6):
+                yield {"t": np.full(8, float(i)),
+                       "k": np.arange(8, dtype=np.int64),
+                       "v": np.full(8, 1.0)}
+
+        agg = stream.StreamingFrame(stream.GeneratorSource(batches())) \
+            .group_by("k").aggregate(
+                {"v": "sum"}, window=stream.tumbling(2.0), time_col="t",
+                watermark_delay=10.0,  # nothing emits by watermark
+                max_state_rows=cap)
+        h = agg.start()
+        h.run()
+        return (agg.state_spills, agg.state_evictions, agg.state_faults,
+                _stream_rows(h))
+
+    def test_spills_and_keeps_windows_live(self):
+        ref = same(both(lambda m, mem: self._run_stream(m, 10 ** 9),
+                        limit=0))
+        got = same(both(lambda m, mem: self._run_stream(m, 8),
+                        limit=10 ** 9))
+        spills, evictions, faults, rows = got
+        assert spills > 0
+        # with a memory manager the cap spills, never force-emits
+        assert evictions == 0
+        assert rows == ref[3]  # results identical to the uncapped run
+        assert faults == 0     # no window was touched twice here
+
+    def test_spilled_window_faults_back_on_late_fold(self):
+        def fn(m, mem):
+            stream = _stream_modules(m)
+
+            def batches():
+                # window 0 fills, window 2 pushes it out (spill), then
+                # more rows for window 0 arrive: fault-back and fold
+                yield {"t": np.full(8, 0.0),
+                       "k": np.arange(8, dtype=np.int64),
+                       "v": np.full(8, 1.0)}
+                yield {"t": np.full(8, 2.0),
+                       "k": np.arange(8, dtype=np.int64),
+                       "v": np.full(8, 1.0)}
+                yield {"t": np.full(8, 0.5),
+                       "k": np.arange(8, dtype=np.int64),
+                       "v": np.full(8, 2.0)}
+
+            agg = stream.StreamingFrame(stream.GeneratorSource(batches())) \
+                .group_by("k").aggregate(
+                    {"v": "sum"}, window=stream.tumbling(2.0),
+                    time_col="t", watermark_delay=10.0, max_state_rows=8)
+            h = agg.start()
+            h.run()
+            return agg.state_spills, agg.state_faults, _stream_rows(h)
+
+        spills, faults, rows = same(both(fn, limit=10 ** 9))
+        assert spills > 0 and faults > 0
+        # window 0: v = 1 + 2 = 3 per key; window 2: v = 1 per key
+        w0 = [r for r in rows if r[0] == 0.0]
+        assert all(r[2] == 3.0 for r in w0) and len(w0) == 8
+
+    def test_without_budget_force_evicts_as_before(self):
+        spills, evictions, _, _ = same(both(
+            lambda m, mem: self._run_stream(m, 8), limit=0))
+        assert evictions > 0
+        assert spills == 0
+
+    def test_ledger_touch_faults_a_spilled_window_back(self):
+        def fn(m, mem):
+            stream = _stream_modules(m)
+            agg = stream.StreamingFrame(stream.GeneratorSource(
+                {"t": np.full(8, float(i)), "k": np.arange(8, dtype=np.int64),
+                 "v": np.arange(8.0) + i} for i in range(3))) \
+                .group_by("k").aggregate(
+                    {"v": "sum"}, window=stream.tumbling(2.0),
+                    time_col="t", watermark_delay=10.0, max_state_rows=8)
+            h = agg.start()
+            h.run(max_batches=3)
+            spilled = [w for w in agg._windows.values() if w.spilled]
+            mgr = mem.active()
+            for w in spilled:
+                mgr.touch(w)  # the ledger faults it back itself
+            resident = all(not w.spilled for w in agg._windows.values())
+            h.run()
+            return (len(spilled), resident, agg.state_faults,
+                    _stream_rows(h))
+
+        n_spilled, resident, faults, rows = same(both(fn, limit=10 ** 9))
+        assert n_spilled == 1 and resident and faults == 1
+        assert [r[2] for r in rows] == list(np.arange(8.0) * 2 + 1) \
+            + list(np.arange(8.0) + 2)
+
+    def test_audit_balances_with_spilled_windows(self):
+        def fn(m, mem):
+            _, _, _, rows = self._run_stream(m, 8)
+            inv = (jinvariants if m is jtf else tinvariants)
+            with inv.strict():
+                return rows, inv.audit("test.stream")
+        rows, found = same(both(fn, limit=10 ** 9))
+        assert found == [] and len(rows) == 24
 
 
 # ---------------------------------------------------------------------------

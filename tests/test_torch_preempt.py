@@ -11,9 +11,12 @@ runs the same seeded inputs through both packages (the JAX package on the
 CPU with x64, the port on the CPU) and compares values and the
 ``pipeline.*`` / ``memory.*`` / ``serve.checkpoint_discards`` counters.
 
+A stream's batch interrupted by a cancel raises out of ``step()`` and is
+not counted as a poisoned batch (``TestStreamInterruption``).
+
 Not mirrored here: the serve scheduler's preemption
-(``TestSchedulerPreemption``, ``TestStreamInterruption``), which waits for
-the serving layer (``ROADMAP.md`` A11).
+(``TestSchedulerPreemption``), which waits for the serving layer
+(``ROADMAP.md`` A11).
 """
 
 import gc
@@ -510,3 +513,33 @@ class TestQueryCheckpoint:
             "moved_bytes"}
         for k in ("version", "total", "parked_blocks", "moved_bytes"):
             assert records["torch"][k] == records["jax"][k], k
+
+
+# ---------------------------------------------------------------------------
+# streams: interruption is control flow, not poisoned data
+# ---------------------------------------------------------------------------
+
+class TestStreamInterruption:
+    def test_cancel_propagates_not_skip_counted(self):
+        from tensorframes_tpu import stream as jstream
+        from tensorframes_tpu_torch import stream as tstream
+        out = {}
+        for name, (m, pp, rz, _mem, c) in PKGS.items():
+            stream = jstream if m is jtf else tstream
+            src = stream.GeneratorSource(
+                ({"x": np.arange(4.0) + i} for i in range(100)))
+            handle = stream.StreamingFrame(src).map_rows(
+                lambda x: {"y": x * 2}).start()
+            assert handle.step(timeout=1.0) is True  # a healthy batch
+            sc = pp.PreemptionScope("op")
+            sc.request_cancel("operator stop")
+            with pytest.raises(rz.QueryCancelled) as ei:
+                with pp.activate(sc):
+                    handle.step(timeout=1.0)
+            m_ = handle.metrics()
+            handle.stop()
+            out[name] = (str(ei.value), m_["batches_skipped"],
+                         m_["batches"], c.get("stream.batches_skipped"))
+        assert out["torch"] == out["jax"]
+        # not counted as poisoned
+        assert out["torch"][1:] == (0, 1, 0)

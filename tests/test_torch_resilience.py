@@ -266,7 +266,8 @@ class TestFaults:
 
     def test_sites_are_the_ports_and_chaos_waits(self, monkeypatch):
         assert set(faults.sites()) == {"compile", "dispatch", "oom",
-                                       "drain", "perf", "preempt", "disk"}
+                                       "drain", "perf", "preempt", "disk",
+                                       "batch"}
         assert set(faults.sites()) <= set(jrz.faults.sites())
         monkeypatch.setenv("TFT_CHAOS", "seed:1,rate:0.5")
         faults._state._armed_env = False
