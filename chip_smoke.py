@@ -86,6 +86,29 @@ paths through its public entry points and checks every result:
    host memory, the repeat faults them back, none is force-emitted; (c)
    the first 4 row groups through ``map_rows`` -> ``filter_rows`` ->
    ``select``, bit-equal to the batch path;
+3h. shipped computations (``shipped_computation_20M``): four programs
+   serialized with ``builder.save_computation`` into
+   ``build/data/shipped/`` (P1 the reference workload's ``z = x + x`` in
+   the DSL, P2 the row-local JL program of phase 3e closing over its
+   [64, 16] f32 table made on the CPU, P3 a ``reduce_blocks`` sum, P4 a
+   reduce for the computation form of ``aggregate``), then a fresh
+   interpreter (``subprocess``, importing only the port, numpy and torch)
+   rebuilds the data from the seeds and runs them from their files
+   through the builders: P1 over phase 2's 20M rows in 8 partitions, then
+   ``aggregate({"z": "sum"})`` by its 100,000 keys (8 segment_sum
+   launches) and P3; P2 through ``map_rows`` over 2M x 64 f32 rows in 8
+   partitions, then ``aggregate({"z": "sum"})`` by 100,000 keys (8 more);
+   P4 through ``aggregate_builder`` over 2M rows at 1,024 keys (the
+   ``CompactionBuffer`` path, no segment_sum). There, P1 loaded twice
+   under a ``SharedCompileCache`` installed with
+   ``set_computation_interner`` prepares one device program (hits 1,
+   misses 1, ``compile_count`` 1) and a third load without it another;
+   and a program serialized while the default device is the card's runs
+   equal on the CPU executor and on the card. This process runs P1-P4 as
+   live programs on the same data: every collected column's sha256 equal
+   to the child's, the f64 sums within rtol 1e-12 of numpy f64, the f32
+   JL sums within 1e-5 of each group's sum of ``|z|``, 16 launches in
+   each process; the child's launches are added to the ``kernels`` line;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -105,8 +128,9 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3g for
-segment_sum, phase 4 for flash_attention), the card's name and power
+with each kernel's launches during its main path (phases 1-3h for
+segment_sum, phase 3h's child process included, phase 4 for
+flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
 It refuses to run without CUDA. Data is random from fixed seeds.
@@ -1947,6 +1971,318 @@ def phase_stream_windows_parquet(ttf, np, torch, segment_reduce,
     return out
 
 
+SHIPPED_DATA = r'''
+def shipped_tables(np, n, keys, jl_rows, feats, jl_keys, agg_rows,
+                   agg_keys):
+    """The shipped-computation phase's data from numpy seeds: the
+    reference workload (phase 2's ``key``/``x``, seed 2), the JL rows
+    (``x`` [jl_rows, feats] f32 N(0, 1), ``key`` in [0, jl_keys), seed 12)
+    and the computation-form aggregate's rows (``key`` in [0, agg_keys),
+    ``v`` in [0, 1), seed 13)."""
+    rng = np.random.default_rng(2)
+    key = rng.integers(0, keys, n)
+    x = rng.random(n)
+    rng = np.random.default_rng(12)
+    jx = rng.standard_normal((jl_rows, feats), dtype=np.float32)
+    jkey = rng.integers(0, jl_keys, jl_rows)
+    rng = np.random.default_rng(13)
+    akey = rng.integers(0, agg_keys, agg_rows)
+    av = rng.random(agg_rows)
+    return {"ref": {"key": key, "x": x}, "jl": {"key": jkey, "x": jx},
+            "agg": {"key": akey, "v": av}}
+
+
+def column(np, frame, name):
+    return np.concatenate([b.columns[name] for b in frame.blocks()])
+
+
+def digest(np, a):
+    """sha256 of an array's dtype, shape and bytes."""
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(repr((str(a.dtype), a.shape)).encode())
+    h.update(a.view(np.uint8).tobytes() if a.size else b"")
+    return h.hexdigest()
+
+
+def run_shipped(ttf, np, builder, tables, parts, graphs):
+    """P1-P4 through the builder over ``tables``, one builder call each:
+    ``graphs[name](b)`` attaches the program to builder ``b`` (``.graph``
+    of its bytes in the child, ``.computation`` of the live program in the
+    parent). Returns (digests, walls, results)."""
+    import time
+
+    walls, out = {}, {}
+    t0 = time.perf_counter()
+    df = ttf.frame(tables["ref"], num_partitions=parts)
+    zf = graphs["p1"](builder.map_blocks_builder(df)).build().cache()
+    out["map_z"] = column(np, zf, "z")
+    walls["p1_map_blocks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agg = ttf.aggregate({"z": "sum"},
+                        zf.select(["key", "z"]).group_by("key"))
+    cols = agg.blocks()[0].columns
+    out["agg_key"], out["agg_z"] = cols["key"], cols["z"]
+    walls["p1_aggregate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    total = graphs["p3"](builder.reduce_blocks_builder(
+        zf.select(["z"]))).build()
+    out["reduce_z"] = np.asarray(total["z"])
+    walls["p3_reduce_blocks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jdf = ttf.frame(tables["jl"], num_partitions=parts)
+    jf = graphs["p2"](builder.map_rows_builder(jdf)).build().cache()
+    out["jl_z"] = column(np, jf, "z")
+    walls["p2_map_rows_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jagg = ttf.aggregate({"z": "sum"},
+                         jf.select(["key", "z"]).group_by("key"))
+    cols = jagg.blocks()[0].columns
+    out["jl_agg_key"], out["jl_agg_z"] = cols["key"], cols["z"]
+    walls["p2_aggregate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adf = ttf.frame(tables["agg"], num_partitions=parts)
+    pagg = graphs["p4"](builder.aggregate_builder(
+        adf.group_by("key"))).build()
+    cols = pagg.blocks()[0].columns
+    out["p4_key"], out["p4_v"] = cols["key"], cols["v"]
+    walls["p4_aggregate_s"] = time.perf_counter() - t0
+    return {k: digest(np, v) for k, v in out.items()}, walls, out
+'''
+
+SHIPPED_CHILD = SHIPPED_DATA + r'''
+import json
+import sys
+import time
+
+t_start = time.perf_counter()
+import numpy as np
+import torch
+
+import tensorframes_tpu_torch as ttf
+from tensorframes_tpu_torch import builder, serve
+from tensorframes_tpu_torch.engine.executor import (BlockExecutor,
+                                                    set_computation_interner)
+from tensorframes_tpu_torch.ops import segment_reduce
+
+args = json.loads(sys.argv[1])
+device = args["device"]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ttf.set_default_device(device)
+if device == "cuda":
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+report = {"start_s": time.perf_counter() - t_start}
+t0 = time.perf_counter()
+tables = shipped_tables(np, **args["sizes"])
+report["data_s"] = time.perf_counter() - t0
+
+
+def blob(name):
+    with open(args["paths"][name], "rb") as f:
+        return f.read()
+
+
+# the first deserialization and placement pay torch.export's imports
+t0 = time.perf_counter()
+ttf.Computation.deserialize(blob("p1")).fn.place(device)
+report["first_load_s"] = time.perf_counter() - t0
+
+# (b) the programs, from their files, through the builder
+segment_reduce.launches = 0
+t0 = time.perf_counter()
+digests, walls, _ = run_shipped(
+    ttf, np, builder, tables, args["partitions"],
+    {k: (lambda b, k=k: b.graph(blob(k))) for k in args["paths"]})
+report.update(digests=digests, walls=walls,
+              path_s=time.perf_counter() - t0,
+              launches=segment_reduce.launches)
+
+# (c) two loads of P1 under the interner prepare one device program;
+# uninstalled, a third load prepares anew
+ex = BlockExecutor(device)
+cache = serve.SharedCompileCache()
+small = ttf.frame({"x": tables["ref"]["x"][:1_000_000]}, num_partitions=2)
+prev = set_computation_interner(cache.intern)
+try:
+    runs = [column(np, ttf.map_blocks(builder.load_computation(
+        args["paths"]["p1"]), small, executor=ex), "z") for _ in range(2)]
+finally:
+    set_computation_interner(prev)
+interned = dict(cache.stats(), compile_count=ex.compile_count)
+runs.append(column(np, ttf.map_blocks(builder.load_computation(
+    args["paths"]["p1"]), small, executor=ex), "z"))
+assert all(np.array_equal(r, 2 * tables["ref"]["x"][:1_000_000])
+           for r in runs), "the interned runs disagree"
+interned["compile_count_after_uninstall"] = ex.compile_count
+report["interner"] = interned
+
+# (d) a program serialized with the default device the card's runs on
+# the CPU executor and on the card, equal
+neutral = ttf.Computation.trace(
+    lambda x: {"z": x * 2.0 + torch.arange(x.shape[0], device=x.device,
+                                           dtype=x.dtype)},
+    [ttf.TensorSpec("x", ttf.dtypes.double, ttf.Shape(-1))])
+shipped = ttf.Computation.deserialize(neutral.serialize())
+xs = tables["ref"]["x"][:100_000]
+on_cpu = BlockExecutor("cpu").run(shipped, {"x": xs})["z"]
+on_card = BlockExecutor(device).run(shipped, {"x": xs})["z"]
+report["neutral"] = {
+    "rows": int(xs.size), "equal": bool(np.array_equal(on_cpu, on_card)),
+    "exact": bool(np.array_equal(on_card, xs * 2.0 + np.arange(xs.size)))}
+
+report["foreign_modules"] = sorted(
+    m for m in sys.modules if m in ("jax", "tensorframes_tpu")
+    or m.startswith(("jax.", "tensorframes_tpu.")))
+report["wall_s"] = time.perf_counter() - t_start
+print(json.dumps(report), flush=True)
+'''
+
+_shipped_ns: dict = {}
+exec(SHIPPED_DATA, _shipped_ns)
+shipped_tables = _shipped_ns["shipped_tables"]
+run_shipped = _shipped_ns["run_shipped"]
+
+
+def phase_shipped_computation(ttf, np, torch, segment_reduce, n=20_000_000,
+                              parts=8, keys=100_000, jl_rows=2_000_000,
+                              feats=64, proj=16, jl_keys=100_000,
+                              agg_rows=2_000_000, agg_keys=1_024,
+                              device="cuda", out=None) -> dict:
+    """Shipped computations (see the module docstring, phase 3h): P1-P4
+    serialized here with ``save_computation`` into ``build/data/shipped/``
+    and run from their files in a fresh process through the builder, then
+    run here as live programs on the same data. ``out["child_launches"]``
+    receives the child's segment_sum launches, which this process's
+    counter cannot see. ``device="cpu"`` rehearses the phase on the CPU,
+    where no kernel launches and none is counted."""
+    from tensorframes_tpu_torch import builder, dsl
+    from tensorframes_tpu_torch.computation import Computation, TensorSpec
+    from tensorframes_tpu_torch.engine import ops as engine_ops
+    from tensorframes_tpu_torch.shape import Shape, Unknown
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ship_dir = os.path.join(root, "build", "data", "shipped")
+    os.makedirs(ship_dir, exist_ok=True)
+    sizes = {"n": n, "keys": keys, "jl_rows": jl_rows, "feats": feats,
+             "jl_keys": jl_keys, "agg_rows": agg_rows, "agg_keys": agg_keys}
+    t0 = time.perf_counter()
+    tables = shipped_tables(np, **sizes)
+    data_s = time.perf_counter() - t0
+
+    # (a) the programs: P1 the reference workload's map in the DSL, P2
+    # the JL row program closing over P (on the CPU: a lifted constant),
+    # P3 the reduce_blocks sum, P4 the computation-form aggregate's sum
+    double, f32 = ttf.dtypes.double, ttf.dtypes.float32
+    with dsl.with_graph():
+        x = dsl.placeholder(double, Shape(Unknown), name="x")
+        p1 = engine_ops.cached_map_computation(
+            dsl.add(x, x, name="z"),
+            ttf.frame({"x": tables["ref"]["x"][:1]}).schema, True)
+    proj_np = (np.random.default_rng(14).standard_normal((feats, proj))
+               / np.sqrt(proj)).astype(np.float32)
+    P = torch.from_numpy(proj_np)
+
+    def jl_program(table):
+        return Computation.trace(lambda x: {"z": ((x @ table) ** 2).sum(-1)},
+                                 [TensorSpec("x", f32, Shape(feats))])
+
+    live = {"p1": p1, "p2": jl_program(P),
+            "p3": Computation.trace(
+                lambda z_input: {"z": torch.sum(z_input, 0)},
+                [TensorSpec("z_input", double, Shape(Unknown))]),
+            "p4": Computation.trace(
+                lambda v_input: {"v": torch.sum(v_input, 0)},
+                [TensorSpec("v_input", double, Shape(Unknown))])}
+    paths, blob_bytes = {}, {}
+    t0 = time.perf_counter()
+    for name, comp in live.items():
+        paths[name] = os.path.join(ship_dir, f"{name}.tftc")
+        builder.save_computation(comp, paths[name])
+        blob_bytes[name] = os.path.getsize(paths[name])
+    serialize_s = time.perf_counter() - t0
+    # the live twin of P2 runs here with its table on the device
+    live["p2"] = jl_program(P.to(device))
+
+    # (b)-(d) the child: a fresh interpreter that sees only the files
+    arg = json.dumps({"device": device, "sizes": sizes, "paths": paths,
+                      "partitions": parts})
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", SHIPPED_CHILD, arg],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=900)
+    child_s = time.perf_counter() - t0
+    if res.stderr:
+        sys.stderr.write(res.stderr[-4000:])
+    assert res.returncode == 0, \
+        f"the shipped-program process failed ({res.returncode})"
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    if out is not None:
+        out["child_launches"] = child["launches"]
+
+    # the same programs live, on the same data, through the same builders
+    before = segment_reduce.launches
+    t0 = time.perf_counter()
+    digests, walls, cols = run_shipped(
+        ttf, np, builder, tables, parts,
+        {k: (lambda b, k=k: b.computation(live[k])) for k in live})
+    live_s = time.perf_counter() - t0
+    live_launches = segment_reduce.launches - before
+    differ = sorted(k for k in digests if digests[k] != child["digests"][k])
+    assert not differ, f"the shipped programs differ from the live: {differ}"
+
+    ref, jl, agg = tables["ref"], tables["jl"], tables["agg"]
+    assert np.array_equal(cols["map_z"], 2 * ref["x"]), "z = x + x not exact"
+    want = np.bincount(ref["key"], weights=2 * ref["x"], minlength=keys)
+    np.testing.assert_array_equal(cols["agg_key"], np.arange(keys))
+    np.testing.assert_allclose(cols["agg_z"], want, rtol=1e-12)
+    np.testing.assert_allclose(cols["reduce_z"], np.sum(2 * ref["x"]),
+                               rtol=1e-12)
+    z = cols["jl_z"]
+    assert z.dtype == np.float32 and z.shape == (jl_rows,)
+    idx = np.random.default_rng(71).choice(jl_rows, 10_000, replace=False)
+    want_z = ((jl["x"][idx].astype(np.float64)
+               @ proj_np.astype(np.float64)) ** 2).sum(-1)
+    np.testing.assert_allclose(z[idx], want_z, rtol=1e-4, atol=1e-4)
+    want = np.bincount(jl["key"], weights=z.astype(np.float64),
+                       minlength=jl_keys)
+    scale = np.bincount(jl["key"], weights=np.abs(z.astype(np.float64)),
+                        minlength=jl_keys)
+    np.testing.assert_array_equal(cols["jl_agg_key"], np.arange(jl_keys))
+    err = np.abs(cols["jl_agg_z"].astype(np.float64) - want)
+    assert (err <= 1e-5 * scale).all(), float(np.max(err / scale))
+    want = np.bincount(agg["key"], weights=agg["v"], minlength=agg_keys)
+    np.testing.assert_array_equal(cols["p4_key"], np.arange(agg_keys))
+    np.testing.assert_allclose(cols["p4_v"], want, rtol=1e-12)
+
+    predicted = 2 * parts if device == "cuda" else 0
+    assert child["launches"] == predicted, child["launches"]
+    assert live_launches == predicted, live_launches
+    assert child["interner"]["hits"] == 1, child["interner"]
+    assert child["interner"]["misses"] == 1, child["interner"]
+    assert child["interner"]["compile_count"] == 1, child["interner"]
+    assert child["interner"]["compile_count_after_uninstall"] == 2, \
+        child["interner"]
+    assert child["neutral"]["equal"] and child["neutral"]["exact"], \
+        child["neutral"]
+    assert not child["foreign_modules"], child["foreign_modules"]
+    return {"rows": n, "partitions": parts, "keys": keys,
+            "jl": {"rows": jl_rows, "features": feats, "keys": jl_keys},
+            "aggregate_form": {"rows": agg_rows, "keys": agg_keys},
+            "blob_bytes": blob_bytes, "data_s": data_s,
+            "serialize_s": serialize_s, "child_s": child_s,
+            "child": {k: child[k] for k in (
+                "start_s", "data_s", "first_load_s", "path_s", "walls",
+                "launches",
+                "interner", "neutral", "wall_s")},
+            "live": {"wall_s": live_s, "walls": walls,
+                     "launches": live_launches},
+            "digests_equal": len(digests),
+            "jl_max_rel_err": float(np.max(err / scale))}
+
+
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
 
 
@@ -2347,7 +2683,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     phase 3d (2.5M rows of f32 ``z``, S = 100,000), of phase 3e's part
     (a) (20M rows of f32 ``z`` in one block, S = 100,000) and of phase
     3f's fold (a batch's views of one window, about 133,000 f64 ones, S =
-    100 campaigns; phase 3g's 1M-row fold is phase 3b's shape),
+    100 campaigns; phase 3g's 1M-row fold is phase 3b's shape) and of
+    phase 3h's JL fold (250,000 f32 rows, S = 100,000; its reference fold
+    is phase 2's shape),
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -2366,7 +2704,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 20_000_000, 1,
                                100_000, torch.float32, flush),
               time_segment_sum(np, torch, segment_reduce, 133_000, 1, 100,
-                               torch.float64, flush)]
+                               torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 1,
+                               100_000, torch.float32, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -2452,6 +2792,7 @@ def main(argv=None) -> int:
     # the main paths: each kernel's launches are counted from 0 around each
     counters = {"segment_sum": segment_reduce, "flash_attention": fa}
     per_phase = {}
+    shipped = {}  # the child process's launches (phase 3h)
     frame_path = run_path(torch, (
         ("readme_x_plus_3", lambda: phase_readme(ttf, np)),
         ("reference_workload_20M",
@@ -2469,10 +2810,15 @@ def main(argv=None) -> int:
          lambda: phase_stream_ysb(ttf, np, torch, segment_reduce)),
         ("stream_windows_parquet_20M",
          lambda: phase_stream_windows_parquet(ttf, np, torch,
-                                              segment_reduce))),
+                                              segment_reduce)),
+        ("shipped_computation_20M",
+         lambda: phase_shipped_computation(ttf, np, torch, segment_reduce,
+                                           out=shipped))),
         counters, per_phase)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"
+    assert shipped["child_launches"] > 0, \
+        "the shipped programs' process never launched segment_sum"
     for name in ("stream_ysb_20M", "stream_windows_parquet_20M"):
         assert per_phase[name]["segment_sum"] > 0, \
             f"the stream's fold never launched segment_sum in {name}"
@@ -2503,7 +2849,7 @@ def main(argv=None) -> int:
         {"name": "segment_sum", "route": "cuda",
          "source": "tensorframes_tpu_torch/csrc/segment_sum.cu",
          "replaces": "tensorframes_tpu/ops/segment_reduce.py:75",
-         "launches": frame_path["segment_sum"],
+         "launches": frame_path["segment_sum"] + shipped["child_launches"],
          **{k: shapes[0][k] for k in keys},
          "at": shapes[0]["shape"], "by_shape": shapes},
         {"name": "flash_attention", "route": "cuda",

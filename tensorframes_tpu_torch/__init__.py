@@ -41,6 +41,13 @@ keyed window folds into state on the device through the same segment
 reductions, with failure isolation, a slot pool and live metrics
 (``observability.metrics_text``, :func:`timeline`).
 
+``builder`` runs shipped programs: ``Computation.serialize`` (or
+``builder.save_computation``) writes a program as bytes in one process,
+and ``builder.load_computation`` or ``builder.map_blocks_builder(df)
+.graph(blob)`` runs it in another, without the Python that wrote it.
+``serve.SharedCompileCache`` interns equivalent programs at the executor
+(``engine.executor.set_computation_interner``).
+
 The entry points run on ``cuda`` unless the caller asks for the CPU, with
 :func:`set_default_device` or ``executor=BlockExecutor(device="cpu")``.
 This package imports neither ``jax`` nor ``tensorframes_tpu``.
@@ -75,6 +82,8 @@ from . import relational
 from . import observability
 from . import resilience
 from . import stream
+from . import builder
+from . import serve
 from .observability.timeline import timeline
 from .relational import (approx_distinct, approx_quantile, approx_top_k,
                          join)
@@ -125,6 +134,8 @@ __all__ = [
     "observability",
     "resilience",
     "stream",
+    "builder",
+    "serve",
     "timeline",
     "join",
     "approx_distinct",

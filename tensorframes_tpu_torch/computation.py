@@ -28,13 +28,28 @@ infers each output's dtype and shape **without running it on data**:
   on small CPU tensors of ones.
 
 Outputs are sorted by name, the engine's output-column ordering contract.
-StableHLO serialization has no counterpart in this package yet.
+
+Serialization (:meth:`Computation.serialize`) is the port's counterpart of
+the JAX package's StableHLO blob: a header of specs and a ``torch.export``
+archive of the program traced with one symbolic row dim (``Dim("_n")``)
+shared by every input's leading Unknown dim. The archive is traced on the
+CPU and holds its constants there; a deserialized program is placed on the
+device of the tensors it is called with (``move_to_device_pass`` over a
+fresh load of the archive), one placed module per device, cached on the
+program, so one blob runs on the CPU and on the card whichever device it
+was made on. The JAX package's blob raises at 0 rows; the port's runs
+there (the engine never calls a program on an empty block in either).
 """
 
 from __future__ import annotations
 
 import contextlib
 import inspect
+import io
+import json
+import struct
+import threading
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -50,6 +65,13 @@ __all__ = [
     "Computation",
     "analyze_graph",
 ]
+
+# the port's blob starts with its own magic; the JAX package's blob (a
+# StableHLO module) starts with ``_JAX_MAGIC`` and is refused by name
+_MAGIC = b"TFTORCH1\x00"
+_JAX_MAGIC = b"TFTPU1\x00"
+# a bare ``torch.export.save`` archive (a zip file)
+ARCHIVE_MAGIC = b"PK\x03\x04"
 
 # probe sizes for Unknown dims: (first probe, second probe). The shared row
 # dim takes the first pair, every other Unknown dim the next free pair.
@@ -68,6 +90,15 @@ class TensorSpec:
 
     def __repr__(self):
         return f"{self.name}:{self.dtype.name}{self.shape!r}"
+
+    def to_json(self) -> dict:
+        return {"name": self.name, "dtype": self.dtype.name,
+                "shape": list(self.shape.dims)}
+
+    @staticmethod
+    def from_json(d: dict) -> "TensorSpec":
+        return TensorSpec(d["name"], _dt.by_name(d["dtype"]),
+                          Shape(tuple(d["shape"])))
 
 
 @dataclass(frozen=True)
@@ -110,6 +141,11 @@ class Computation:
 
     Outputs are canonically **sorted by name**.
     """
+
+    # the deserialized programs this computation calls (its own for a
+    # deserialized computation; a wrapper's are those of what it wraps):
+    # the executor places each on its device before the first dispatch
+    _tft_programs: Tuple["_Program", ...] = ()
 
     def __init__(self, fn: Callable, inputs: Sequence[TensorSpec],
                  outputs: Sequence[TensorSpec]):
@@ -200,6 +236,94 @@ class Computation:
                                    output_shapes)
         return Computation(dict_fn, specs, out_specs)
 
+    # -- serialization (torch.export) ---------------------------------------
+    def serialize(self) -> bytes:
+        """Serialize to bytes any host can run without the Python that
+        wrote the program: the magic, a little-endian u32 header length, a
+        JSON header (``inputs``/``outputs`` as :meth:`TensorSpec.to_json`
+        gives them, and a ``torch`` section with the torch version, the
+        traced argument dtypes and the row dim's range) and the
+        ``torch.export.save`` archive of the program traced with one
+        symbolic row dim. A deserialized computation returns its own
+        bytes."""
+        blob = getattr(self, "_tft_blob", None)
+        if blob is not None:
+            return blob
+        ep = export_program(self)
+        buf = io.BytesIO()
+        torch.export.save(ep, buf)
+        archive = buf.getvalue()
+        header = json.dumps({
+            "inputs": [s.to_json() for s in self.inputs],
+            "outputs": [s.to_json() for s in self.outputs],
+            "torch": {
+                "version": torch.__version__,
+                "arg_dtypes": [str(_dt.device_dtype(s.dtype)).split(".")[-1]
+                               for s in self.inputs],
+                "rows": _row_range(ep),
+                "archive_len": len(archive),
+            },
+        }).encode("utf-8")
+        return _MAGIC + struct.pack("<I", len(header)) + header + archive
+
+    @staticmethod
+    def deserialize(data: bytes) -> "Computation":
+        """The computation :meth:`serialize` wrote. Output specs come from
+        the header; the program is placed on a device at its first call
+        there."""
+        data = bytes(data)
+        if data.startswith(_JAX_MAGIC):
+            raise ValueError(
+                "This blob was serialized by the JAX package (tensorframes_"
+                "tpu): it holds a StableHLO module, which this package "
+                "cannot run; serialize the program with tensorframes_tpu_"
+                "torch's Computation.serialize")
+        if not data.startswith(_MAGIC):
+            raise ValueError("Not a serialized tensorframes-tpu computation")
+        off = len(_MAGIC)
+        (hlen,) = struct.unpack_from("<I", data, off)
+        off += 4
+        header = json.loads(data[off:off + hlen].decode("utf-8"))
+        inputs = [TensorSpec.from_json(d) for d in header["inputs"]]
+        outputs = [TensorSpec.from_json(d) for d in header["outputs"]]
+        comp = _Program(data[off + hlen:], inputs, outputs).computation()
+        comp._tft_blob = data
+        return comp
+
+    @staticmethod
+    def from_stablehlo(module, inputs: Sequence[TensorSpec],
+                       outputs: Optional[Sequence[TensorSpec]] = None,
+                       platforms: Optional[Sequence[str]] = None
+                       ) -> "Computation":
+        """The JAX package's door for a bare StableHLO module, which this
+        package cannot run."""
+        raise NotImplementedError(
+            "A StableHLO module cannot run in tensorframes_tpu_torch; import "
+            "a program exported by torch.export with "
+            "Computation.from_exported")
+
+    @staticmethod
+    def from_exported(ep, inputs: Sequence[TensorSpec],
+                      outputs: Optional[Sequence[TensorSpec]] = None
+                      ) -> "Computation":
+        """Import a program exported by other means: an
+        ``ExportedProgram`` or the bytes of its ``torch.export.save``
+        archive, called with the inputs positionally in ``inputs`` order.
+        ``outputs=None`` reads the output specs from the graph's output
+        metadata: named by the keys of a dict result, else ``out_0``,
+        ``out_1``, ... in result order."""
+        if isinstance(ep, (bytes, bytearray, memoryview)):
+            archive = bytes(ep)
+            ep = _load_archive(archive)
+        else:
+            buf = io.BytesIO()
+            torch.export.save(ep, buf)
+            archive = buf.getvalue()
+        inputs = list(inputs)
+        if outputs is None:
+            outputs = _exported_outputs(ep, inputs)
+        return _Program(archive, inputs, list(outputs)).computation()
+
 
 def _keyword_only_names(fn: Callable) -> frozenset:
     try:
@@ -251,6 +375,187 @@ def _probe_dims(specs: Sequence[TensorSpec], share_lead_symbol: bool
         small.append(tuple(_SMALL_PROBE if d == Unknown else d
                            for d in spec.shape.dims))
     return first, second, small
+
+
+def _sym_shapes(specs: Sequence[TensorSpec], share_lead_symbol: bool):
+    """Example input shapes and ``torch.export`` dynamic shapes for the
+    input specs, the counterpart of the JAX package's ``_sym_avals``: every
+    Unknown leading dim shares one ``Dim("_n")`` when ``share_lead_symbol``
+    (the rows of one block are one quantity), every other Unknown dim gets
+    a fresh ``Dim``. The examples are the first probe's sizes
+    (:func:`_probe_dims`), none of them 0 or 1, which export would
+    specialize."""
+    examples = _probe_dims(specs, share_lead_symbol)[0]
+    lead = None
+    fresh = 0
+    dynamic = []
+    for spec in specs:
+        dims = {}
+        for i, d in enumerate(spec.shape.dims):
+            if d != Unknown:
+                continue
+            if i == 0 and share_lead_symbol:
+                if lead is None:
+                    lead = torch.export.Dim("_n")
+                dims[i] = lead
+            else:
+                dims[i] = torch.export.Dim(f"_d{fresh}")
+                fresh += 1
+        dynamic.append(dims or None)
+    return examples, dynamic
+
+
+class _Flat(torch.nn.Module):
+    """A dict-in, dict-out program as a module whose ``forward`` takes the
+    inputs positionally, in ``names`` order."""
+
+    def __init__(self, fn: Callable, names: Sequence[str]):
+        super().__init__()
+        self.fn = fn
+        self.names = tuple(names)
+
+    def forward(self, *args):
+        return self.fn(dict(zip(self.names, args)))
+
+
+def export_program(comp: Computation):
+    """``torch.export`` of ``comp`` under :func:`_sym_shapes`, traced with
+    fake tensors on the CPU. A program that closes over tensors on the
+    package's CUDA device is traced there instead and its constants moved
+    to the CPU, so that the archive never names a card."""
+    examples, dynamic = _sym_shapes(comp.inputs, share_lead_symbol=True)
+
+    def trace(where):
+        args = tuple(torch.zeros(sh, dtype=_dt.device_dtype(s.dtype),
+                                 device=where)
+                     for s, sh in zip(comp.inputs, examples))
+        dyn = (tuple(dynamic),) if any(d is not None for d in dynamic) \
+            else None
+        with torch.no_grad():
+            return torch.export.export(_Flat(comp.fn, comp.input_names),
+                                       args, dynamic_shapes=dyn,
+                                       strict=False)
+
+    try:
+        return trace("cpu")
+    except Exception:
+        from .device import default_device
+        where = default_device()
+        if where.type != "cuda":
+            raise
+    from torch.export.passes import move_to_device_pass
+    return move_to_device_pass(trace(where), "cpu")
+
+
+def _row_range(ep) -> Optional[List[Optional[int]]]:
+    """``[lo, hi]`` of the exported program's row dim (``hi`` ``None`` when
+    unbounded), or ``None`` when no input has a symbolic leading dim."""
+    users = set(ep.graph_signature.user_inputs)
+    for node in ep.graph.nodes:
+        val = node.meta.get("val")
+        if node.op != "placeholder" or node.name not in users \
+                or val is None or val.ndim == 0 \
+                or not isinstance(val.shape[0], torch.SymInt):
+            continue
+        vr = ep.range_constraints.get(val.shape[0].node.expr)
+        if vr is None:
+            return None
+        hi = vr.upper
+        return [int(vr.lower), int(hi) if hi.is_Integer else None]
+    return None
+
+
+def _exported_outputs(ep, inputs: Sequence[TensorSpec]) -> List[TensorSpec]:
+    """Output specs read from an exported graph's output metadata, as the
+    JAX package reads a bare module's results."""
+    out_node = next(n for n in ep.graph.nodes if n.op == "output")
+    vals = [a.meta.get("val") for a in out_node.args[0]]
+    n_user = len(ep.graph_signature.user_outputs)
+    vals = vals[len(vals) - n_user:]
+    spec = ep.call_spec.out_spec
+    if spec is not None and spec.type is dict and \
+            len(spec.context) == len(vals):
+        names = [str(k) for k in spec.context]
+    else:
+        names = [f"out_{i}" for i in range(len(vals))]
+    out = []
+    for name, v in zip(names, vals):
+        if not isinstance(v, torch.Tensor):
+            raise ValueError(
+                f"exported result {name!r} is not a tensor; pass explicit "
+                f"output specs to from_exported")
+        shape = Shape(tuple(d if isinstance(d, int) else Unknown
+                            for d in v.shape))
+        out.append(TensorSpec(name, _output_framework_dtype(v.dtype, inputs),
+                              shape))
+    return out
+
+
+def _load_archive(archive: bytes):
+    """``torch.export.load`` of an archive's bytes. Its tensors are read
+    through ``torch.frombuffer`` over immutable bytes; an exported graph
+    is functional and never writes them, so the warning that they are
+    not writable is dropped."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore",
+                                message="The given buffer is not writable")
+        return torch.export.load(io.BytesIO(archive))
+
+
+class _Program:
+    """A ``torch.export`` archive and its placed modules, one per device.
+
+    Placing loads the archive afresh and moves the copy's constants and
+    the devices its graph names to the device (``move_to_device_pass``
+    moves a program in place), so every placement starts from the bytes.
+    A program that cannot be placed on a device raises."""
+
+    def __init__(self, archive: bytes, inputs: Sequence[TensorSpec],
+                 outputs: Sequence[TensorSpec]):
+        self.archive = archive
+        self.input_names = [s.name for s in inputs]
+        self.output_names = [s.name for s in outputs]
+        self.inputs, self.outputs = list(inputs), list(outputs)
+        self._placed: Dict[str, torch.nn.Module] = {}
+        self._lock = threading.Lock()
+        self._ep = None
+
+    @property
+    def exported(self):
+        """The archive's program as loaded (its constants on the CPU)."""
+        if self._ep is None:
+            self._ep = _load_archive(self.archive)
+        return self._ep
+
+    def place(self, device) -> torch.nn.Module:
+        key = str(torch.device(device))
+        mod = self._placed.get(key)
+        if mod is None:
+            with self._lock:
+                mod = self._placed.get(key)
+                if mod is None:
+                    from torch.export.passes import move_to_device_pass
+                    mod = move_to_device_pass(_load_archive(self.archive),
+                                              key).module()
+                    self._placed[key] = mod
+        return mod
+
+    def __call__(self, d: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        args = [v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+                for v in (d[n] for n in self.input_names)]
+        device = args[0].device if args else torch.device("cpu")
+        res = self.place(device)(*args)
+        if isinstance(res, Mapping):
+            return dict(res)
+        if isinstance(res, (list, tuple)):
+            return dict(zip(self.output_names, res))
+        return {self.output_names[0]: res}
+
+    def computation(self) -> Computation:
+        comp = Computation(self, self.inputs, self.outputs)
+        comp._tft_programs = (self,)
+        return comp
 
 
 def _run_probe(dict_fn: Callable, specs: Sequence[TensorSpec],

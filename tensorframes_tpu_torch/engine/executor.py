@@ -74,7 +74,15 @@ only (with none it is one global read per dispatch):
   its event and letting its device tensors go, and for a ``keep_device``
   block copying its outputs to the host and letting them go.
 
-Not in this package yet: the compile-cache interner (``ROADMAP.md`` A3).
+The computation interner (``serve/cache.py``'s ``SharedCompileCache``,
+installed with :func:`set_computation_interner`) maps every computation
+that ``run`` or ``submit`` is given to a process-canonical equivalent
+first. The port compiles nothing per shape; what interning shares is each
+computation's own state: the placed module of a deserialized program and
+the vmapped wrapper of a row program. ``compile_count`` counts the device
+programs an executor has prepared: a deserialized program placed on a
+device counts one, at the ``compile`` fault site, before its first
+dispatch there.
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ import contextlib
 import functools
 import threading
 import traceback
+import weakref
 from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -100,11 +109,45 @@ from ..resilience import (default_policy, env_bool, faults, is_oom,
 from ..utils.logging import get_logger
 from ..utils.tracing import counters, span
 
-__all__ = ["BlockExecutor", "PendingBlock", "default_executor",
-           "default_padding_executor", "to_storage_dtype", "to_device",
+__all__ = ["BlockExecutor", "PendingBlock", "current_computation_interner",
+           "default_executor", "default_padding_executor",
+           "set_computation_interner", "to_storage_dtype", "to_device",
            "to_host"]
 
 _log = get_logger("engine.executor")
+
+
+# the shared compile cache's hook: when installed, every run/submit first
+# maps its Computation to a process-canonical equivalent. One slot; None
+# (the default) costs one global read.
+_comp_interner = None
+
+
+def set_computation_interner(fn):
+    """Install (or clear with ``None``) the computation interner; returns
+    the previous hook so callers can restore it."""
+    global _comp_interner
+    prev = _comp_interner
+    _comp_interner = fn
+    return prev
+
+
+def current_computation_interner():
+    """The installed interner (None when off)."""
+    return _comp_interner
+
+
+def _intern(comp: Computation) -> Computation:
+    f = _comp_interner
+    if f is None:
+        return comp
+    try:
+        out = f(comp)
+        return out if out is not None else comp
+    except Exception as e:  # interning is an optimization, never a gate
+        _log.debug("computation interner failed (%s); running the "
+                   "un-interned computation", e)
+        return comp
 
 
 def to_storage_dtype(a: np.ndarray, dtype: _dt.DType) -> np.ndarray:
@@ -491,6 +534,11 @@ class BlockExecutor:
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None):
         self.device = device
+        # deserialized program -> the devices this executor placed it on
+        self._prepared: "weakref.WeakKeyDictionary" = \
+            weakref.WeakKeyDictionary()
+        self._lock = threading.Lock()
+        self.compile_count = 0  # device programs prepared
 
     def resolve(self) -> torch.device:
         return resolve_device(self.device)
@@ -508,8 +556,31 @@ class BlockExecutor:
                                       pin=pin)
                     for s in comp.inputs}
 
+    def _prepare(self, comp: Computation, dev: Mapping) -> None:
+        """Place each deserialized program ``comp`` calls on the device of
+        its inputs, once per program and device for this executor (a
+        ``compile_count`` each). A program that cannot be placed raises."""
+        device = next(iter(dev.values())).device if dev else self.resolve()
+        key = str(device)
+        for prog in comp._tft_programs:
+            seen = self._prepared.get(prog)
+            if seen is not None and key in seen:
+                continue
+            prog.place(device)
+            with self._lock:
+                seen = self._prepared.setdefault(prog, set())
+                if key in seen:
+                    continue
+                seen.add(key)
+                self.compile_count += 1
+            counters.inc("compile_cache.misses")
+            _obs_event("compile_cache", hit=False)
+            _log.debug("program #%d placed on %s", self.compile_count, key)
+
     def _call(self, comp: Computation, dev: Mapping) -> Dict[str, torch.Tensor]:
         faults.check("compile")
+        if comp._tft_programs:
+            self._prepare(comp, dev)
         faults.check("dispatch")
         faults.check("oom")
         with span("executor.dispatch"), torch.no_grad():
@@ -535,6 +606,7 @@ class BlockExecutor:
         OOM of a ``row_local`` dispatch splits the block in two. Under a
         device budget the dispatch is admitted first, and a ``row_local``
         block over the whole budget splits before it dispatches."""
+        comp = _intern(comp)
         device = self.resolve()
         mgr = _memory.active()
         mem_tok = 0
@@ -586,6 +658,7 @@ class BlockExecutor:
         the ledger cannot make room it runs synchronously through the
         admitted :meth:`run` instead (``memory.sync_dispatches``) and
         comes back as a finished ``ReadyResult``."""
+        comp = _intern(comp)
         try:
             return self._submit(comp, arrays, row_local, keep_device)
         except Exception as e:

@@ -477,6 +477,8 @@ def _vmapped(comp: Computation) -> Computation:
              for s in comp.inputs],
             [TensorSpec(s.name, s.dtype, s.shape.prepend(Unknown))
              for s in comp.outputs])
+        vcomp._tft_programs = comp._tft_programs
+        vcomp._tft_vmap_of = comp  # its signature is derived from comp's
         with _comp_cache_lock:
             prior = getattr(comp, "_tft_vmapped", None)
             if prior is None:
@@ -726,6 +728,7 @@ def reduce_rows(fetches: Fetches, df: TensorFrame,
                     comp.output(f).shape.prepend(Unknown))
          for f in fetch_names],
         list(comp.outputs))
+    folder._tft_programs = comp._tft_programs
     partials: List[Dict[str, np.ndarray]] = []
     for b in df.blocks():
         if b.num_rows == 0:

@@ -217,7 +217,10 @@ def _compose(members: Sequence[Member], in_specs: List[TensorSpec],
             res[MASK] = mask
         return res
 
-    return Computation(fused_fn, in_specs, out_specs)
+    fused = Computation(fused_fn, in_specs, out_specs)
+    fused._tft_programs = tuple(dict.fromkeys(
+        p for m in mem if m[0] != "sel" for p in m[1]._tft_programs))
+    return fused
 
 
 # ---------------------------------------------------------------------------

@@ -851,3 +851,111 @@ def test_stream_join_on_the_card_equals_the_cpu(cuda):
     assert len(on_card) == len(on_cpu) == 3
     for a, b in zip(on_cpu, on_card):
         assert_frames_match(a, b)
+
+
+# -- shipped computations ---------------------------------------------------
+
+def _shipped_map(device):
+    """``z = x * 2 + arange(rows)`` (a device argument in its graph),
+    serialized while ``device`` is the package default."""
+    from tensorframes_tpu_torch.computation import Computation, TensorSpec
+    from tensorframes_tpu_torch.shape import Shape, Unknown
+
+    prev = ttf.default_device()
+    ttf.set_default_device(device)
+    try:
+        return Computation.trace(
+            lambda x: {"z": x * 2.0 + torch.arange(
+                x.shape[0], device=x.device, dtype=x.dtype)},
+            [TensorSpec("x", ttf.dtypes.double, Shape(Unknown))]).serialize()
+    finally:
+        ttf.set_default_device(prev)
+
+
+@pytest.mark.parametrize("made_on", ["cpu", "cuda"])
+def test_shipped_program_runs_on_either_device(cuda, made_on):
+    """A blob made with the CPU or the card as the default device runs on
+    the CPU executor and on the card, with equal results."""
+    from tensorframes_tpu_torch.computation import Computation
+    from tensorframes_tpu_torch.engine.executor import BlockExecutor
+
+    comp = Computation.deserialize(_shipped_map(made_on))
+    x = np.random.default_rng(4).random(5000)
+    on_cpu = BlockExecutor("cpu").run(comp, {"x": x})["z"]
+    on_card = BlockExecutor("cuda").run(comp, {"x": x}, keep_device=True)
+    assert on_card["z"].is_cuda
+    np.testing.assert_array_equal(on_card["z"].cpu().numpy(), on_cpu)
+    np.testing.assert_array_equal(on_cpu, x * 2.0 + np.arange(5000))
+    assert set(comp.fn._placed) == {"cpu", "cuda:0"}
+
+
+def test_shipped_closure_over_a_cuda_table(cuda):
+    """A program closing over a table on the card is traced there and its
+    archive holds the table on the CPU; it runs on both devices."""
+    from tensorframes_tpu_torch.computation import Computation, TensorSpec
+    from tensorframes_tpu_torch.engine.executor import BlockExecutor
+    from tensorframes_tpu_torch.shape import Shape
+
+    P = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (8, 3))).to(cuda)
+    comp = Computation.trace(lambda x: {"z": ((x @ P) ** 2).sum(-1)},
+                             [TensorSpec("x", ttf.dtypes.double, Shape(8))])
+    shipped = Computation.deserialize(comp.serialize())
+    assert all(t.device.type == "cpu"
+               for t in shipped.fn.exported.constants.values())
+    x = np.random.default_rng(6).standard_normal((40, 8))
+    df = ttf.frame({"x": x}, num_partitions=2)
+    on_card = np.concatenate([b.columns["z"] for b in
+                              ttf.map_rows(shipped, df).blocks()])
+    want = ((x @ P.cpu().numpy()) ** 2).sum(-1)
+    np.testing.assert_allclose(on_card, want, rtol=1e-12)
+    on_cpu = np.concatenate([b.columns["z"] for b in ttf.map_rows(
+        shipped, df, executor=BlockExecutor("cpu")).blocks()])
+    np.testing.assert_allclose(on_cpu, want, rtol=1e-12)
+
+
+def test_shipped_map_into_aggregate_launches_segment_sum(cuda):
+    """A deserialized ``map_blocks`` -> ``aggregate({"z": "sum"})`` on the
+    card launches segment_sum once per partition."""
+    from tensorframes_tpu_torch.builder import map_blocks_builder
+    from tensorframes_tpu_torch.computation import Computation, TensorSpec
+    from tensorframes_tpu_torch.shape import Shape, Unknown
+
+    blob = Computation.trace(
+        lambda x: {"z": x + x},
+        [TensorSpec("x", ttf.dtypes.double, Shape(Unknown))]).serialize()
+    rng = np.random.default_rng(7)
+    key, x = rng.integers(0, 1000, 200_000), rng.random(200_000)
+    df = ttf.frame({"key": key, "x": x}, num_partitions=4)
+    before = segment_reduce.launches
+    zf = map_blocks_builder(df).graph(blob).build()
+    agg = ttf.aggregate({"z": "sum"}, zf.select(["key", "z"]).group_by("key"))
+    cols = agg.blocks()[0].columns
+    assert segment_reduce.launches - before == 4
+    np.testing.assert_allclose(
+        cols["z"], np.bincount(key, weights=2 * x, minlength=1000),
+        rtol=1e-12)
+
+
+def test_interner_prepares_one_program_on_the_card(cuda):
+    from tensorframes_tpu_torch.computation import Computation
+    from tensorframes_tpu_torch.engine.executor import (
+        BlockExecutor, set_computation_interner)
+    from tensorframes_tpu_torch.serve import SharedCompileCache
+
+    blob = _shipped_map("cpu")
+    ex = BlockExecutor("cuda")
+    x = np.arange(1000.0)
+    cache = SharedCompileCache()
+    prev = set_computation_interner(cache.intern)
+    try:
+        outs = [ex.run(Computation.deserialize(blob), {"x": x})["z"]
+                for _ in range(2)]
+    finally:
+        set_computation_interner(prev)
+    assert ex.compile_count == 1
+    assert cache.stats()["hits"] == 1 and cache.stats()["misses"] == 1
+    ex.run(Computation.deserialize(blob), {"x": x})
+    assert ex.compile_count == 2
+    for z in outs:
+        np.testing.assert_array_equal(z, x * 3.0)

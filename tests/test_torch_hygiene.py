@@ -101,6 +101,20 @@ def test_imports_and_runs_without_jax():
         "assert sums == [48.0, 112.0, 176.0], sums\n"
         "assert 'tft_stream_batches_total{stream=\"hyg\"} 12' in \\\n"
         "    metrics.metrics_text()\n"
+        "from tensorframes_tpu_torch import builder, serve\n"
+        "from tensorframes_tpu_torch.engine import executor\n"
+        "blob = ttf.Computation.trace(lambda x: {'z': x * 2.0},\n"
+        "    [ttf.TensorSpec('x', ttf.dtypes.double, ttf.Shape(-1))])\\\n"
+        "    .serialize()\n"
+        "cache = serve.SharedCompileCache()\n"
+        "executor.set_computation_interner(cache.intern)\n"
+        "for _ in range(2):\n"
+        "    shipped = builder.map_blocks_builder(\n"
+        "        ttf.frame({'x': np.arange(4.0)})).graph(blob).build()\n"
+        "    assert [r['z'] for r in shipped.collect()] == \\\n"
+        "        [0.0, 2.0, 4.0, 6.0]\n"
+        "executor.set_computation_interner(None)\n"
+        "assert cache.stats()['hits'] == 1, cache.stats()\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [k for k in sys.modules if k == 'tensorframes_tpu'\n"
         "       or k.startswith('tensorframes_tpu.') or k.startswith('jax.')]\n"
@@ -139,7 +153,8 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "resilience/invariants.py", "observability/metrics.py",
             "observability/timeline.py", "stream/__init__.py",
             "stream/source.py", "stream/frame.py", "stream/aggregate.py",
-            "stream/runtime.py", "stream/sink.py"} <= names
+            "stream/runtime.py", "stream/sink.py", "builder.py",
+            "serve/__init__.py", "serve/cache.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):
