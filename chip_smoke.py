@@ -99,7 +99,7 @@ paths through its public entry points and checks every result:
    launches) and P3; P2 through ``map_rows`` over 2M x 64 f32 rows in 8
    partitions, then ``aggregate({"z": "sum"})`` by 100,000 keys (8 more);
    P4 through ``aggregate_builder`` over 2M rows at 1,024 keys (the
-   ``CompactionBuffer`` path, no segment_sum). There, P1 loaded twice
+   segmented fold, vmapped over the placed program; no segment_sum). There, P1 loaded twice
    under a ``SharedCompileCache`` installed with
    ``set_computation_interner`` prepares one device program (hits 1,
    misses 1, ``compile_count`` 1) and a third load without it another;
@@ -109,6 +109,38 @@ paths through its public entry points and checks every result:
    to the child's, the f64 sums within rtol 1e-12 of numpy f64, the f32
    JL sums within 1e-5 of each group's sum of ``|z|``, 16 launches in
    each process; the child's launches are added to the ``kernels`` line;
+3i. the computation form of ``aggregate`` through the segmented fold
+   (``aggregate_fold_20M``): 20M f64 rows in 8 partitions into 1,024 keys
+   with ``{"v": v_input.sum(0)}`` and the norm combiner
+   ``sqrt((v_input ** 2).sum(0))``, against numpy's ``bincount`` and the
+   per-group ``sqrt`` of its sum of squares to rtol 1e-12; then phase
+   3h's P4 shape (2M rows, 1,024 keys) through the fold and through the
+   ``CompactionBuffer`` path of an executor of another kind, with both
+   walls, the fold's vmapped calls and the buffer path's reduce calls;
+3j. the ported demos (``kmeans_demo_2M``): k-means over 2,000,000 points
+   x 64 f64 features, k = 256, 8 partitions, from ``make_data``'s
+   generator (seed 1): 3 steps of variant A (``map_blocks`` assignment ->
+   computation-form ``aggregate``) and 3 of variant B (segment_sum twice
+   a block inside the program, 16 launches a step), each step's centers
+   and total distance against a numpy step by the matrix form of the
+   distances to rtol 1e-9; then ``geom_mean`` and ``groupby_scratch`` at
+   their demo sizes against numpy;
+3k. adaptive execution (``adaptive_20M``): a row-local chain
+   (``map_rows`` -> ``filter`` -> ``select``) over 20M rows in 200
+   blocks of 100,000, the first forcing static, then static (``=0``) and
+   re-bucketed forcings alternating (=0, adaptive, adaptive, =0; a
+   coalesced unit is merged into pinned host memory when it is
+   dispatched), all digests equal; a mid-plan
+   re-plan on a shifted distribution (priced on a warm frame, one re-plan,
+   equal to ``=0``); the same plan forced three times, the third a
+   result-cache hit with 0 dispatches; the YSB query over 2M events in
+   source batches of 50,000 with ``batch_rows="adaptive"`` and with 200,000
+   rows, both equal to numpy's counts. Phases 3b, 3c and 3e run with
+   ``TFT_ADAPTIVE=0 TFT_RESULT_CACHE=0`` (``static_plan``), so that their
+   timed repeats are not cache hits and their counts are the static
+   layout's; each then forces its query (3e: (b)'s chain under the same
+   budget and depth) once more at =0 and twice with both knobs at their
+   default, on (``default_forcings``), every digest equal to the =0 one;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -128,7 +160,7 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3h for
+with each kernel's launches during its main path (phases 1-3k for
 segment_sum, phase 3h's child process included, phase 4 for
 flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
@@ -384,6 +416,13 @@ def phase_plan_parquet(ttf, np, torch, segment_reduce, n=20_000_000,
             del r["chain"], r["plan"]  # free its forced blocks
         timed[fuse].append(r)
     unfused, again = timed[False][0], timed[True][0]
+
+    def force():
+        chain = query()
+        return chain.blocks() + ttf.aggregate(
+            {"w": "sum"}, chain.group_by("key")).blocks()
+
+    default = default_forcings(np, force)
     fc, uc = fused["counts"], unfused["counts"]
     plan = fused["plan"]
     assert plan is not None and fused["chain"]._plan_info, \
@@ -428,6 +467,7 @@ def phase_plan_parquet(ttf, np, torch, segment_reduce, n=20_000_000,
             "reference_s": reference_s, "stages": stages,
             "plan": fused["chain"]._plan_info,
             "fused_cold_wall_s": fused["wall_s"],
+            "default_knobs": default,
             "timed_order": ["fused" if f else "per_op" for f in TIMED_ORDER],
             "fused_walls_s": [r["wall_s"] for r in timed[True]],
             "unfused_walls_s": [r["wall_s"] for r in timed[False]],
@@ -625,6 +665,11 @@ def phase_ssb_q21(ttf, np, torch, segment_reduce, rows=6_000_000, parts=8,
     finally:
         join_mod.BuildTable.gather_device = real_gather
 
+    def force():
+        ch = ssb_chain(ttf, tables, parts, True, False)
+        return ch.blocks() + ssb_aggregate(ttf, ch).blocks()
+
+    default = default_forcings(np, force)
     for q, r in ((True, cold), (False, rollup)):
         for k, col in want[q].items():
             assert r["cols"][k].dtype == col.dtype, (k, r["cols"][k].dtype)
@@ -744,6 +789,7 @@ def phase_ssb_q21(ttf, np, torch, segment_reduce, rows=6_000_000, parts=8,
             "q21_block_rows": cold["block_rows"],
             "plan": cold["plan"], "build_s": cold["build_s"],
             "fused_cold_wall_s": cold["wall_s"],
+            "default_knobs": default,
             "timed_order": ["fused" if f else "per_op" for f in SSB_ORDER],
             "fused_walls_s": [r["wall_s"] for r in timed[True]],
             "unfused_walls_s": [r["wall_s"] for r in timed[False]],
@@ -1309,6 +1355,20 @@ def phase_memory_budget(ttf, np, torch, segment_reduce, n=20_000_000,
         out["b"] = {"wall_s": wall_b, "counters": got, "predicted": pred,
                     "estimate_bytes": est}
         del zb
+
+        # (b') (b)'s chain with a second row-local op, so that it takes
+        # the plan, under the same budget and depth with the adaptive
+        # layout at its default: the ledger's per-block ceiling splits
+        # its 660 MB blocks, bit-identical to the static layout
+        def force():
+            sel = jl_select(ttf, P, tables, parts).map_rows(
+                lambda z: {"w": z + 1.0}).select(["key", "z", "w"])
+            return sel.blocks() + jl_aggregate(
+                ttf, sel.select(["key", "z"])).blocks()
+
+        c0 = counts()
+        out["b_default_knobs"] = default_forcings(np, force)
+        out["b_default_knobs"]["ledger"] = delta(c0)
 
         # (c) preemption: three parks, resumes, then a cancel
         os.environ["TFT_PERSIST_DIR"] = persist_dir
@@ -2065,6 +2125,7 @@ from tensorframes_tpu_torch import builder, serve
 from tensorframes_tpu_torch.engine.executor import (BlockExecutor,
                                                     set_computation_interner)
 from tensorframes_tpu_torch.ops import segment_reduce
+from tensorframes_tpu_torch.utils.tracing import counters
 
 args = json.loads(sys.argv[1])
 device = args["device"]
@@ -2098,7 +2159,8 @@ digests, walls, _ = run_shipped(
     {k: (lambda b, k=k: b.graph(blob(k))) for k in args["paths"]})
 report.update(digests=digests, walls=walls,
               path_s=time.perf_counter() - t0,
-              launches=segment_reduce.launches)
+              launches=segment_reduce.launches,
+              fold_calls=counters.get("aggregate.fold_calls"))
 
 # (c) two loads of P1 under the interner prepare one device program;
 # uninstalled, a third load prepares anew
@@ -2144,6 +2206,7 @@ _shipped_ns: dict = {}
 exec(SHIPPED_DATA, _shipped_ns)
 shipped_tables = _shipped_ns["shipped_tables"]
 run_shipped = _shipped_ns["run_shipped"]
+digest = _shipped_ns["digest"]
 
 
 def phase_shipped_computation(ttf, np, torch, segment_reduce, n=20_000_000,
@@ -2162,6 +2225,7 @@ def phase_shipped_computation(ttf, np, torch, segment_reduce, n=20_000_000,
     from tensorframes_tpu_torch.computation import Computation, TensorSpec
     from tensorframes_tpu_torch.engine import ops as engine_ops
     from tensorframes_tpu_torch.shape import Shape, Unknown
+    from tensorframes_tpu_torch.utils.tracing import counters
 
     root = os.path.dirname(os.path.abspath(__file__))
     ship_dir = os.path.join(root, "build", "data", "shipped")
@@ -2224,12 +2288,17 @@ def phase_shipped_computation(ttf, np, torch, segment_reduce, n=20_000_000,
 
     # the same programs live, on the same data, through the same builders
     before = segment_reduce.launches
+    folds0 = counters.get("aggregate.fold_calls")
     t0 = time.perf_counter()
     digests, walls, cols = run_shipped(
         ttf, np, builder, tables, parts,
         {k: (lambda b, k=k: b.computation(live[k])) for k in live})
     live_s = time.perf_counter() - t0
     live_launches = segment_reduce.launches - before
+    live_folds = counters.get("aggregate.fold_calls") - folds0
+    # P4 is the one computation-form aggregate: it folds in both
+    assert child["fold_calls"] > 0 and live_folds > 0, \
+        (child["fold_calls"], live_folds)
     differ = sorted(k for k in digests if digests[k] != child["digests"][k])
     assert not differ, f"the shipped programs differ from the live: {differ}"
 
@@ -2275,12 +2344,349 @@ def phase_shipped_computation(ttf, np, torch, segment_reduce, n=20_000_000,
             "serialize_s": serialize_s, "child_s": child_s,
             "child": {k: child[k] for k in (
                 "start_s", "data_s", "first_load_s", "path_s", "walls",
-                "launches",
+                "launches", "fold_calls",
                 "interner", "neutral", "wall_s")},
             "live": {"wall_s": live_s, "walls": walls,
-                     "launches": live_launches},
+                     "launches": live_launches, "fold_calls": live_folds},
+            "p4_wall_before_fold_s": 14.3,
             "digests_equal": len(digests),
             "jl_max_rel_err": float(np.max(err / scale))}
+
+
+def phase_aggregate_fold(ttf, np, torch, n=20_000_000, parts=8,
+                         keys=1_024, p4_rows=2_000_000, seed=31) -> dict:
+    """The computation form of ``aggregate`` through the segmented fold
+    (see the module docstring, phase 3i)."""
+    from tensorframes_tpu_torch.engine.executor import BlockExecutor
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, keys, n)
+    v = rng.random(n)  # positive: rtol 1e-12 without cancellation
+    df = ttf.frame({"key": key, "v": v}, num_partitions=parts)
+    programs = {
+        "sum": (lambda v_input: {"v": v_input.sum(0)},
+                np.bincount(key, weights=v, minlength=keys)),
+        "norm": (lambda v_input: {"v": torch.sqrt((v_input ** 2).sum(0))},
+                 np.sqrt(np.bincount(key, weights=v * v, minlength=keys)))}
+    out = {"rows": n, "partitions": parts, "keys": keys}
+    for name, (fn, want) in programs.items():
+        c0 = counters.get("aggregate.fold_calls")
+        b0 = counters.get("aggregate.buffer_calls")
+        t0 = time.perf_counter()
+        cols = ttf.aggregate(fn, df.group_by("key")).blocks()[0].columns
+        wall = time.perf_counter() - t0
+        assert counters.get("aggregate.buffer_calls") == b0
+        np.testing.assert_array_equal(cols["key"], np.arange(keys))
+        assert cols["v"].dtype == np.float64
+        np.testing.assert_allclose(cols["v"], want, rtol=1e-12)
+        out[name] = {"wall_s": wall,
+                     "fold_calls": counters.get("aggregate.fold_calls") - c0,
+                     "max_rel_err": float(np.max(np.abs(cols["v"] - want)
+                                                 / want))}
+    del df, key, v
+
+    # P4's shape: 2M rows into 1,024 keys, through the fold and through
+    # the CompactionBuffer path of an executor of another kind
+    rng = np.random.default_rng(13)
+    akey = rng.integers(0, keys, p4_rows)
+    av = rng.random(p4_rows)
+    adf = ttf.frame({"key": akey, "v": av}, num_partitions=parts)
+    want = np.bincount(akey, weights=av, minlength=keys)
+    class BufferPathExecutor(BlockExecutor):
+        """An executor of another kind than the default: the selection
+        rule keeps the computation form on the CompactionBuffer path."""
+
+    for name, ex in (("p4_fold", None),
+                     ("p4_buffer", BufferPathExecutor())):
+        c0 = counters.get("aggregate.fold_calls")
+        b0 = counters.get("aggregate.buffer_calls")
+        t0 = time.perf_counter()
+        cols = ttf.aggregate(lambda v_input: {"v": torch.sum(v_input, 0)},
+                             adf.group_by("key"),
+                             executor=ex).blocks()[0].columns
+        wall = time.perf_counter() - t0
+        np.testing.assert_array_equal(cols["key"], np.arange(keys))
+        np.testing.assert_allclose(cols["v"], want, rtol=1e-12)
+        folds = counters.get("aggregate.fold_calls") - c0
+        reduces = counters.get("aggregate.buffer_calls") - b0
+        assert (folds > 0, reduces > 0) == \
+            ((True, False) if ex is None else (False, True)), (folds, reduces)
+        out[name] = {"rows": p4_rows, "wall_s": wall, "fold_calls": folds,
+                     "buffer_reduce_calls": reduces}
+    return out
+
+
+def kmeans_numpy_step(np, pts, centers, chunk=250_000) -> tuple:
+    """One k-means step in numpy f64 by the matrix form of the distances
+    (``|x|^2 + |c|^2 - 2 x.c``), a chunk of rows at a time: the new
+    centers (an empty cluster keeps its center) and the total distance."""
+    k, m = centers.shape
+    csq = (centers * centers).sum(1)
+    sums = np.zeros((k, m))
+    counts = np.zeros(k)
+    total = 0.0
+    for lo in range(0, len(pts), chunk):
+        x = pts[lo:lo + chunk]
+        d = (x * x).sum(1)[:, None] + csq[None, :] - 2.0 * (x @ centers.T)
+        idx = d.argmin(1)
+        total += float(d[np.arange(len(x)), idx].sum())
+        counts += np.bincount(idx, minlength=k)
+        for c in range(m):
+            sums[:, c] += np.bincount(idx, weights=x[:, c], minlength=k)
+    new = np.where(counts[:, None] > 0,
+                   sums / np.maximum(counts, 1.0)[:, None], centers)
+    return new, total
+
+
+def phase_kmeans_demo(ttf, np, torch, segment_reduce, n=2_000_000, m=64,
+                      k=256, parts=8, steps=3, seed=1) -> dict:
+    """The ported demos on the card (see the module docstring, phase
+    3j)."""
+    from tensorframes_tpu_torch.demos import geom_mean, groupby_scratch
+    from tensorframes_tpu_torch.demos import kmeans
+
+    t0 = time.perf_counter()
+    df, init, _ = kmeans.make_data(n=n, num_features=m, k=k,
+                                   num_partitions=parts, seed=seed)
+    pts = np.concatenate([b.dense("features") for b in df.blocks()])
+    out = {"rows": n, "features": m, "k": k, "partitions": parts,
+           "steps": steps, "data_s": time.perf_counter() - t0}
+    for variant in ("aggregate", "preaggregate"):
+        step = getattr(kmeans, f"step_{variant}")
+        c = np.asarray(init, np.float64)
+        walls, ref_walls, errs = [], [], []
+        l0 = segment_reduce.launches
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            got_c, got_d = step(df, c)
+            walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            want_c, want_d = kmeans_numpy_step(np, pts, c)
+            ref_walls.append(time.perf_counter() - t0)
+            # f64 sums in other orders, the distances from another GEMM
+            np.testing.assert_allclose(got_c, want_c, rtol=1e-9, atol=1e-9)
+            assert abs(got_d - want_d) <= 1e-9 * abs(want_d), (got_d, want_d)
+            errs.append(float(np.max(np.abs(got_c - want_c))))
+            c = got_c
+        launches = segment_reduce.launches - l0
+        # variant B: two segment_sum calls a block and step
+        assert launches == (2 * parts * steps if variant == "preaggregate"
+                            else 0), (variant, launches)
+        out[variant] = {"step_walls_s": walls, "numpy_step_walls_s":
+                        ref_walls, "launches": launches,
+                        "max_abs_center_err": max(errs),
+                        "final_distance": got_d}
+    del df, pts
+
+    # geom_mean and groupby_scratch at their demo sizes, held to the
+    # numpy checks of the JAX package's demo tests
+    t0 = time.perf_counter()
+    gdf = geom_mean.make_data(n=30)
+    x = np.concatenate([b.dense("x") for b in gdf.blocks()])
+    keys = np.concatenate([np.asarray(list(b.columns["key"]))
+                           for b in gdf.blocks()])
+    for mean in ("harmonic", "geometric"):
+        rows = getattr(geom_mean, f"{mean}_mean_per_key")(gdf).collect()
+        got = {r["key"]: r[f"{mean}_mean"] for r in rows}
+        assert set(got) == {"g0", "g1", "g2"}, got
+        for g, val in got.items():
+            grp = x[keys == g]
+            want = (len(grp) / (1.0 / grp).sum() if mean == "harmonic"
+                    else np.exp(np.log(grp).mean()))
+            assert abs(val - want) <= 1e-6 * want, (mean, g, val, want)
+    rows = groupby_scratch.groupby_sum()
+    assert [(r["key"], r["x"]) for r in rows] == [("0", 3.0), ("1", 12.0)]
+    assert [r["z"] for r in groupby_scratch.readme_map_blocks()] == \
+        [3.0, 4.0, 5.0, 6.0, 7.0]
+    s, mn = groupby_scratch.readme_reduce_vector()
+    np.testing.assert_allclose(s, [3.0, 3.0])
+    np.testing.assert_allclose(mn, [1.0, 1.0])
+    np.testing.assert_allclose(
+        [r["z"] for r in groupby_scratch.readme_dsl_map()],
+        np.arange(5.0) * 0.1 + 3.0)
+    out["small_demos_s"] = time.perf_counter() - t0
+    return out
+
+
+def env_scope(**knobs):
+    """Environment knobs set for the length of a ``with`` block."""
+    from unittest import mock
+    return mock.patch.dict(os.environ, knobs)
+
+
+ADAPTIVE_COUNTERS = ("plan.adaptive_layouts", "plan.adaptive_coalesces",
+                     "plan.adaptive_splits", "plan.replans",
+                     "plan.filter_reorders", "plan.result_cache_hits")
+
+
+def default_forcings(np, force) -> dict:
+    """``force()`` (a phase's query: a list of blocks) once with the
+    adaptive layout and the result cache off, then twice with both at
+    their default (on), inside a phase that :func:`static_plan` runs with
+    both off: each default result's :func:`digest_blocks` equal to the
+    static one's. The static runs before have recorded the plan shape's
+    feedback, so the first default forcing may already re-bucket.
+    Returns the walls and what the adaptive counters moved."""
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    with env_scope(TFT_ADAPTIVE="0", TFT_RESULT_CACHE="0"):
+        t0 = time.perf_counter()
+        blocks = force()
+        static_wall = time.perf_counter() - t0
+        want = digest_blocks(np, blocks)
+    del blocks
+    c0 = {k: counters.get(k) for k in ADAPTIVE_COUNTERS}
+    walls = []
+    with env_scope(TFT_ADAPTIVE="1", TFT_RESULT_CACHE="1"):
+        for _ in range(2):
+            t0 = time.perf_counter()
+            blocks = force()
+            walls.append(time.perf_counter() - t0)
+            assert digest_blocks(np, blocks) == want, \
+                "the default layout differs from TFT_ADAPTIVE=0"
+            del blocks
+    return {"static_wall_s": static_wall, "default_walls_s": walls,
+            "counts": {k: counters.get(k) - c0[k] for k in ADAPTIVE_COUNTERS}}
+
+
+def digest_blocks(np, blocks) -> list:
+    """Every block's row count and every column's sha256 (``digest``)."""
+    return [(b.num_rows, {n: digest(np, np.asarray(c))
+                          for n, c in b.columns.items()}) for b in blocks]
+
+
+def phase_adaptive(ttf, np, torch, n=20_000_000, parts=200,
+                   ysb_events_n=2_000_000, seed=41) -> dict:
+    """Adaptive execution on the card (see the module docstring, phase
+    3k)."""
+    from tensorframes_tpu_torch.plan import adaptive
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n)
+    df = ttf.frame({"x": x, "k": rng.integers(0, 1_000, n)},
+                   num_partitions=parts)
+    df.cache()
+    f = lambda x: {"z": x * 2.0 + 1.0}        # noqa: E731
+    q = lambda z: z > 0.5                     # noqa: E731
+
+    def chain(frame):
+        return frame.map_rows(f).filter(q).select(["k", "z"])
+
+    def timed(frame):
+        s0 = tracing.timings.snapshot()
+        t0 = time.perf_counter()
+        blocks = chain(frame).blocks()
+        wall = time.perf_counter() - t0
+        s1 = tracing.timings.snapshot()
+        dispatches = (s1.get("executor.dispatch", {}).get("count", 0)
+                      - s0.get("executor.dispatch", {}).get("count", 0))
+        return blocks, wall, dispatches
+
+    out = {"rows": n, "blocks": parts}
+    adaptive.invalidate_results()
+    # (a) the re-bucketed layout: the first forcing measures, later ones
+    # coalesce 200 blocks of 100,000 rows; static (=0) and adaptive
+    # forcings alternate (static, adaptive, adaptive, static) so that
+    # neither always runs later; all bit-identical to =0
+    walls = {"0": [], "1": []}
+    dispatches = {}
+    with env_scope(TFT_RESULT_CACHE="0"):
+        l0 = counters.get("plan.adaptive_layouts")
+        first, first_wall, first_disp = timed(df)
+        assert counters.get("plan.adaptive_layouts") == l0, \
+            "the first forcing of a plan shape must run the static layout"
+        for knob in ("0", "1", "1", "0"):
+            with env_scope(TFT_ADAPTIVE=knob):
+                blocks, wall, dispatches[knob] = timed(df)
+            walls[knob].append(wall)
+            if knob == "0":
+                static = blocks
+            else:
+                second = blocks
+        assert counters.get("plan.adaptive_layouts") == l0 + 2
+    static_disp, second_disp = dispatches["0"], dispatches["1"]
+    want = digest_blocks(np, static)
+    zs = 2.0 * x + 1.0
+    assert np.array_equal(np.concatenate([b.columns["z"] for b in static]),
+                          zs[zs > 0.5]), "the static chain is wrong"
+    for blocks in (first, second):
+        assert digest_blocks(np, blocks) == want, \
+            "the adaptive layout differs from TFT_ADAPTIVE=0"
+    out["layout"] = {"static_walls_s": walls["0"],
+                     "static_dispatches": static_disp,
+                     "measuring_wall_s": first_wall,
+                     "adaptive_walls_s": walls["1"],
+                     "adaptive_dispatches": second_disp,
+                     "coalesces": counters.get("plan.adaptive_coalesces")}
+    assert second_disp < static_disp, (second_disp, static_disp)
+
+    # (b) a mid-plan re-plan on a shifted distribution: priced on a warm
+    # frame where the second filter keeps every row, then forced where it
+    # keeps 0.5% of them
+    q1 = lambda z: z > -1e300                 # noqa: E731
+    q2 = lambda z: z < -4.0                   # noqa: E731
+
+    def shifted(frame):
+        return frame.map_rows(f).filter(q1).filter(q2).select(["z"])
+
+    with env_scope(TFT_RESULT_CACHE="0", TFT_REPLAN_RATIO="3"):
+        warm = ttf.frame({"x": np.full(2_000, -3.0)}, num_partitions=parts)
+        warm.cache()
+        shifted(warm).blocks()
+        shifted(warm).blocks()
+        r0 = counters.get("plan.replans")
+        t0 = time.perf_counter()
+        replanned = shifted(df).blocks()
+        replan_wall = time.perf_counter() - t0
+        assert counters.get("plan.replans") == r0 + 1, "no mid-plan re-plan"
+    with env_scope(TFT_ADAPTIVE="0", TFT_RESULT_CACHE="0"):
+        assert digest_blocks(np, replanned) == \
+            digest_blocks(np, shifted(df).blocks()), \
+            "the re-planned run differs from TFT_ADAPTIVE=0"
+    out["replan"] = {"wall_s": replan_wall,
+                     "kept_rows": sum(b.num_rows for b in replanned)}
+
+    # (c) the result cache: the same plan forced three times; the third
+    # is a hit with no dispatch
+    adaptive.invalidate_results()
+    plan_walls, plan_disp = [], []
+    h0 = counters.get("plan.result_cache_hits")
+    for _ in range(3):
+        blocks, wall, disp = timed(df)
+        plan_walls.append(wall)
+        plan_disp.append(disp)
+        assert digest_blocks(np, blocks) == want
+    assert counters.get("plan.result_cache_hits") == h0 + 1
+    assert plan_disp[2] == 0, plan_disp
+    out["result_cache"] = {"miss_wall_s": plan_walls[0],
+                           "admit_wall_s": plan_walls[1],
+                           "hit_wall_s": plan_walls[2],
+                           "hit_dispatches": plan_disp[2],
+                           "stats": adaptive.result_cache_stats()}
+    adaptive.invalidate_results()
+    del df, static, first, second, replanned, x, zs
+
+    # (d) the YSB query at reduced depth: adaptive batches against a
+    # fixed batch_rows, both equal to numpy's counts
+    batches, _, table = ysb_events(np, ysb_events_n, 50_000, 100_000,
+                                   seed=seed)
+    counts = ysb_reference(np, batches, table)["counts"]
+    from tensorframes_tpu_torch import stream
+    ysb = {}
+    for name, rows in (("fixed", 200_000), ("adaptive", "adaptive")):
+        src = stream.GeneratorSource(iter([dict(b) for b in batches]))
+        t0 = time.perf_counter()
+        h = ysb_query(ttf, torch, src, table).start(name=f"ysb-{name}",
+                                                    batch_rows=rows)
+        h.run()
+        wall = time.perf_counter() - t0
+        ysb_check(np, h.collect_updates(), counts)
+        ysb[name] = {"wall_s": wall, "batches": h.metrics()["batches"]}
+    out["stream"] = {"events": ysb_events_n, "source_batch": 50_000, **ysb}
+    return out
 
 
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
@@ -2685,7 +3091,8 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     3f's fold (a batch's views of one window, about 133,000 f64 ones, S =
     100 campaigns; phase 3g's 1M-row fold is phase 3b's shape) and of
     phase 3h's JL fold (250,000 f32 rows, S = 100,000; its reference fold
-    is phase 2's shape),
+    is phase 2's shape) and of phase 3j's k-means variant B (a block's
+    points, 250,000 x 64 f64, and its counts, 250,000 x 1 f64, S = 256),
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -2706,13 +3113,27 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 133_000, 1, 100,
                                torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 1,
-                               100_000, torch.float32, flush)]
+                               100_000, torch.float32, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
+                               256, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 1,
+                               256, torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
     emit({"phase": "flash_attention_timing", "ok": True,
           "shapes": flash_shapes})
     return shapes, flash_shapes
+
+
+def static_plan(phase, *args, **kwargs) -> dict:
+    """Run a phase whose timed repeats and modelled counts are the static
+    layout's: ``TFT_ADAPTIVE=0`` (no re-bucketed layout, no filter
+    re-ordering) and ``TFT_RESULT_CACHE=0`` (a repeated forcing is not a
+    cache hit) for the phase only, apart from its
+    :func:`default_forcings`."""
+    with env_scope(TFT_ADAPTIVE="0", TFT_RESULT_CACHE="0"):
+        return phase(*args, **kwargs)
 
 
 def print_card() -> None:
@@ -2799,13 +3220,16 @@ def main(argv=None) -> int:
          lambda: phase_reference_workload(ttf, np, torch)),
         ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np)),
         ("plan_parquet_20M",
-         lambda: phase_plan_parquet(ttf, np, torch, segment_reduce)),
+         lambda: static_plan(phase_plan_parquet, ttf, np, torch,
+                             segment_reduce)),
         ("ssb_q21_sf1",
-         lambda: phase_ssb_q21(ttf, np, torch, segment_reduce)),
+         lambda: static_plan(phase_ssb_q21, ttf, np, torch,
+                             segment_reduce)),
         ("oom_recovery_rff_20M",
          lambda: phase_oom_recovery_rff(ttf, np, torch, segment_reduce)),
         ("memory_budget_20M",
-         lambda: phase_memory_budget(ttf, np, torch, segment_reduce)),
+         lambda: static_plan(phase_memory_budget, ttf, np, torch,
+                             segment_reduce)),
         ("stream_ysb_20M",
          lambda: phase_stream_ysb(ttf, np, torch, segment_reduce)),
         ("stream_windows_parquet_20M",
@@ -2813,7 +3237,11 @@ def main(argv=None) -> int:
                                               segment_reduce)),
         ("shipped_computation_20M",
          lambda: phase_shipped_computation(ttf, np, torch, segment_reduce,
-                                           out=shipped))),
+                                           out=shipped)),
+        ("aggregate_fold_20M", lambda: phase_aggregate_fold(ttf, np, torch)),
+        ("kmeans_demo_2M",
+         lambda: phase_kmeans_demo(ttf, np, torch, segment_reduce)),
+        ("adaptive_20M", lambda: phase_adaptive(ttf, np, torch))),
         counters, per_phase)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"
@@ -2822,6 +3250,8 @@ def main(argv=None) -> int:
     for name in ("stream_ysb_20M", "stream_windows_parquet_20M"):
         assert per_phase[name]["segment_sum"] > 0, \
             f"the stream's fold never launched segment_sum in {name}"
+    assert per_phase["kmeans_demo_2M"]["segment_sum"] == 48, \
+        "k-means variant B did not launch segment_sum twice a block"
     state = {}
     lm_path = run_path(torch, (
         ("transformer_score_8x2048",

@@ -37,8 +37,12 @@ CPU and holds its constants there; a deserialized program is placed on the
 device of the tensors it is called with (``move_to_device_pass`` over a
 fresh load of the archive), one placed module per device, cached on the
 program, so one blob runs on the CPU and on the card whichever device it
-was made on. The JAX package's blob raises at 0 rows; the port's runs
-there (the engine never calls a program on an empty block in either).
+was made on. ``deserialize`` loads the archive once and raises
+``ValueError`` on a corrupt one; a call checks each input's rank, dtype
+and fixed dims against the header's specs and raises the JAX package's
+``ValueError`` (``Rank mismatch for args[0]: ...``). The JAX package's
+blob raises at 0 rows; the port's runs there (the engine never calls a
+program on an empty block in either).
 """
 
 from __future__ import annotations
@@ -286,7 +290,14 @@ class Computation:
         header = json.loads(data[off:off + hlen].decode("utf-8"))
         inputs = [TensorSpec.from_json(d) for d in header["inputs"]]
         outputs = [TensorSpec.from_json(d) for d in header["outputs"]]
-        comp = _Program(data[off + hlen:], inputs, outputs).computation()
+        prog = _Program(data[off + hlen:], inputs, outputs)
+        try:
+            prog.exported
+        except Exception as e:  # noqa: BLE001 - any parse failure is a bad blob
+            raise ValueError(
+                f"Corrupt serialized computation: its torch.export archive "
+                f"does not load ({type(e).__name__}: {e})") from e
+        comp = prog.computation()
         comp._tft_blob = data
         return comp
 
@@ -540,10 +551,46 @@ class _Program:
                     self._placed[key] = mod
         return mod
 
+    def _check_args(self, args: Sequence[torch.Tensor]) -> None:
+        """Each argument's rank, dtype and fixed dims against the program's
+        signature, in the JAX package's order and wording (a placed
+        ``ExportedProgram`` module checks neither dtype nor rank)."""
+        fresh = 0
+        for i, (spec, a) in enumerate(zip(self.inputs, args)):
+            names = []
+            for j, d in enumerate(spec.shape.dims):
+                if d != Unknown:
+                    names.append(str(d))
+                elif j == 0:
+                    names.append("_n")
+                else:
+                    names.append(f"_d{fresh}")
+                    fresh += 1
+            expected = "(" + ", ".join(names) + \
+                ("," if len(names) == 1 else "") + ")"
+            got = tuple(a.shape)
+            if a.ndim != len(names):
+                raise ValueError(
+                    f"Rank mismatch for args[{i}]: expected {expected} and "
+                    f"called with {got}")
+            want = _dt.device_dtype(spec.dtype)
+            if a.dtype != want:
+                raise ValueError(
+                    f"Dtype mismatch for args[{i}]: expected "
+                    f"{str(want).split('.')[-1]} and called with "
+                    f"{str(a.dtype).split('.')[-1]}")
+            for j, d in enumerate(spec.shape.dims):
+                if d != Unknown and got[j] != d:
+                    raise ValueError(
+                        f"Shape mismatch for args[{i}].shape[{j}] (expected "
+                        f"same constant): expected {expected} and called "
+                        f"with {got}")
+
     def __call__(self, d: Mapping[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         args = [v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
                 for v in (d[n] for n in self.input_names)]
+        self._check_args(args)
         device = args[0].device if args else torch.device("cpu")
         res = self.place(device)(*args)
         if isinstance(res, Mapping):

@@ -163,9 +163,11 @@ def to_device(a, dtype: torch.dtype, device: torch.device,
     """One host column as a tensor of ``dtype`` on ``device``. The dtype
     cast runs on the device, after the copy. ``pin`` stages the copy
     through pinned host memory so that it is asynchronous. A tensor
-    already on ``device`` is only cast."""
+    already on ``device`` is only cast; a host tensor already pinned
+    (a coalesced unit of the adaptive layout) is copied as it is."""
     if isinstance(a, torch.Tensor):
-        t = a if a.device == device else a.to(device)
+        t = a if a.device == device else a.to(
+            device, non_blocking=pin and a.is_pinned())
         return t if t.dtype == dtype else t.to(dtype)
     a = np.asarray(a)
     if not a.flags.writeable or not a.flags.c_contiguous:
@@ -548,6 +550,7 @@ class BlockExecutor:
         # the convert span times host->device work; inputs that are all
         # device tensors already (a later plan stage) open none
         resident = all(isinstance(arrays[s.name], torch.Tensor)
+                       and arrays[s.name].device.type == device.type
                        for s in comp.inputs)
         with contextlib.nullcontext() if resident \
                 else span("executor.convert"):

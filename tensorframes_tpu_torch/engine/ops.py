@@ -15,7 +15,10 @@ user-visible contracts, validation and error messages:
 - ``aggregate`` groups by key columns: the ``{column: "sum"|"min"|"max"|
   "prod"}`` form reduces each column with one segment reduction per block
   (float sums through the CUDA ``segment_sum`` kernel on a GPU); the
-  computation form reduces each group through a :class:`CompactionBuffer`.
+  computation form folds every group of a block at once by a segmented
+  scan of the program over two-row blocks (``_aggregate_segmented_fold``),
+  or, under an executor of another kind than the default, reduces each
+  group through a :class:`CompactionBuffer`.
 
 User computations are PyTorch functions (or DSL nodes, ``dsl/``) run
 eagerly on the executor's device; ``map_rows`` vectorizes them with
@@ -33,8 +36,6 @@ reduces and ``aggregate`` let the OOM propagate. The eager ops
 (``reduce_blocks``, ``reduce_rows``, ``aggregate``) each open a query
 trace when tracing is on (``observability.traced_query``); a lazy op's
 forcing opens one in ``TensorFrame.blocks``.
-Not in this package yet: the single-program segmented fold of the
-computation-form ``aggregate``.
 """
 
 from __future__ import annotations
@@ -1042,6 +1043,139 @@ def _monoid_aggregate(col_combiners: Mapping[str, str],
                                    Schema(out_fields))
 
 
+class FoldBatchingError(RuntimeError):
+    """A computation-form ``aggregate`` program that ``torch.func.vmap``
+    cannot batch, so the segmented fold cannot run it."""
+
+
+def _fold_call(fn, comp, *args):
+    """One vmapped call of the fold (``aggregate.fold_calls``). A failure
+    to batch names the program and the fold; an OOM and a kernel's own
+    failure pass through as they are."""
+    from ..resilience import KernelError, is_oom
+    counters.inc("aggregate.fold_calls")
+    try:
+        return fn(*args)
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        if is_oom(e) or isinstance(e, KernelError):
+            raise
+        raise FoldBatchingError(
+            f"aggregate's segmented fold runs {comp!r} on two-row blocks "
+            f"batched with torch.func.vmap, which failed: "
+            f"{type(e).__name__}: {e}") from e
+
+
+def _segmented_scan(op, sid: torch.Tensor, vals: Dict[str, torch.Tensor]):
+    """Inclusive scan of ``op`` over ``(sid, vals)`` along the rows, with
+    the odd/even recursion of ``jax.lax.associative_scan`` level for
+    level: combine adjacent pairs, scan the result, then fill in the
+    even positions. The partials meet in the JAX package's tree, so f64
+    results agree to rounding; O(log rows) levels of two calls each."""
+    n = sid.shape[0]
+    if n < 2:
+        return sid, vals
+    r_id, r_v = op((sid[0:-1:2], {f: v[0:-1:2] for f, v in vals.items()}),
+                   (sid[1::2], {f: v[1::2] for f, v in vals.items()}))
+    o_id, o_v = _segmented_scan(op, r_id, r_v)
+    if n % 2 == 0:
+        a = (o_id[:-1], {f: v[:-1] for f, v in o_v.items()})
+    else:
+        a = (o_id, o_v)
+    e_id, e_v = op(a, (sid[2::2], {f: v[2::2] for f, v in vals.items()}))
+
+    def interleave(first, even, odd):
+        dt = torch.promote_types(torch.promote_types(first.dtype, even.dtype),
+                                 odd.dtype)
+        out = torch.empty((n,) + tuple(first.shape[1:]), dtype=dt,
+                          device=first.device)
+        out[0:1] = first[0:1]
+        out[2::2] = even
+        out[1::2] = odd
+        return out
+
+    return (interleave(sid, e_id, o_id),
+            {f: interleave(vals[f], e_v[f], o_v[f]) for f in vals})
+
+
+def _aggregate_segmented_fold(comp: Computation, fetch_names, fetch_blocks,
+                              fact: KeyFactorization, schema: Schema,
+                              executor: BlockExecutor
+                              ) -> Dict[str, np.ndarray]:
+    """All groups of one block (rows sorted by key) folded at once.
+
+    Per group: the fold of the user computation over its contiguous rows
+    by a segmented inclusive scan whose operator applies the program to
+    two-row blocks (``pair``, batched with ``torch.func.vmap``), the
+    segment tail scattered into a ``[G, ...]`` table, then one
+    application over each group's one-row block (``single``): the
+    semantics of the ``CompactionBuffer`` path under the
+    algebraic-regrouping contract, at O(log rows) vmapped calls instead
+    of one call per chunk of every group. Plain torch on the executor's
+    device; the block's fetch columns go there once, in their device
+    dtypes. A program that vmap cannot batch raises
+    :class:`FoldBatchingError`.
+    """
+    names = sorted(fetch_names)
+    G = len(fact.seg_starts)
+    device = executor.resolve()
+    ids_sorted = np.asarray(fact.ids)[np.asarray(fact.order)]
+    sid = torch.as_tensor(ids_sorted.astype(np.int64), device=device)
+    dev = {f: to_device(fetch_blocks[f], _dt.device_dtype(schema[f].dtype),
+                        device) for f in names}
+    if comp._tft_programs:
+        executor._prepare(comp, {f + "_input": v for f, v in dev.items()})
+
+    def pair(av, bv):
+        out = comp.fn({f + "_input": torch.stack([av[f], bv[f]])
+                       for f in names})
+        return {f: out[f] for f in names}
+
+    def single(av):
+        out = comp.fn({f + "_input": av[f][None] for f in names})
+        return {f: out[f] for f in names}
+
+    pair_v = torch.func.vmap(pair)
+    single_v = torch.func.vmap(single)
+
+    def op(a, b):
+        a_id, a_v = a
+        b_id, b_v = b
+        if b_id.shape[0] == 0:
+            return b_id, b_v
+        same = a_id == b_id
+        comb = _fold_call(pair_v, comp, a_v, b_v)
+        out_v = {}
+        for f in names:
+            m = same.reshape((-1,) + (1,) * (comb[f].ndim - 1))
+            out_v[f] = torch.where(m, comb[f], b_v[f])
+        return b_id, out_v
+
+    mem_mgr = _memory.active()
+    mem_tok = (mem_mgr.reserve(
+        2 * sum(int(v.numel() * v.element_size()) for v in dev.values())
+        + int(sid.numel() * sid.element_size()),
+        op="aggregate.segmented_fold") if mem_mgr is not None else 0)
+    try:
+        with span("aggregate.segmented_fold"), torch.no_grad():
+            _, scanned = _segmented_scan(op, sid, dev)
+            tail = torch.ones_like(sid, dtype=torch.bool)
+            tail[:-1] = sid[1:] != sid[:-1]
+            tail_ids = sid[tail]
+            table = {}
+            for f in names:
+                z = torch.zeros((G,) + tuple(scanned[f].shape[1:]),
+                                dtype=scanned[f].dtype, device=device)
+                z[tail_ids] = scanned[f][tail]
+                table[f] = z
+            final = _fold_call(single_v, comp, table)
+            cols = {f: to_storage_dtype(to_host(final[f]), schema[f].dtype)
+                    for f in names}
+    finally:
+        if mem_tok:
+            mem_mgr.release(mem_tok)
+    return cols
+
+
 @traced_query("aggregate")
 def aggregate(fetches: Fetches, grouped: GroupedFrame,
               buffer_size: int = DEFAULT_BUFFER_SIZE,
@@ -1056,9 +1190,12 @@ def aggregate(fetches: Fetches, grouped: GroupedFrame,
       factorization + one segment reduction per block and column on the
       device (the CUDA ``segment_sum`` kernel for float sums on a GPU);
     - ``fetches`` is a computation: each block is sorted by key on the
-      host and each group reduces through a :class:`CompactionBuffer`
-      honoring the buffered-compaction contract (buffer_size=10 by
-      default); the per-block partials combine through the same machinery.
+      host and all its groups fold at once on the device
+      (:func:`_aggregate_segmented_fold`, O(log rows) vmapped calls of
+      the program); under an executor of another kind than the default
+      each group reduces through a :class:`CompactionBuffer` honoring
+      the buffered-compaction contract (buffer_size=10 by default). The
+      per-block partials combine through the same machinery.
     """
     ex = executor or default_executor()
     if _monoid_mapping(fetches):
@@ -1073,6 +1210,7 @@ def aggregate(fetches: Fetches, grouped: GroupedFrame,
     fetch_names = comp.output_names
 
     def reduce_fn(block: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        counters.inc("aggregate.buffer_calls")
         return ex.run(comp, {f + "_input": block[f] for f in fetch_names})
 
     blocks = df.blocks()
@@ -1093,14 +1231,25 @@ def aggregate(fetches: Fetches, grouped: GroupedFrame,
     # reduced to one partial row per group present in it; the per-block
     # partials then combine through one more pass of the same machinery
     # (legal under the algebraic-regrouping contract)
-    ids_blocks, uniques, num_groups = _blockwise_key_factorization(
-        blocks, keys)
+    with span("aggregate.factorize_keys"):
+        ids_blocks, uniques, num_groups = _blockwise_key_factorization(
+            blocks, keys)
+    # the fold calls the program itself on the executor's device, so it
+    # replaces the per-group dispatches only when the effective executor
+    # is exactly the default kind; an executor of another kind keeps the
+    # CompactionBuffer path, so the program runs through that executor.
+    # Deserialized programs take the fold too: the port vmaps a placed
+    # program (the JAX package's exported.call has no batching rule)
+    use_fold = type(ex) is BlockExecutor
 
     def block_partials(fetch_b, fact_b):
-        """One partial row per group present, in segment order. Each
-        segment is ingested in power-of-two chunks (capped), so a group
-        costs O(rows/cap + log rows) reduce calls; the buffer still
-        compacts every ``buffer_size`` partials."""
+        """One partial row per group present, in segment order."""
+        if use_fold:
+            return _aggregate_segmented_fold(comp, fetch_names, fetch_b,
+                                             fact_b, df.schema, ex)
+        # CompactionBuffer path: each segment is ingested in power-of-two
+        # chunks (capped), so a group costs O(rows/cap + log rows) reduce
+        # calls; the buffer still compacts every ``buffer_size`` partials
         seg_starts = fact_b.seg_starts
         seg_ends = np.append(seg_starts[1:], len(fact_b.ids))
         chunk_cap = 1 << 16
@@ -1133,8 +1282,9 @@ def aggregate(fetches: Fetches, grouped: GroupedFrame,
     for b, ids in zip(blocks, ids_blocks):
         if b.num_rows == 0:
             continue
-        fact_b = _fact_from_global_ids(ids)
-        fetch_b = {f: b.dense(f)[fact_b.order] for f in fetch_names}
+        with span("aggregate.sort_block"):
+            fact_b = _fact_from_global_ids(ids)
+            fetch_b = {f: b.dense(f)[fact_b.order] for f in fetch_names}
         cols_b = block_partials(fetch_b, fact_b)
         partial_gids.append(fact_b.uniques[0])
         for f in fetch_names:

@@ -69,7 +69,8 @@ from . import preempt as _preempt
 
 __all__ = ["DEFAULT_DEPTH", "pipeline_depth", "stream_depth", "submit",
            "run_pipelined", "ReadyResult", "PipelinedExecutor",
-           "SlotPool", "install_slot_pool", "current_slot_pool"]
+           "SlotPool", "install_slot_pool", "current_slot_pool",
+           "last_occupancy"]
 
 DEFAULT_DEPTH = 3
 
@@ -144,6 +145,15 @@ def current_slot_pool() -> Optional[SlotPool]:
     return _slot_pool
 
 
+# the mean window occupancy of the last pipelined stream (None after a
+# serial one): the adaptive layout's feedback (plan/adaptive.py)
+_last_occupancy: Optional[float] = None
+
+
+def last_occupancy() -> Optional[float]:
+    return _last_occupancy
+
+
 def pipeline_depth(explicit: Optional[int] = None) -> int:
     """The in-flight block window: ``explicit`` if given, else
     ``TFT_PIPELINE_DEPTH`` (default 3), floored at 1 (depth 1 = serial).
@@ -207,6 +217,7 @@ def run_pipelined(blocks: Sequence[B],
     into a stream with the SAME tag and block count. Untagged streams
     (``None``) are still preemptible but never checkpoint.
     """
+    global _last_occupancy
     blocks = list(blocks)
     d = pipeline_depth(depth)
     trace = _obs.current_trace()
@@ -233,6 +244,7 @@ def run_pipelined(blocks: Sequence[B],
             _invariants.taint_rows(
                 f"resumed {start} restored block(s) of stream {tag!r}")
     if d <= 1 or len(blocks) - start <= 1:
+        _last_occupancy = None  # a serial run has no window to measure
         if trace is None and scope is None:
             return [serial_fn(b) for b in blocks]
         out0: List[R] = list(restored or ())
@@ -304,6 +316,7 @@ def run_pipelined(blocks: Sequence[B],
         return True
 
     pending = None
+    occ_sum = occ_n = 0
     try:
         for i in range(start, len(blocks)):
             b = blocks[i]
@@ -332,6 +345,8 @@ def run_pipelined(blocks: Sequence[B],
             window.append((pending, b, i, t1, leased))
             counters.inc("pipeline.submitted")
             gauge("pipeline.occupancy", len(window))
+            occ_sum += len(window)
+            occ_n += 1
             if trace is not None:
                 trace.add("block_submit", name=f"submit b{i}", ts=t0,
                           dur=t1 - t0, track=i % d + 1, block=i, rows=rows,
@@ -350,6 +365,8 @@ def run_pipelined(blocks: Sequence[B],
             if window.popleft()[4]:
                 pool.release()
         pending = None
+        if occ_n:
+            _last_occupancy = occ_sum / occ_n
     return out
 
 

@@ -29,12 +29,14 @@ Beyond the six ops, a frame joins another (:meth:`TensorFrame.join`, the
 
 Under an active device budget a forced frame's block cache joins the
 memory manager's host-side gauge (``memory.note_frame_cache``), and
-:meth:`TensorFrame.uncache` leaves it.
+:meth:`TensorFrame.uncache` leaves it. ``blocks()`` of a frame with a
+recorded plan asks the plan-fingerprint result cache first
+(``plan/adaptive.py``) and offers its forced result to it after;
+``uncache()`` bumps the frame's version, so a re-force is never served a
+stale entry.
 
-Not in this package yet: the plan-fingerprint result cache that the JAX
-package also hooks into ``blocks()`` (with ``plan/adaptive.py``),
-``submit`` (the serve layer), and the hot-key observations of a salted
-``daggregate`` (``hot_keys`` returns none).
+Not in this package yet: ``submit`` (the serve layer) and the hot-key
+observations of a salted ``daggregate`` (``hot_keys`` returns none).
 """
 
 from __future__ import annotations
@@ -243,6 +245,9 @@ class TensorFrame:
         # the query trace of this frame's forcing (tracing on, and not
         # nested inside another query)
         self._trace = None
+        # bumped by uncache(): the plan-fingerprint result cache keys on
+        # it, so an explicit re-force is never served a stale result
+        self._version = 0
 
     # -- construction ------------------------------------------------------
     @staticmethod
@@ -301,6 +306,21 @@ class TensorFrame:
     # -- evaluation --------------------------------------------------------
     def blocks(self) -> List[Block]:
         if self._cache is None:
+            if self._plan_node is not None:
+                # a repeated hot query (same sources at the same
+                # versions, same canonical computations) costs zero
+                # dispatches; misses and TFT_RESULT_CACHE=0 force below
+                from .plan import adaptive as _adaptive
+                hit = _adaptive.cached_result(self)
+                if hit is not None:
+                    self._cache = hit
+                    self._plan_info = [
+                        "  result   : served from the plan-fingerprint "
+                        f"result cache — {len(hit)} block(s), zero "
+                        "dispatches (TFT_RESULT_CACHE=1)"]
+                    from . import memory as _memory
+                    _memory.note_frame_cache(self)
+                    return self._cache
             from .observability import events as _obs
             from .utils import tracing
             before = tracing.timings.snapshot() if tracing.enabled() \
@@ -324,6 +344,12 @@ class TensorFrame:
             if before is not None:
                 self._spans = _span_delta(before,
                                           tracing.timings.snapshot())
+            if self._plan_node is not None:
+                # two-touch admission: interned only when this exact
+                # fingerprint repeats, never for one-off chains or
+                # per-batch stream frames
+                from .plan import adaptive as _adaptive
+                _adaptive.offer_result(self, self._cache)
             # under an active device budget the forced block cache joins
             # the host-side gauge; one global read otherwise
             from . import memory as _memory
@@ -335,6 +361,9 @@ class TensorFrame:
         thunk chain) and release it from the memory manager's host-side
         gauge. The inverse of :meth:`cache`."""
         self._cache = None
+        # re-version: interned results keyed on (or validated against)
+        # this frame can no longer hit
+        self._version += 1
         from . import memory as _memory
         _memory.forget_frame_cache(self)
         return self

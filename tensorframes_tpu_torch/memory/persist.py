@@ -23,8 +23,8 @@ Two artifact families, one directory (``TFT_PERSIST_DIR`` or
 - **results** (``<dir>/results/<fp>.res``): result blocks keyed by a
   portable plan fingerprint, so a restarted process can serve a
   zero-dispatch warm hit. The result dir is byte-budgeted
-  (``TFT_PERSIST_RESULT_BYTES``) and swept oldest-first. Its caller, the
-  adaptive result cache, is not ported yet (``ROADMAP.md`` A'-4).
+  (``TFT_PERSIST_RESULT_BYTES``) and swept oldest-first. Its caller is
+  the plan-fingerprint result cache (``plan/adaptive.py``).
 - **baselines** (``<dir>/baselines/<fp>.perf``): a performance
   sentinel's rolling per-fingerprint cost baselines, keyed by the same
   fingerprints. Tiny, so no sweep.

@@ -16,6 +16,16 @@ The launch (the sort's tile and digits, the reduction's pieces and
 levels, every grid and the scratch's layout) is planned in Python by
 :func:`plan_sort`, so the CPU tests reach it; the kernel takes the plan
 as it is and checks only its own limits.
+
+Float values reach either version through one ``torch.library`` op,
+``torch.ops.tft.segment_sum``: its implementation launches the kernel for
+a CUDA tensor and runs the plain version for a CPU one, and its fake
+kernel gives ``[num_segments, ...]`` in the values' dtype without running
+anything. So capture's fake probes of a program that calls B1 over
+closed-over CUDA tensors get its shape, and ``torch.export`` records the
+op itself (a shipped program launches the kernel wherever it is placed on
+the card). The op has no batching rule: ``torch.func.vmap`` over a
+program that calls it raises.
 """
 
 from __future__ import annotations
@@ -242,6 +252,33 @@ def segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("tft::segment_sum", mutates_args=())
+def _segment_sum_op(values: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Float ``values`` [N, ...] into ``[num_segments, ...]``: the kernel
+    for a CUDA tensor, the plain version for a CPU one."""
+    if not values.is_cuda:
+        return segment_sum_reference(values, segment_ids, num_segments)
+    tail = tuple(values.shape[1:])
+    flat = values.reshape(values.shape[0], math.prod(tail)).contiguous()
+    out = segment_sum_cuda(flat, segment_ids.contiguous(), num_segments)
+    return out.reshape((num_segments,) + tail)
+
+
+@_segment_sum_op.register_fake
+def _segment_sum_fake(values, segment_ids, num_segments):
+    return values.new_empty((num_segments,) + tuple(values.shape[1:]))
+
+
+def _segment_sum_no_vmap(info, in_dims, values, segment_ids, num_segments):
+    raise NotImplementedError(
+        "tft::segment_sum has no batching rule: call it on the whole "
+        "block (map_blocks), not under torch.func.vmap")
+
+
+_segment_sum_op.register_vmap(_segment_sum_no_vmap)
+
+
 def segment_sum(values, segment_ids, num_segments: int,
                 impl: Optional[str] = None) -> torch.Tensor:
     """Sum ``values`` rows into ``num_segments`` buckets by ``segment_ids``.
@@ -266,9 +303,6 @@ def segment_sum(values, segment_ids, num_segments: int,
                 "segment_sum impl='cuda' takes float values; integer "
                 "values take the exact plain path")
         return segment_sum_reference(values, segment_ids, num_segments)
-    if impl is None and not values.is_cuda:
-        return segment_sum_reference(values, segment_ids, num_segments)
-    tail = tuple(values.shape[1:])
-    flat = values.reshape(values.shape[0], math.prod(tail)).contiguous()
-    out = segment_sum_cuda(flat, segment_ids.contiguous(), num_segments)
-    return out.reshape((num_segments,) + tail)
+    if impl == "cuda" and not (values.is_cuda and segment_ids.is_cuda):
+        raise ValueError("segment_sum impl='cuda' takes CUDA tensors")
+    return torch.ops.tft.segment_sum(values, segment_ids, num_segments)

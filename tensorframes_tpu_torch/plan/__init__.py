@@ -23,13 +23,17 @@ semantics:
   (:meth:`~.nodes.PlanNode.estimate`) for unforced frames
   (``memory.estimate.frame_estimate``).
 
+- execution feeds measurement back into the plan (:mod:`.adaptive`):
+  feedback-driven re-bucketing of row-local chains, filter re-ordering,
+  mid-plan re-plans and the plan-fingerprint result cache
+  (``TFT_ADAPTIVE``, ``TFT_RESULT_CACHE``, both on by default).
+
 Counters (``utils/tracing.counters``): ``plan.fused_queries``,
 ``plan.oom_fallbacks``, ``plan.pushdown_groups_skipped``,
-``plan.pushdown_bytes_skipped``; span ``plan.execute``.
+``plan.pushdown_bytes_skipped``, ``plan.adaptive_*``, ``plan.replans``,
+``plan.filter_reorders``, ``plan.result_cache_*``; span ``plan.execute``.
 
-Not in this package yet: ``plan/adaptive.py`` (feedback-driven
-re-bucketing, filter re-ordering, mid-plan re-plans and the
-plan-fingerprint result cache) and ``plan/dist.py``.
+Not in this package yet: ``plan/dist.py``.
 """
 
 from __future__ import annotations
@@ -39,9 +43,11 @@ from .nodes import (FilterNode, MapBlocksNode, MapRowsNode, ParquetScanNode,
                     observed_selectivity, record_selectivity)
 from .optimize import enabled
 from .execute import maybe_run
+from . import adaptive
 
 __all__ = [
     "PlanNode", "SourceNode", "ParquetScanNode", "MapBlocksNode",
     "MapRowsNode", "FilterNode", "SelectNode", "attach", "node_for",
     "enabled", "maybe_run", "record_selectivity", "observed_selectivity",
+    "adaptive",
 ]

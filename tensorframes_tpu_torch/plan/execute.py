@@ -42,18 +42,28 @@ execution contract (what makes fused == unfused bit-identical):
   row-conservation ledger of ``resilience/invariants.py``: rows in ==
   rows out + rows its filters masked out.
 
-Left out, against the JAX package: the adaptive layout (re-bucketed
-streams and mid-plan re-plans); the port runs the static layout, which is
-what ``TFT_ADAPTIVE=0`` gives there.
+With ``TFT_ADAPTIVE`` on (the default), a row-local chain outside a
+preemption scope may run a re-bucketed layout (``plan/adaptive.py``'s
+``choose_layout``, fed by the feedback every forcing records): coalesced
+or split units stream through the same stages, an int32 vector of each
+row's original block rides through every mask, and the outputs are
+re-split on the original boundaries (:func:`_restore_layout`), so the
+result is bit-identical to the static layout, boundaries included. After
+the first unit, a filter whose observed selectivity strays past
+``TFT_REPLAN_RATIO`` from what the plan priced re-plans the remaining
+units (:func:`_should_replan`, ``plan.replans``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..engine import preempt as _preempt
 from ..engine.executor import default_executor, to_host, to_storage_dtype
 from ..observability import flight as _flight
 from ..resilience import faults as _faults
@@ -107,7 +117,7 @@ def maybe_run(frame) -> Optional[List]:
                     return None
     try:
         with span("plan.execute"):
-            blocks = _run(plan, leaf_blocks)
+            blocks = _run(plan, leaf_blocks, frame)
     except Exception as e:
         if not is_oom(e):
             raise
@@ -201,11 +211,22 @@ def _final_block(plan: ExecPlan, env: Dict[str, object], n_rows: int):
 # stage execution
 # ---------------------------------------------------------------------------
 
-def _apply_stage_result(plan, st, env, out, n_rows):
+def _mask_counts(counts: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """The rows of each consecutive piece of ``counts`` rows that
+    ``mask`` keeps."""
+    bounds = np.concatenate(([0], np.cumsum(counts)))
+    return np.array([np.count_nonzero(mask[lo:hi])
+                     for lo, hi in zip(bounds[:-1], bounds[1:])], np.int64)
+
+
+def _apply_stage_result(plan, st, env, out, n_rows, aux=None):
     """Merge a stage's outputs into a fresh env; apply the mask. Returns
-    ``(env, n_rows, short_circuit_block)`` — the block is non-None when
-    the mask dropped every row and the rest of the chain replays the
-    empty-block semantics."""
+    ``(env, n_rows, short_circuit_block, aux)`` — the block is non-None
+    when the mask dropped every row and the rest of the chain replays the
+    empty-block semantics. ``aux`` is the adaptive layout's rows per
+    original block (:func:`_mask_counts`), counted through each mask so
+    the final outputs can be re-split on the original block boundaries;
+    ``None`` (the static layout) passes through."""
     new_env = {n: env[n] for n in st.passthrough}
     new_env.update({n: out[n] for n in st.outputs})
     if st.mask:
@@ -229,15 +250,19 @@ def _apply_stage_result(plan, st, env, out, n_rows):
             empty = {k: _mask_value(v, mask, dev_mask)
                      for k, v in new_env.items()}
             bb = _env_to_block(empty, st.boundary_schema, 0)
-            return None, 0, _empty_chain(plan.ops[st.op_end + 1:], bb)
+            if aux is not None:
+                aux = np.zeros_like(aux)
+            return None, 0, _empty_chain(plan.ops[st.op_end + 1:], bb), aux
         # compare against the MASK length, not the stage-input row
         # count: a trim member inside the stage may have changed the
         # row count before the predicate ran
         if keep != mask.size:
             new_env = {k: _mask_value(v, mask, dev_mask)
                        for k, v in new_env.items()}
+            if aux is not None:
+                aux = _mask_counts(aux, mask)
         n_rows = keep
-    return new_env, n_rows, None
+    return new_env, n_rows, None, aux
 
 
 def _stage_executor(st, first: bool = True):
@@ -252,18 +277,19 @@ def _stage_executor(st, first: bool = True):
 
 
 def _run_rest(plan: ExecPlan, env: Dict[str, object], n_rows: int,
-              start: int):
+              start: int, aux=None):
     """Stages ``start..`` over an env, device-resident between stages.
-    Returns the final block."""
+    Returns ``(final block, aux)``."""
     for si in range(start, len(plan.stages)):
         st = plan.stages[si]
         ex, row_local = _stage_executor(st, first=si == 0)
         out = ex.run(st.comp, {n: env[n] for n in st.inputs},
                      row_local=row_local, keep_device=True)
-        env, n_rows, short = _apply_stage_result(plan, st, env, out, n_rows)
+        env, n_rows, short, aux = _apply_stage_result(plan, st, env, out,
+                                                      n_rows, aux)
         if short is not None:
-            return short
-    return _final_block(plan, env, n_rows)
+            return short, aux
+    return _final_block(plan, env, n_rows), aux
 
 
 def _full_leaf_empty(plan: ExecPlan, b):
@@ -282,14 +308,17 @@ def _full_leaf_empty(plan: ExecPlan, b):
 
 def _plan_tag(plan: ExecPlan) -> str:
     """Stable stream identity of a plan shape: preemption checkpoints key
-    on it."""
+    on it, and the adaptive feedback registry correlates repeated
+    forcings of the same chain by it."""
     return (f"plan[{plan.leaf.describe()};"
             f"{','.join(o.kind for o in plan.ops)};"
             f"{sorted(plan.leaf_required)}]"
             f"({plan.final_schema.names})")
 
 
-def _run(plan: ExecPlan, leaf_blocks) -> List:
+def _run(plan: ExecPlan, leaf_blocks, frame=None) -> List:
+    from ..engine import pipeline as _pipeline
+    from . import adaptive as _adaptive
     if not plan.stages:
         # pure projection over a pruned scan: no device work at all
         out = []
@@ -301,23 +330,42 @@ def _run(plan: ExecPlan, leaf_blocks) -> List:
                 env = {n: b.columns[n] for n in plan.leaf_required}
                 out.append(_final_block(plan, env, b.num_rows))
         return out
+    tag = _plan_tag(plan)
+    layout = None
+    if _adaptive.enabled() and plan.row_local_chain \
+            and _preempt.current_scope() is None and leaf_blocks:
+        # re-bucket the stream to TFT_PIPELINE_DEPTH full slots within
+        # the ledger's headroom; outputs are re-split on the original
+        # block boundaries. Not under a preemption scope, whose
+        # checkpoint tags pin the block count
+        layout = _adaptive.choose_layout(
+            plan, leaf_blocks, _pipeline.pipeline_depth(None), tag)
+    t0 = time.perf_counter()
     # the perf drill's slowdown lands inside the timed forcing
     _faults.slowdown("perf")
-    if not plan.row_local_chain:
-        return _run_static(plan, leaf_blocks)
+    rows_in = sum(b.num_rows for b in leaf_blocks)
     # per-query row conservation (resilience/invariants.py): a row-local
     # chain only ever drops rows through filter masks, so rows in == rows
     # out + rows filtered must balance exactly; a preemption resume
     # taints the ledger instead (the restored prefix's filter counts
     # belong to the prior attempt)
-    with _invariants.row_ledger(sum(b.num_rows for b in leaf_blocks),
-                                _plan_tag(plan)):
-        out = _run_static(plan, leaf_blocks)
-        _invariants.note_emitted(sum(b.num_rows for b in out))
+    ledger = (_invariants.row_ledger(rows_in, tag)
+              if plan.row_local_chain else contextlib.nullcontext())
+    with ledger:
+        if layout is not None:
+            out = _run_adaptive(plan, layout, frame)
+        else:
+            out = _run_static(plan, leaf_blocks, tag)
+        if plan.row_local_chain:
+            _invariants.note_emitted(sum(b.num_rows for b in out))
+    _adaptive.record_stream_feedback(
+        tag, blocks=len(leaf_blocks), rows=rows_in,
+        wall_s=time.perf_counter() - t0,
+        occupancy=_pipeline.last_occupancy())
     return out
 
 
-def _run_static(plan: ExecPlan, leaf_blocks) -> List:
+def _run_static(plan: ExecPlan, leaf_blocks, tag: str) -> List:
     from ..engine import pipeline as _pipeline
     from ..frame import Block
     # the FIRST stage pipelines through the executor's async submit /
@@ -331,12 +379,12 @@ def _run_static(plan: ExecPlan, leaf_blocks) -> List:
 
     def finish(b, out) -> Block:
         env = {n: b.columns[n] for n in st0.passthrough}
-        env, n_rows, short = _apply_stage_result(plan, st0, env, out,
-                                                 b.num_rows)
+        env, n_rows, short, _ = _apply_stage_result(plan, st0, env, out,
+                                                    b.num_rows)
         if short is not None:
             return short
         if multi:
-            return _run_rest(plan, env, n_rows, 1)
+            return _run_rest(plan, env, n_rows, 1)[0]
         return _final_block(plan, env, n_rows)
 
     def serial_fn(b):
@@ -365,4 +413,197 @@ def _run_static(plan: ExecPlan, leaf_blocks) -> List:
     return _pipeline.run_pipelined(leaf_blocks, serial_fn, submit_fn,
                                    drain_fn,
                                    depth=_pipeline.stream_depth(ex0),
-                                   executor=ex0, tag=_plan_tag(plan))
+                                   executor=ex0, tag=tag)
+
+
+# ---------------------------------------------------------------------------
+# adaptive layout: re-bucketed stream + restore
+# ---------------------------------------------------------------------------
+
+def _pinned_concat(cols) -> Optional[torch.Tensor]:
+    """``np.concatenate(cols)`` written once into page-locked host memory,
+    or ``None`` where the columns are not one dense array type (ragged
+    cells, a dtype torch cannot hold)."""
+    if not all(isinstance(c, np.ndarray) for c in cols) or \
+            len({(c.dtype, c.shape[1:]) for c in cols}) != 1:
+        return None
+    try:
+        dtype = torch.from_numpy(np.empty(0, cols[0].dtype)).dtype
+    except TypeError:
+        return None
+    buf = torch.empty((sum(len(c) for c in cols),) + cols[0].shape[1:],
+                      dtype=dtype, pin_memory=True)
+    np.concatenate(cols, out=buf.numpy())
+    return buf
+
+
+def _stage_unit(layout, unit, names, pin: bool) -> Dict[str, object]:
+    """Columns ``names`` of a layout unit: a lone block's own arrays (no
+    copy), else the unit's blocks merged now, when the unit is
+    dispatched, with :meth:`Block.concat`'s semantics. For the card the
+    merge writes straight into pinned host memory, which the executor
+    copies to the card as it is: the static stream stages every block
+    through pinned memory too, so coalescing adds no host copy."""
+    from ..frame import Block
+    blocks = unit[0]
+    if len(blocks) == 1:
+        return {n: blocks[0].columns[n] for n in names}
+    out: Dict[str, object] = {}
+    rest = []
+    for n in names:
+        staged = _pinned_concat([b.columns[n] for b in blocks]) \
+            if pin else None
+        if staged is None:
+            rest.append(n)
+        else:
+            out[n] = staged
+    if rest:
+        out.update(Block.concat(blocks, layout.schema.select(rest)).columns)
+    return out
+
+
+def _unit_fns(plan: ExecPlan, layout):
+    """serial/submit/drain halves over the layout's units ``(blocks,
+    counts, orig_list)``; results are ``(final block, surviving counts)``
+    pairs. Units are never empty (0-row originals are left
+    out of the layout and replayed verbatim at restore)."""
+    st0 = plan.stages[0]
+    ex0, local0 = _stage_executor(st0, first=True)
+    multi = len(plan.stages) > 1
+    pin = ex0.resolve().type == "cuda"
+
+    def finish(unit, out):
+        blocks, counts, _ = unit
+        env = _stage_unit(layout, unit, st0.passthrough, pin=False)
+        env, n_rows, short, counts = _apply_stage_result(
+            plan, st0, env, out, int(counts.sum()), counts)
+        if short is not None:
+            return short, counts
+        if multi:
+            return _run_rest(plan, env, n_rows, 1, counts)
+        return _final_block(plan, env, n_rows), counts
+
+    def serial_fn(unit):
+        out = ex0.run(st0.comp, _stage_unit(layout, unit, st0.inputs, pin),
+                      row_local=local0, keep_device=multi)
+        return finish(unit, out)
+
+    def submit_fn(unit):
+        return ex0.submit(st0.comp,
+                          _stage_unit(layout, unit, st0.inputs, pin),
+                          row_local=local0, keep_device=multi)
+
+    def drain_fn(pending, unit):
+        return finish(unit, pending.drain())
+
+    return serial_fn, submit_fn, drain_fn, ex0
+
+
+def _should_replan(plan: ExecPlan):
+    """The worst ``(priced, observed)`` selectivity pair deviating past
+    ``TFT_REPLAN_RATIO``, or ``None`` (the plan is still priced right):
+    what the plan believed against what the blocks showed."""
+    from . import adaptive as _adaptive
+    from .nodes import observed_selectivity
+    ratio = _adaptive.replan_ratio()
+    worst = None
+    worst_dev = ratio
+    for i, sel0 in plan.priced_sel.items():
+        cur = observed_selectivity(plan.ops[i].comp)
+        if cur is None:
+            continue
+        a = max(sel0 if sel0 is not None else 1.0, 1e-6)
+        b = max(cur, 1e-6)
+        dev = max(a, b) / min(a, b)
+        if dev > worst_dev:
+            worst_dev = dev
+            worst = (a, b)
+    return worst
+
+
+def _run_adaptive(plan: ExecPlan, layout, frame) -> List:
+    from ..engine import pipeline as _pipeline
+    from ..observability.events import add_event
+    from . import adaptive as _adaptive
+    serial_fn, submit_fn, drain_fn, ex0 = _unit_fns(plan, layout)
+    units = layout.units
+    add_event("adaptive_layout", name=plan.leaf.describe(),
+              blocks=layout.n_orig, units=len(units),
+              coalesced=layout.coalesced_from, splits=layout.splits)
+    _flight.record("plan.adaptive_layout", blocks=layout.n_orig,
+                   units=len(units), coalesced=layout.coalesced_from,
+                   splits=layout.splits,
+                   depth=_pipeline.pipeline_depth(None))
+    # the first unit runs alone: its observed selectivities are the
+    # re-plan trigger for the remaining units (a mid-plan boundary, not
+    # a new forcing)
+    outs = [serial_fn(units[0])]
+    rest_plan = plan
+    deviation = (_should_replan(plan)
+                 if len(units) > 1 and frame is not None else None)
+    if deviation is not None:
+        try:
+            new_plan = build_plan(frame)
+        except Exception as e:  # noqa: BLE001 - a re-plan is best-effort
+            _log.debug("mid-plan replan failed (%s); keeping the current "
+                       "plan", e)
+            new_plan = None
+        # adopt the re-planned stages only when they are shape-safe (same
+        # read set, still row-local) AND actually different
+        if new_plan is not None and new_plan.row_local_chain \
+                and new_plan.leaf_required == plan.leaf_required \
+                and [id(o.comp) for o in new_plan.ops
+                     if o.kind != "select"] \
+                != [id(o.comp) for o in plan.ops if o.kind != "select"]:
+            rest_plan = new_plan
+            counters.inc("plan.replans")
+            add_event("replan", name=plan.leaf.describe(),
+                      at_block=int(len(units[0][2])))
+            _flight.record("plan.replan", at_block=int(len(units[0][2])),
+                           priced=round(deviation[0], 6),
+                           observed=round(deviation[1], 6),
+                           ratio=_adaptive.replan_ratio())
+            _log.info("mid-plan replan: observed selectivity deviated "
+                      "past TFT_REPLAN_RATIO; re-ordered the remaining "
+                      "filter stages")
+            serial_fn, submit_fn, drain_fn, ex0 = _unit_fns(rest_plan,
+                                                             layout)
+    outs.extend(_pipeline.run_pipelined(
+        units[1:], serial_fn, submit_fn, drain_fn,
+        depth=_pipeline.stream_depth(ex0), executor=ex0, tag=None))
+    return _restore_layout(rest_plan, layout, outs)
+
+
+def _slice_final(block, lo: int, hi: int):
+    from ..frame import Block
+    from .adaptive import _slice_cols
+    return Block(_slice_cols(block, list(block.columns), lo, hi), hi - lo)
+
+
+def _restore_layout(plan: ExecPlan, layout, outs) -> List:
+    """Re-split the adaptive units' outputs on the ORIGINAL block
+    boundaries (each piece's surviving row count came through every
+    mask) and splice the empty originals' empty-chain replays back in:
+    the result is bit-identical to the static layout, boundaries
+    included. An original whose rows were all filtered out gets a 0-row
+    slice of its unit's (final-schema) output, which carries the dtypes
+    and cell dims the static path produces."""
+    from ..frame import Block
+    per: List[List] = [[] for _ in range(layout.n_orig)]
+    for (blk, counts), (_, _, orig_list) in zip(outs, layout.units):
+        bounds = np.concatenate(([0], np.cumsum(counts)))
+        for oid, lo, hi in zip(orig_list, bounds[:-1], bounds[1:]):
+            per[oid].append(_slice_final(blk, int(lo), int(hi)))
+    out: List = []
+    empties = dict(layout.empty_blocks)
+    for i in range(layout.n_orig):
+        if i in empties:
+            out.append(_empty_chain(plan.ops,
+                                    _full_leaf_empty(plan, empties[i])))
+        elif len(per[i]) == 1:
+            out.append(per[i][0])
+        else:
+            # a split original: its sub-units' outputs stitched back with
+            # the one canonical concat (frame.Block.concat)
+            out.append(Block.concat(per[i], plan.final_schema))
+    return out

@@ -39,10 +39,11 @@ forcing: eager PyTorch compiles nothing per program, so the JAX package's
 structural cache of composed programs (which saves XLA recompiles) has
 nothing to save here.
 
-Not in this package yet: the adaptive pass of the JAX package
-(``plan/adaptive.py``), whose filter re-ordering by observed selectivity
-runs in ``build_plan`` there; the port builds the static plan that
-``TFT_ADAPTIVE=0`` gives in the JAX package.
+With ``TFT_ADAPTIVE`` on (the default, ``plan/adaptive.py``), runs of
+adjacent atom-proven filters are re-ordered most-selective-first by
+their observed selectivity (:func:`_reorder_filters`), and each plan
+records the selectivity it priced every filter at (``priced_sel``), the
+executor's mid-plan re-plan baseline.
 """
 
 from __future__ import annotations
@@ -260,11 +261,11 @@ class ExecPlan:
 
     __slots__ = ("leaf", "ops", "stages", "final_schema", "leaf_required",
                  "scan_names", "device_ops", "pruned", "scan_atoms",
-                 "row_local_chain")
+                 "row_local_chain", "priced_sel", "reordered")
 
     def __init__(self, leaf, ops, stages, final_schema, leaf_required,
                  scan_names, device_ops, pruned, scan_atoms=(),
-                 row_local_chain=False):
+                 row_local_chain=False, priced_sel=None, reordered=False):
         self.leaf = leaf
         self.ops = ops
         self.stages = stages
@@ -277,8 +278,14 @@ class ExecPlan:
         # every op provably row-local (vmapped map_rows, selects,
         # atom-proven filter predicates): rows only ever leave through
         # filter masks, so the executor audits rows in == rows out + rows
-        # filtered (resilience/invariants.row_ledger)
+        # filtered (resilience/invariants.row_ledger), and the adaptive
+        # layout may re-bucket the leaf stream (plan/adaptive.py)
         self.row_local_chain = row_local_chain
+        # the selectivity each filter op was PRICED at when this plan was
+        # built (None = the keeps-everything upper bound); the executor
+        # compares observations against these to trigger a re-plan
+        self.priced_sel = priced_sel or {}
+        self.reordered = reordered  # filter run re-ordered by feedback
 
     def describe(self) -> List[str]:
         """``explain()``'s plan section: fused groups, pruned columns,
@@ -301,6 +308,10 @@ class ExecPlan:
             lines.append(
                 f"    pushdown: [{preds}] checked against row-group "
                 f"footer statistics (refuted groups never read)")
+        if self.reordered:
+            lines.append(
+                "    adaptive: conjunctive filters re-ordered by "
+                "observed selectivity (TFT_ADAPTIVE=1)")
         for i, st in enumerate(self.stages):
             edge = ("host rows" if i == 0 else "device-resident")
             mask_s = " · mask applied host-side" if st.mask else ""
@@ -308,6 +319,57 @@ class ExecPlan:
                 f"    stage {i}: {st.label} -> 1 dispatch/block "
                 f"(in: {edge}){mask_s}")
         return lines
+
+
+def _atom_filter(comp) -> bool:
+    """True when the predicate's sole output is PROVEN a conjunction of
+    column-vs-literal comparisons (:mod:`.predicates`), so the predicate
+    is row-local: its mask row depends only on that row."""
+    from .predicates import extract_atoms
+    return bool(extract_atoms(comp))
+
+
+def _reorder_filters(ops):
+    """Runs of ADJACENT filters whose predicates are all atom-proven
+    (row-local, so they commute: same final row set, same order, same
+    block boundaries) re-order most-selective-first by observed
+    selectivity, so later filter dispatches see fewer rows. Unobserved
+    predicates price at the keeps-everything upper bound and keep their
+    position (stable sort). Returns ``(ops, reordered)``."""
+    from .adaptive import enabled as _adaptive_on
+    if not _adaptive_on():
+        return ops, False
+    out = list(ops)
+    changed = False
+    i = 0
+    while i < len(out):
+        if out[i].kind != "filter" or not _atom_filter(out[i].comp):
+            i += 1
+            continue
+        j = i
+        while j < len(out) and out[j].kind == "filter" \
+                and _atom_filter(out[j].comp):
+            j += 1
+        if j - i > 1:
+            run = out[i:j]
+            sels = [_n.observed_selectivity(o.comp) for o in run]
+            if any(s is not None for s in sels):
+                order = sorted(range(len(run)),
+                               key=lambda k: (sels[k] if sels[k]
+                                              is not None else 1.0, k))
+                if order != list(range(len(run))):
+                    out[i:j] = [run[k] for k in order]
+                    changed = True
+                    from ..observability import flight as _flight
+                    _flight.record(
+                        "plan.filter_reorder", order=order,
+                        selectivities=[round(s, 6) if s is not None
+                                       else None for s in sels])
+        i = j
+    if changed:
+        from ..utils.tracing import counters
+        counters.inc("plan.filter_reorders")
+    return out, changed
 
 
 def build_plan(frame) -> Optional[ExecPlan]:
@@ -336,6 +398,10 @@ def build_plan(frame) -> Optional[ExecPlan]:
         return None  # nothing to win; per-op semantics stay canonical
     if MASK in leaf.schema or any(MASK in o.schema for o in ops):
         return None
+    # adaptive re-plan: observed-selective conjunctive filters first, at
+    # every forcing and between stream batches (each batch builds a fresh
+    # plan over the shared computations that carry the observations)
+    ops, reordered = _reorder_filters(ops)
 
     # legality: every device op must carry a proof, or the chain falls
     # back wholesale (all-or-nothing keeps error contracts identical)
@@ -478,14 +544,16 @@ def build_plan(frame) -> Optional[ExecPlan]:
             return None
     pruned = tuple(f.name for f in leaf.schema if f.name not in need) \
         if prunable_leaf else ()
-    from .predicates import extract_atoms
     row_local_chain = bool(stages) and all(
         o.kind in ("map_rows", "select")
-        or (o.kind == "filter" and bool(extract_atoms(o.comp)))
+        or (o.kind == "filter" and _atom_filter(o.comp))
         for o in ops)
+    priced_sel = {i: _n.observed_selectivity(o.comp)
+                  for i, o in enumerate(ops) if o.kind == "filter"}
     return ExecPlan(leaf, list(ops), stages, final_schema, leaf_required,
                     frozenset(scan_names), device_ops, pruned,
-                    _scan_atoms(leaf, ops), row_local_chain=row_local_chain)
+                    _scan_atoms(leaf, ops), row_local_chain=row_local_chain,
+                    priced_sel=priced_sel, reordered=reordered)
 
 
 def _scan_atoms(leaf, ops):

@@ -40,9 +40,13 @@ in ``resilience.invariants.audit("stream.batch")``, so a leaked slot
 lease or an unbalanced ledger names the batch that caused it, and batch
 boundaries invite a timeline sample.
 
-Not in this package yet: ``batch_rows="adaptive"`` (the runtime-feedback
-batcher of ``plan/adaptive.py``, ``ROADMAP.md`` A'-4) raises
-``NotImplementedError``; the durable query history's records of skipped
+``batch_rows="adaptive"`` sizes batches by runtime feedback
+(``plan/adaptive.py``'s ``AdaptiveBatcher``: AIMD over each executed
+batch's wall, within the ledger's per-block ceiling); an int pins a row
+target; ``None`` is one source block per batch. ``TFT_ADAPTIVE=0`` turns
+both coalescing modes off.
+
+Not in this package yet: the durable query history's records of skipped
 and emitting batches (``TFT_HISTORY_DIR``, A11) make the handle raise
 ``NotImplementedError`` when that knob is set.
 """
@@ -171,17 +175,22 @@ class StreamHandle:
                 "TFT_HISTORY_DIR is set, and the durable query history a "
                 "stream records its skipped and emitting batches in "
                 "(ROADMAP.md A11) is not in tensorframes_tpu_torch yet")
-        # batch sizing: an int coalesces already-available source blocks
-        # up to a fixed row target; None (the default) processes one
-        # source block per batch. TFT_ADAPTIVE=0 turns coalescing off.
+        # batch sizing: "adaptive" sizes batches from runtime feedback
+        # (AIMD over the measured batch wall inside the ledger ceiling);
+        # an int coalesces already-available source blocks up to a fixed
+        # row target; None (the default) processes one source block per
+        # batch. TFT_ADAPTIVE=0 turns coalescing off.
+        self._batcher = None
         self._fixed_rows: Optional[int] = None
         if batch_rows == "adaptive":
-            raise NotImplementedError(
-                "batch_rows='adaptive' sizes batches through the "
-                "runtime-feedback batcher of plan/adaptive.py (ROADMAP.md "
-                "A'-4), which tensorframes_tpu_torch does not have yet; "
-                "pass an int row target or None")
-        if batch_rows is not None:
+            from ..memory.estimate import schema_row_bytes
+            try:
+                rb = max(int(schema_row_bytes(sframe.source.schema)), 1)
+            except Exception:  # noqa: BLE001 - a sizing hint only
+                rb = 8
+            from ..plan.adaptive import AdaptiveBatcher
+            self._batcher = AdaptiveBatcher(row_bytes=rb)
+        elif batch_rows is not None:
             self._fixed_rows = max(int(batch_rows), 1)
         cap = (max_buffered if max_buffered is not None
                else env_int("TFT_STREAM_BUFFER", 1024))
@@ -245,22 +254,31 @@ class StreamHandle:
             if self._sframe.source.done():
                 self._finalize()
             return False
-        if self._fixed_rows is not None:
+        if self._batcher is not None or self._fixed_rows is not None:
             block = self._fill_batch(block)
+        processed_before = self._batches
         self._process(block)
         # batch-boundary quiesce point (resilience/invariants.py):
         # between batches every lease is back in the pool and the
         # ledger balances; catching a leak HERE names the batch that
         # caused it instead of whichever query closes last
         _invariants.audit("stream.batch")
+        if self._batcher is not None and self._last_batch_s is not None \
+                and self._batches > processed_before:
+            # only a batch that EXECUTED feeds the sizer: a skipped batch
+            # leaves _last_batch_s at the prior batch's wall
+            self._batcher.observe(block.num_rows, self._last_batch_s)
         return True
 
     def _batch_target(self, buffered_rows: int) -> bool:
         """Keep filling the current batch? ``TFT_ADAPTIVE=0`` keeps one
         source block per batch, as the JAX package's gate does."""
-        if not env_bool("TFT_ADAPTIVE", True):
+        from ..plan import adaptive as _adaptive
+        if not _adaptive.enabled():
             return False
-        return buffered_rows < self._fixed_rows
+        if self._fixed_rows is not None:
+            return buffered_rows < self._fixed_rows
+        return self._batcher.want_more(buffered_rows)
 
     def _fill_batch(self, first):
         """Coalesce already-available source blocks up to the row

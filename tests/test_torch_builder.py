@@ -193,6 +193,57 @@ def test_zero_and_one_row_direct_calls():
         {"w": (0,), "z": (0,)}
 
 
+@pytest.mark.parametrize("x", [
+    np.arange(3), np.arange(3.0, dtype=np.float32), np.ones((3, 2))],
+    ids=["int64", "float32", "rank2"])
+def test_direct_call_checks_inputs_against_the_signature(x):
+    """A program declared ``double[?] -> double[?]`` called with int64,
+    float32 or a (3, 2) ``x``: both packages raise the same ``ValueError``
+    (the port used to answer in f32, compute in f32, or return (3, 2))."""
+    jc, tc = _pair(lambda x: {"z": x + 1.0}, lambda x: {"z": x + 1.0},
+                   x=("double", (Unknown,)))
+    with pytest.raises(ValueError) as je:
+        jc({"x": x})
+    with pytest.raises(ValueError) as te:
+        tc({"x": torch.from_numpy(x)})
+    assert str(te.value) == str(je.value)
+    assert str(te.value).startswith(
+        "Rank mismatch for args[0]: expected (_n,) and called with (3, 2)"
+        if x.ndim == 2 else
+        f"Dtype mismatch for args[0]: expected float64 and called with "
+        f"{x.dtype}")
+
+
+def test_direct_call_checks_fixed_dims_of_a_later_argument():
+    jc, tc = _pair(lambda x, y: {"z": x + y.sum(1)},
+                   lambda x, y: {"z": x + y.sum(1)},
+                   x=("double", (Unknown,)), y=("double", (Unknown, 3)))
+    x, y = np.ones(3), np.ones((3, 2))
+    with pytest.raises(ValueError) as je:
+        jc({"x": x, "y": y})
+    with pytest.raises(ValueError) as te:
+        tc({"x": torch.from_numpy(x), "y": torch.from_numpy(y)})
+    assert str(te.value) == str(je.value) == (
+        "Shape mismatch for args[1].shape[1] (expected same constant): "
+        "expected (_n, 3) and called with (3, 2)")
+
+
+def test_deserialize_rejects_a_corrupt_archive():
+    """A blob with the port's magic and a valid header followed by
+    garbage raises ``ValueError`` in ``deserialize``, as the JAX package's
+    does, not at the first call."""
+    _, ts = _specs(x=("double", (Unknown,)))
+    blob = Computation.trace(lambda x: {"z": x + 1.0}, ts).serialize()
+    (hlen,) = struct.unpack_from("<I", blob, 9)
+    head = blob[:9 + 4 + hlen]
+    garbage = np.random.default_rng(0).integers(
+        0, 256, len(blob) - len(head), dtype=np.uint8).tobytes()
+    with pytest.raises(ValueError, match="Corrupt serialized computation"):
+        Computation.deserialize(head + garbage)
+    with pytest.raises(ValueError, match="Corrupt serialized computation"):
+        Computation.deserialize(head + b"PK\x03\x04" + garbage[4:])
+
+
 # -- analysis of deserialized programs ----------------------------------------
 
 def _summaries(s):

@@ -959,3 +959,131 @@ def test_interner_prepares_one_program_on_the_card(cuda):
     assert ex.compile_count == 2
     for z in outs:
         np.testing.assert_array_equal(z, x * 3.0)
+
+
+# ---------------------------------------------------------------------------
+# the segmented fold, k-means variant B's capture and B1's torch.library op
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=str)
+def test_segmented_fold_on_the_card_matches_the_cpu(cuda, dtype):
+    """The computation form of ``aggregate`` folds on the card and agrees
+    with the port's CPU result (f64 rtol 1e-12, f32 rtol 1e-5: the same
+    scan tree, rounded by each device)."""
+    from tensorframes_tpu_torch.engine.executor import BlockExecutor
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    rng = np.random.default_rng(12)
+    n = 400_000
+    df = ttf.frame({"k": rng.integers(0, 1024, n),
+                    "v": rng.standard_normal(n).astype(dtype)},
+                   num_partitions=4)
+    fn = lambda v_input: {"v": torch.sqrt((v_input ** 2).sum(0))}  # noqa
+    c0 = counters.get("aggregate.fold_calls")
+    card = ttf.aggregate(fn, df.group_by("k")).blocks()[0].columns
+    assert counters.get("aggregate.fold_calls") > c0
+    cpu = ttf.aggregate(fn, df.group_by("k"),
+                        executor=BlockExecutor("cpu")).blocks()[0].columns
+    np.testing.assert_array_equal(card["k"], cpu["k"])
+    assert card["v"].dtype == cpu["v"].dtype == dtype
+    np.testing.assert_allclose(card["v"], cpu["v"],
+                               rtol=1e-12 if dtype == np.float64 else 1e-5)
+
+
+def test_capture_of_kmeans_variant_b_over_cuda_centers(cuda):
+    """Variant B's program closes over centers on the card and calls
+    segment_sum twice: capture settles on fake probes (B1's fake kernel)
+    without launching, and the map_blocks launches B1 twice per block."""
+    from tensorframes_tpu_torch.computation import Computation, TensorSpec
+    from tensorframes_tpu_torch.demos import kmeans
+    from tensorframes_tpu_torch.shape import Shape, Unknown
+
+    df, init, _ = kmeans.make_data(n=20_000, num_features=8, k=16,
+                                   num_partitions=4)
+    before = segment_reduce.launches
+    comp = Computation.trace(
+        kmeans._preagg_computation(init),
+        [TensorSpec("features", ttf.dtypes.double, Shape(Unknown, 8))])
+    assert segment_reduce.launches == before  # capture launched nothing
+    assert [(s.name, tuple(s.shape.dims)) for s in comp.outputs] == [
+        ("agg_counts", (1, 16)), ("agg_distances", (1,)),
+        ("agg_points", (1, 16, 8))]
+    got_c, got_d = kmeans.step_preaggregate(df, init)
+    assert segment_reduce.launches - before == 8
+    pts = np.concatenate([b.dense("features") for b in df.blocks()])
+    d = ((pts[:, None, :] - init[None]) ** 2).sum(-1)
+    idx = d.argmin(1)
+    want = np.stack([pts[idx == j].mean(0) if (idx == j).any() else init[j]
+                     for j in range(16)])
+    np.testing.assert_allclose(got_c, want, rtol=1e-9)
+    assert got_d == pytest.approx(float(d.min(1).sum()), rel=1e-9)
+
+
+def test_segment_sum_op_fake_kernel_and_dispatch(cuda):
+    """``torch.ops.tft.segment_sum``: its fake kernel gives [S, ...] in the
+    values' dtype on fake CUDA tensors and launches nothing; on real CUDA
+    tensors it launches the kernel once."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    before = segment_reduce.launches
+    with FakeTensorMode():
+        v = torch.empty(1000, 3, dtype=torch.float64, device=cuda)
+        ids = torch.empty(1000, dtype=torch.int32, device=cuda)
+        out = torch.ops.tft.segment_sum(v, ids, 17)
+        assert tuple(out.shape) == (17, 3) and out.dtype == torch.float64
+        assert out.device.type == "cuda"
+    assert segment_reduce.launches == before
+    v = torch.randn(1000, 3, dtype=torch.float64, device=cuda)
+    ids = torch.randint(0, 17, (1000,), device=cuda)
+    got = torch.ops.tft.segment_sum(v, ids, 17)
+    assert segment_reduce.launches == before + 1
+    torch.testing.assert_close(
+        got, segment_reduce.segment_sum_reference(v, ids, 17),
+        rtol=1e-12, atol=0)
+
+
+def test_adaptive_layout_on_the_card_stages_pinned_units(cuda, monkeypatch):
+    """The re-bucketed layout on the card: each coalesced unit is merged
+    once into pinned host memory when it is dispatched, and the chain's
+    blocks stay bit-identical to the static layout's, boundaries
+    included."""
+    from tensorframes_tpu_torch.plan import adaptive, execute
+    from tensorframes_tpu_torch.utils.tracing import counters
+    monkeypatch.setenv("TFT_RESULT_CACHE", "0")
+    monkeypatch.delenv("TFT_ADAPTIVE", raising=False)
+    staged = []
+    real = execute._pinned_concat
+
+    def spy(cols):
+        buf = real(cols)
+        staged.append(buf)
+        return buf
+
+    monkeypatch.setattr(execute, "_pinned_concat", spy)
+    x = np.random.default_rng(5).standard_normal(48_000)
+    df = ttf.frame({"x": x, "k": np.arange(48_000)}, num_partitions=48)
+    df.cache()
+    f = lambda x: {"z": x * 2.0 + 1.0}        # noqa: E731
+    q = lambda z: z > 0.5                     # noqa: E731
+
+    def snap():
+        return [(b.num_rows, {n: np.asarray(c).copy()
+                              for n, c in b.columns.items()})
+                for b in df.map_rows(f).filter(q).select(["k", "z"])
+                .blocks()]
+
+    adaptive.invalidate_results()
+    snap()                                    # measures: static layout
+    assert not staged
+    layouts = counters.get("plan.adaptive_layouts")
+    got = snap()                              # re-bucketed
+    assert counters.get("plan.adaptive_layouts") == layouts + 1
+    assert staged and all(b is not None and b.is_pinned() for b in staged)
+    monkeypatch.setenv("TFT_ADAPTIVE", "0")
+    want = snap()
+    assert len(got) == len(want) == 48
+    for (na, ca), (nb, cb) in zip(got, want):
+        assert na == nb and list(ca) == list(cb)
+        for n in cb:
+            assert ca[n].dtype == cb[n].dtype
+            assert np.array_equal(ca[n], cb[n])

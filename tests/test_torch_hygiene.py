@@ -154,7 +154,9 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "observability/timeline.py", "stream/__init__.py",
             "stream/source.py", "stream/frame.py", "stream/aggregate.py",
             "stream/runtime.py", "stream/sink.py", "builder.py",
-            "serve/__init__.py", "serve/cache.py"} <= names
+            "serve/__init__.py", "serve/cache.py", "plan/adaptive.py",
+            "demos/__init__.py", "demos/kmeans.py", "demos/geom_mean.py",
+            "demos/groupby_scratch.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):
@@ -162,6 +164,33 @@ def test_no_jax_or_reference_imports_in_port_sources():
             if top in ("jax", "jaxlib", "ml_dtypes", "tensorframes_tpu"):
                 offenders.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not offenders, offenders
+
+
+def test_demos_and_adaptive_run_without_jax():
+    """The ported demos and the adaptive layer import and run in a
+    process where ``jax`` cannot be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import tensorframes_tpu_torch as ttf\n"
+        "ttf.set_default_device('cpu')\n"
+        "from tensorframes_tpu_torch.demos import (geom_mean,\n"
+        "                                          groupby_scratch, kmeans)\n"
+        "df, init, _ = kmeans.make_data(n=40, num_features=2, k=2,\n"
+        "                               num_partitions=2)\n"
+        "for step in (kmeans.step_aggregate, kmeans.step_preaggregate):\n"
+        "    c, d = step(df, init)\n"
+        "    assert c.shape == (2, 2) and d > 0\n"
+        "assert len(geom_mean.geometric_mean_per_key(\n"
+        "    geom_mean.make_data(n=9)).collect()) == 3\n"
+        "assert len(groupby_scratch.groupby_sum()) == 2\n"
+        "from tensorframes_tpu_torch.plan import adaptive\n"
+        "assert adaptive.enabled() and adaptive.result_cache_enabled()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_first_dispatch_raises_without_gpu(monkeypatch):

@@ -278,3 +278,38 @@ def test_piece_tree_sums_every_row_once(n, d, spread):
 def test_sort_plan_refuses_what_the_kernel_cannot_index(n, s):
     with pytest.raises(ValueError):
         plan_sort(n, 1, s, 4)
+
+
+def test_torch_export_records_the_segment_sum_op():
+    """A program that calls ``segment_sum`` exports with the
+    ``tft::segment_sum`` op in its graph (not the plain version's ops), so
+    a shipped program launches the kernel wherever it is placed on the
+    card; on the CPU the op runs the plain version."""
+    from tensorframes_tpu_torch.computation import Computation, TensorSpec
+    from tensorframes_tpu_torch.shape import Shape, Unknown
+    from tensorframes_tpu_torch import dtypes as tdt
+
+    def prog(v, k):
+        return {"s": segment_sum(v, k, 5)}
+
+    comp = Computation.trace(prog, [
+        TensorSpec("v", tdt.double, Shape(Unknown, 2)),
+        TensorSpec("k", tdt.int32, Shape(Unknown))])
+    shipped = Computation.deserialize(comp.serialize())
+    targets = {str(n.target) for n in shipped.fn.exported.graph.nodes
+               if n.op == "call_function"}
+    assert "tft.segment_sum.default" in targets
+    assert not any("index_add" in t for t in targets)
+    rng = np.random.default_rng(3)
+    v = torch.from_numpy(rng.standard_normal((40, 2)))
+    k = torch.from_numpy(rng.integers(-1, 6, 40).astype(np.int32))
+    got = shipped({"v": v, "k": k})["s"]
+    torch.testing.assert_close(got, segment_sum_reference(v, k, 5),
+                               rtol=0, atol=0)
+
+
+def test_segment_sum_op_has_no_batching_rule():
+    ids = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="no batching rule"):
+        torch.func.vmap(lambda v: segment_sum(v, ids, 2))(
+            torch.ones(4, 3, 1, dtype=torch.float64))

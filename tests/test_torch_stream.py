@@ -1017,7 +1017,8 @@ class TestSketchStream:
 class TestBatchRows:
     """An int ``batch_rows`` coalesces the blocks a source has ready up to
     that many rows, gated by ``TFT_ADAPTIVE`` as in the JAX package;
-    ``"adaptive"`` waits for ``plan/adaptive.py`` in the port."""
+    ``"adaptive"`` sizes batches through ``plan/adaptive.py``'s
+    ``AdaptiveBatcher``."""
 
     @pytest.mark.parametrize("adaptive", ["1", "0"])
     def test_int_target_coalesces_ready_blocks(self, monkeypatch, adaptive):
@@ -1039,10 +1040,30 @@ class TestBatchRows:
 
         same(both(run), compare)
 
-    def test_adaptive_batch_rows_waits_for_the_adaptive_planner(self):
-        sf = tstream.from_source(tstream.GeneratorSource(_batches(1)))
-        with pytest.raises(NotImplementedError, match="A'-4"):
-            sf.start(batch_rows="adaptive")
+    def test_adaptive_batch_rows_waits_for_the_adaptive_planner(
+            self, monkeypatch):
+        """``batch_rows="adaptive"`` no longer raises: the first batch is
+        one source block, then every batch that finished under
+        ``TFT_ADAPTIVE_BATCH_MIN_S`` (injected: all of them) doubles the
+        row target, 4 -> 8 -> 16 rows, in both packages."""
+        monkeypatch.setenv("TFT_ADAPTIVE", "1")
+        monkeypatch.setenv("TFT_ADAPTIVE_BATCH_MIN_S", "1e9")
+
+        def run(p):
+            h = (p.stream.from_source(p.stream.GeneratorSource(
+                     _batches(6, rows=4, keys=2)))
+                 .group_by("k")
+                 .aggregate({"v": "sum"}, window=p.stream.tumbling(100.0),
+                            time_col="ts")
+                 .start(batch_rows="adaptive"))
+            h.run()
+            return h.metrics()["batches"], h.collect_updates()
+
+        def compare(j, t):
+            assert j[0] == t[0] == 3
+            frames_match(j[1], t[1])
+
+        same(both(run), compare)
 
 
 class TestWaitsForLaterLayers:
