@@ -141,6 +141,37 @@ paths through its public entry points and checks every result:
    layout's; each then forces its query (3e: (b)'s chain under the same
    budget and depth) once more at =0 and twice with both knobs at their
    default, on (``default_forcings``), every digest equal to the =0 one;
+3l. serving three tenants (``serve_three_tenants_20M``,
+   :func:`phase_serve_three_tenants`) through ``serve.QueryScheduler``,
+   every query ending in a keyed ``aggregate`` through segment_sum, with
+   ``TFT_RESULT_CACHE=0``: each tenant's query forced alone first (the
+   serial results and launches); (a) ``dashboard`` (weight 2, phase 3b's
+   chain over its file), ``etl`` (phase 2's ``z = x + x`` by 100,000 keys)
+   and ``adhoc`` (phase 3c's Q2.1, and the etl program once as a fresh
+   lambda), 4 queries each from three threads into three workers: every
+   result bit-equal to its serial forcing, the launches equal to the
+   serial count, a cross-tenant interner hit, the pick order and
+   dashboard's share while all queues were non-empty; (f) SLOs over (a)'s
+   completions, good and bad equal to the futures' walls, etl's burn over
+   1 and its callback fired once; (b) ``QueueFull``, ``OverQuota``, a
+   cancel of a queued and of a running query, and a permanently failing
+   program quarantined after 3 submissions and lifted; (c) priority
+   preemption with one worker: a 20M etl query in 80 blocks parks for a
+   weight-4 dashboard and resumes, bit-equal to its run alone with the
+   same launches; (d) admission under ``TFT_SERVE_HBM_LIMIT_BYTES``: an
+   arrival that does not fit beside a running whale (8M x 64 f32 rows)
+   makes it park, and one larger than the limit is shed within
+   ``TFT_SERVE_ADMISSION_WAIT_S=1``; (e) the regression drill: 6 warm
+   dashboard queries, then one with ``TFT_FAULTS=perf:1`` sized from the
+   warm median, flagging exactly one ``perf.regression`` on
+   ``stage_wall_s``, with baselines persisted under ``build/``; (h)
+   ``last_query_report()`` and ``health()``; (g) a child interpreter
+   that loads (e)'s baseline, serves 3 queries through ``ttf.submit``
+   and SIGKILLs itself while a 4th runs, after which this process reads
+   its 3 records back, names its pid as an unclean shutdown and renders
+   ``why`` from the archive (its launches join the ``kernels`` line);
+   (i) the card's busy share of one served dashboard query under
+   ``tracing.profile``;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -160,8 +191,8 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3k for
-segment_sum, phase 3h's child process included, phase 4 for
+with each kernel's launches during its main path (phases 1-3l for
+segment_sum, the child processes of phases 3h and 3l included, phase 4 for
 flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
@@ -183,6 +214,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory bandwidth (NVIDIA data sheet)
@@ -2692,6 +2724,721 @@ def phase_adaptive(ttf, np, torch, n=20_000_000, parts=200,
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-2}
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: serving three tenants through the scheduler
+# ---------------------------------------------------------------------------
+
+def etl_z(x):
+    """The reference workload's program (module level: one function, so
+    that the etl tenant's queries share one captured program)."""
+    return {"z": x + x}
+
+
+SERVE_CHILD = r'''
+import json
+import os
+import signal
+import sys
+import time
+
+t_start = time.perf_counter()
+import numpy as np
+import torch
+
+import tensorframes_tpu_torch as ttf
+from tensorframes_tpu_torch.observability import baseline
+from tensorframes_tpu_torch.ops import segment_reduce
+from tensorframes_tpu_torch.plan import adaptive
+
+args = json.loads(sys.argv[1])
+device = args["device"]
+ttf.set_default_device(device)
+if device == "cuda":
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+report = {"pid": os.getpid(), "start_s": time.perf_counter() - t_start}
+
+# the baseline phase 3l(e) persisted for the dashboard chain
+df = ttf.read_parquet(args["path"])
+with ttf.dsl.with_graph():
+    z = (ttf.block(df, "x") + ttf.block(df, "y")).named("z")
+cut = args["cut"]
+chain = (df.map_blocks(z).filter(lambda ts: ts >= cut)
+         .map_rows(lambda z: {"w": z * 2.0}).select(["key", "w"]))
+fp, portable = adaptive.aggregate_fingerprint(chain.group_by("key"),
+                                             {"w": "sum"})
+bl = baseline.baseline_for(fp)
+report.update(fingerprint=fp, portable=portable,
+              baseline_samples=bl.count if bl is not None else 0)
+
+rng = np.random.default_rng(args["seed"])
+key = rng.integers(0, args["keys"], args["n"])
+x = rng.random(args["n"])
+
+
+def query(n):
+    frame = ttf.frame({"key": key[:n], "x": x[:n]},
+                      num_partitions=args["parts"])
+    return frame.map_blocks(lambda x: {"z": x + x}).select(["key", "z"]) \
+        .group_by("key")
+
+
+done = []
+for i in range(3):
+    # the keyed sum runs on the scheduler's worker, B1 included
+    fut = ttf.submit(query(args["small"]), {"z": "sum"}, tenant="child")
+    out = fut.result(timeout=600)
+    done.append({"query": fut.query_id,
+                 "sum": float(out.blocks()[0].columns["z"].sum())})
+# the future resolves just before the archive's append: wait for it
+for _ in range(400):
+    if len(ttf.history(tenant="child", outcome="completed")) >= 3:
+        break
+    time.sleep(0.05)
+report["done"] = done
+report["archived"] = len(ttf.history(tenant="child", outcome="completed"))
+fut = ttf.submit(query(args["n"]), {"z": "sum"}, tenant="child")
+while fut.state != "running":
+    time.sleep(0.001)
+report["launches"] = segment_reduce.launches
+report["killed_query"] = fut.query_id
+report["wall_s"] = time.perf_counter() - t_start
+print(json.dumps(report), flush=True)
+os.kill(os.getpid(), signal.SIGKILL)
+'''
+
+
+def median_mad(np, values) -> tuple:
+    a = np.asarray(values, dtype=np.float64)
+    med = float(np.median(a))
+    return med, float(np.median(np.abs(a - med)))
+
+
+def phase_serve_three_tenants(ttf, np, torch, segment_reduce,
+                              n=20_000_000, parts=8, keys=100_000,
+                              groups=20, ssb_rows=6_000_000,
+                              whale_rows=8_000_000, whale_parts=8,
+                              preempt_parts=80, child_small=2_000_000,
+                              device="cuda", profile=True,
+                              out=None) -> dict:
+    """Serving on the card (``serve_three_tenants_20M``, phase 3l): three
+    tenants through one ``QueryScheduler``, rejections, quarantine, both
+    kinds of preemption, the regression drill, SLOs, the durable history
+    across a SIGKILLed child, reports and the card's busy share. Every
+    served query is a keyed ``aggregate``, submitted as its grouped frame
+    and fetches and run whole on a worker, B1 included.
+    ``out["child_launches"]`` receives the child's segment_sum launches.
+    ``device="cpu"`` with ``profile=False`` rehearses it on the CPU."""
+    import signal
+    import shutil
+
+    import pyarrow.parquet as pq
+
+    from tensorframes_tpu_torch import serve
+    from tensorframes_tpu_torch.engine import executor as engine_executor
+    from tensorframes_tpu_torch.observability import baseline, flight
+    from tensorframes_tpu_torch.observability import device as obs_device
+    from tensorframes_tpu_torch.observability import history, slo
+    from tensorframes_tpu_torch.plan import adaptive
+    from tensorframes_tpu_torch.resilience import (
+        AdmissionDeadline, OverQuota, QueryCancelled, QueryQuarantined,
+        QueueFull, error_kind, faults)
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    TenantQuota = serve.TenantQuota
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    persist_dir = os.path.join(root, "build", "serve_persist")
+    shutil.rmtree(persist_dir, ignore_errors=True)
+    summary = {"rows": n, "partitions": parts, "keys": keys}
+
+    def part(name, t0, **info):
+        info = {"part": name, "wall_s": time.perf_counter() - t0, **info}
+        summary[name] = info["wall_s"]
+        emit(info)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    # -- the data: phase 2's rows, phase 3b's file, phase 3c's tables ----
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    key = rng.integers(0, keys, n)
+    x = rng.random(n)
+    path, write_s = scan_file(np, n, groups, keys, 11)
+    cut = n // 2
+    tbl = pq.read_table(path, columns=["ts", "key", "x", "y"])
+    ts, pkey = tbl.column("ts").to_numpy(), tbl.column("key").to_numpy()
+    kept = ts >= cut
+    dash_want = np.bincount(pkey[kept], weights=(
+        tbl.column("x").to_numpy()[kept]
+        + tbl.column("y").to_numpy()[kept]) * 2.0, minlength=keys)
+    del tbl, ts, pkey, kept
+    etl_want = np.bincount(key, weights=2 * x, minlength=keys)
+    tables = ssb_tables(np, ssb_rows)
+    q21_want = ssb_reference(np, tables, q21=True)
+    etl_source = ttf.frame({"key": key, "x": x}, num_partitions=parts)
+    data_s = time.perf_counter() - t0
+
+    def dash_chain():
+        df = ttf.read_parquet(path)
+        with ttf.dsl.with_graph():
+            z = (ttf.block(df, "x") + ttf.block(df, "y")).named("z")
+        return (df.map_blocks(z).filter(lambda ts: ts >= cut)
+                .map_rows(lambda z: {"w": z * 2.0}).select(["key", "w"]))
+
+    # a query is a grouped frame and its fetches: ``sched.submit(*q)``
+    # serves ``aggregate(fetches, grouped)``, ``alone(q)`` forces it here
+    def dashboard():
+        return dash_chain().group_by("key"), {"w": "sum"}
+
+    def etl(fn=etl_z, source=etl_source):
+        return (source.map_blocks(fn).select(["key", "z"]).group_by("key"),
+                {"z": "sum"})
+
+    def adhoc():
+        return (ssb_chain(ttf, tables, parts).group_by("d_year", "p_brand1"),
+                {"lo_revenue": "sum"})
+
+    def alone(q):
+        return ttf.aggregate(q[1], q[0])
+
+    def cols(frame):
+        return frame.blocks()[0].columns
+
+    def q21_cols(frame):
+        return cols(frame.order_by("d_year", "p_brand1"))
+
+    read = {"dashboard": cols, "etl": cols, "adhoc": q21_cols}
+
+    def check_dash(c):
+        nz = np.flatnonzero(dash_want)
+        np.testing.assert_array_equal(c["key"], nz)
+        np.testing.assert_allclose(c["w"], dash_want[nz], rtol=1e-12)
+
+    def check_etl(c):
+        np.testing.assert_array_equal(c["key"], np.arange(keys))
+        np.testing.assert_allclose(c["z"], etl_want, rtol=1e-12)
+
+    def check_q21(c):
+        for k in ("d_year", "p_brand1"):
+            np.testing.assert_array_equal(c[k], q21_want[k])
+        assert np.array_equal(c["lo_revenue"].astype(np.int64),
+                              q21_want["lo_revenue"].astype(np.int64))
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(a[k], b[k]) for k in b) and \
+            list(a) == list(b)
+
+    with env_scope(TFT_RESULT_CACHE="0"):
+        # -- the serial forcings: each tenant's query alone -----------------
+        # each forced three times: the first may pay for first captures,
+        # so a tenant's serial wall is the median of the two warm ones
+        t0 = time.perf_counter()
+        serial, serial_launches, serial_walls = {}, {}, {}
+        all_walls = {}
+        for name, build, check in (("dashboard", dashboard, check_dash),
+                                   ("etl", etl, check_etl),
+                                   ("adhoc", adhoc, check_q21)):
+            all_walls[name] = []
+            for rep in range(3):
+                l0 = segment_reduce.launches
+                t1 = time.perf_counter()
+                got = read[name](alone(build()))
+                sync()
+                all_walls[name].append(time.perf_counter() - t1)
+                launched = segment_reduce.launches - l0
+                if rep == 0:
+                    serial[name], serial_launches[name] = got, launched
+                    check(got)
+                else:
+                    assert same(got, serial[name]), name
+                    assert launched == serial_launches[name], name
+            serial_walls[name] = median_mad(np, all_walls[name][1:])[0]
+        assert serial_launches["dashboard"] == groups // 2, serial_launches
+        assert serial_launches["etl"] == parts, serial_launches
+        assert serial_launches["adhoc"] == parts, serial_launches
+        part("3l_serial", t0, walls_s=all_walls,
+             warm_median_walls_s=serial_walls,
+             launches=serial_launches, data_s=data_s,
+             file_write_s=write_s)
+
+        # -- (a) the mix: three tenants, three workers ----------------------
+        t0 = time.perf_counter()
+        tracing.histograms.reset()  # (f) counts (a)'s completions only
+        slo.clear_slos()
+        # objectives on histogram bucket edges: 30 s above every wall,
+        # 0.5 ms below every etl wall
+        dash_obj_ms, etl_obj_ms = 30_000.0, 0.5
+        slo.set_slo("dashboard", dash_obj_ms, target=0.99)
+        slo.set_slo("adhoc", dash_obj_ms, target=0.99)
+        slo.set_slo("etl", etl_obj_ms, target=0.99)
+        burns = []
+        burn_key = slo.on_burn(lambda t, s: burns.append(
+            (t, s["burn_rate"])), threshold=1.0, name="chip_smoke")
+        quotas = {"dashboard": TenantQuota(weight=2.0, max_inflight=2),
+                  "etl": TenantQuota(weight=1.0),
+                  "adhoc": TenantQuota(weight=1.0)}
+        futs = {}
+        l0 = segment_reduce.launches
+        owners, hits = {}, []
+        with serve.QueryScheduler(quotas=quotas, workers=3,
+                                  name="mix") as sched:
+            intern = sched._interner_fn
+
+            def spy(comp):
+                canon = intern(comp)
+                q = flight.current_query()
+                owners.setdefault(id(canon), q)
+                if canon is not comp:
+                    hits.append((q, owners[id(canon)]))
+                return canon
+
+            engine_executor.set_computation_interner(spy)
+            # every query built first, then each tenant's thread submits
+            # its own at one barrier: the picks start from full queues
+            work = {"dashboard": [dashboard() for _ in range(4)],
+                    "etl": [etl() for _ in range(4)],
+                    "adhoc": [adhoc() for _ in range(4)]
+                    + [etl(lambda x: {"z": x + x})]}
+            fresh = ("adhoc", 4)
+            for tenant, qs in work.items():
+                for i, q in enumerate(qs):
+                    # the fingerprint a submission takes (one torch.export
+                    # per new program, under the process's export lock),
+                    # taken here so that the submissions land together;
+                    # all but the fresh program's, whose submit is timed
+                    if (tenant, i) != fresh:
+                        adaptive.aggregate_fingerprint(*q)
+            barrier = threading.Barrier(len(work))
+            submit_s = {}
+
+            def submit_all(tenant):
+                barrier.wait()
+                for i, q in enumerate(work[tenant]):
+                    t1 = time.perf_counter()
+                    futs[(tenant, i)] = sched.submit(*q, tenant=tenant)
+                    submit_s[(tenant, i)] = time.perf_counter() - t1
+
+            threads = [threading.Thread(target=submit_all, args=(t,))
+                       for t in work]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            results = {k: (cols if k == fresh else read[k[0]])(
+                f.result(timeout=900)) for k, f in futs.items()}
+            sync()
+            mix_wall = time.perf_counter() - t0
+            engine_executor.set_computation_interner(intern)
+            snap = sched.snapshot()
+            cache = sched.compile_cache.stats()
+        mix_launches = segment_reduce.launches - l0
+        tenant_of = {f.query_id: k[0] for k, f in futs.items()}
+        assert len(set(tenant_of)) == len(futs), "a query id repeats"
+        for (tenant, i), c in results.items():
+            program = "etl" if (tenant, i) == fresh else tenant
+            assert same(c, serial[program]), \
+                f"{tenant} query {i} differs from its serial forcing"
+        for tenant in work:
+            assert snap[tenant]["completed"] == len(work[tenant]), snap
+            assert snap[tenant]["failed"] == snap[tenant]["shed"] == 0
+        want_launches = 4 * serial_launches["dashboard"] + \
+            5 * serial_launches["etl"] + 4 * serial_launches["adhoc"]
+        assert mix_launches == want_launches, (mix_launches, want_launches)
+        cross = [(q, o) for q, o in hits
+                 if q in tenant_of and o in tenant_of
+                 and tenant_of[q] != tenant_of[o]]
+        assert cross, "no cross-tenant interner hit: " + repr((sorted(
+            {(tenant_of.get(q, q), tenant_of.get(o, o)) for q, o in hits}),
+            cache))
+        starts = [r["query"] for r in flight.recent(kind="serve.start")
+                  if r.get("query") in tenant_of]
+        picks = [tenant_of[q] for q in starts]
+        last = {t: max(i for i, p in enumerate(picks) if p == t)
+                for t in work}
+        head = picks[:min(last.values())]
+        share = head.count("dashboard") / max(len(head), 1)
+        assert 0.25 <= share <= 1.0, (picks, share)
+        walls = {t: [futs[k].finished_at - futs[k].submitted_at
+                     for k in futs if k[0] == t] for t in work}
+        part("3l_a_mix", t0, mix_wall_s=mix_wall,
+             fresh_program_submit_s=submit_s[fresh],
+             submit_s={t: [submit_s[(t, i)] for i in range(len(work[t]))]
+                       for t in work},
+             serial_sum_s=4 * serial_walls["dashboard"]
+             + 5 * serial_walls["etl"] + 4 * serial_walls["adhoc"],
+             query_walls_s=walls, picks=picks,
+             dashboard_share_while_all_queued=share,
+             launches=mix_launches, serial_launches=want_launches,
+             interner=cache, cross_tenant_hits=len(cross),
+             snapshot=snap)
+
+        # -- (f) SLOs, over (a)'s completions --------------------------------
+        t0 = time.perf_counter()
+        status = slo.slo_status()
+        slo.remove_burn_callback(burn_key)
+        for tenant, obj_ms in (("dashboard", dash_obj_ms),
+                               ("etl", etl_obj_ms)):
+            good = sum(1 for w in walls[tenant] if w <= obj_ms / 1000.0)
+            s = status[tenant]
+            assert (s["good"], s["bad"]) == \
+                (good, len(walls[tenant]) - good), (tenant, s, good)
+        assert status["dashboard"]["bad"] == 0, status["dashboard"]
+        assert status["etl"]["burn_rate"] > 1.0, status["etl"]
+        assert [t for t, _ in burns] == ["etl"], burns
+        part("3l_f_slo", t0, slo={t: status[t] for t in
+                                  ("dashboard", "etl")},
+             burns=burns)
+
+        # -- (b) rejections, cancels and quarantine ---------------------------
+        t0 = time.perf_counter()
+        small = ttf.frame({"key": key[:200_000], "x": x[:200_000]},
+                          num_partitions=4)
+        kinds = {}
+        with serve.QueryScheduler(workers=0, name="reject") as s:
+            s.register_tenant("dashboard", TenantQuota(max_queue=1))
+            queued = s.submit(*etl(source=small), tenant="dashboard")
+            try:
+                s.submit(*etl(source=small), tenant="dashboard")
+                raise AssertionError("a full queue accepted a query")
+            except QueueFull as e:
+                kinds["queue_full"] = error_kind(e)
+            s.register_tenant("etl", TenantQuota(rows_per_sec=n / 10))
+            try:
+                s.submit(*etl(), tenant="etl")
+                raise AssertionError("an over-quota query was accepted")
+            except OverQuota as e:
+                kinds["over_quota"] = error_kind(e)
+            assert s.cancel(queued.query_id)
+            try:
+                queued.result(timeout=5)
+                raise AssertionError("a cancelled query returned")
+            except QueryCancelled as e:
+                kinds["cancel_queued"] = error_kind(e)
+            assert queued.state == "cancelled" and not s.step()
+        c0 = counters.get("pipeline.cancelled_streams")
+        with serve.QueryScheduler(workers=1, name="cancel") as s:
+            many = ttf.frame({"key": key, "x": x},
+                             num_partitions=preempt_parts)
+            q = s.submit(*etl(source=many), tenant="etl")
+            while q._scope is None and not q.done():
+                time.sleep(0.0005)
+            assert s.cancel(q.query_id)
+            try:
+                q.result(timeout=300)
+                raise AssertionError("a cancelled running query returned")
+            except QueryCancelled as e:
+                kinds["cancel_running"] = error_kind(e)
+            cancelled_at = s.snapshot()["etl"]
+        cancelled_streams = counters.get("pipeline.cancelled_streams") - c0
+        assert cancelled_streams == 1, cancelled_streams
+        assert kinds == {"queue_full": "rejected",
+                         "over_quota": "over_quota",
+                         "cancel_queued": "cancelled",
+                         "cancel_running": "cancelled"}, kinds
+        # a program failing permanently, three times: quarantined
+        q0 = counters.get("serve.quarantines")
+        with serve.QueryScheduler(workers=1, name="poison") as s:
+            for _ in range(3):
+                faults.arm("dispatch", 2, message="injected plan bug",
+                           transient=False)
+                fut = s.submit(*etl(source=small), tenant="adhoc")
+                try:
+                    fut.result(timeout=120)
+                    raise AssertionError("the poison query succeeded")
+                except faults.InjectedFault:
+                    pass
+                faults.reset("dispatch")
+            try:
+                s.submit(*etl(source=small), tenant="adhoc")
+                raise AssertionError("a quarantined plan was accepted")
+            except QueryQuarantined as e:
+                kinds["quarantined"] = error_kind(e)
+            status_q = serve.quarantine_status()
+            lifted = ttf.unquarantine()
+            after = cols(s.submit(*etl(source=small), tenant="adhoc")
+                         .result(timeout=120))
+        assert counters.get("serve.quarantines") - q0 == 1
+        assert kinds["quarantined"] == "quarantined" and lifted == 1
+        np.testing.assert_allclose(after["z"], np.bincount(
+            key[:200_000], weights=2 * x[:200_000], minlength=keys)[
+                after["key"]], rtol=1e-12)
+        part("3l_b_rejections", t0, kinds=kinds,
+             cancelled_streams=cancelled_streams,
+             cancel_snapshot=cancelled_at,
+             quarantined=list(status_q["active"]), lifted=lifted)
+
+        # -- (c) priority preemption: dashboard outweighs a running etl ------
+        t0 = time.perf_counter()
+        many = ttf.frame({"key": key, "x": x}, num_partitions=preempt_parts)
+        l0 = segment_reduce.launches
+        whole = cols(alone(etl(source=many)))
+        alone_launches = segment_reduce.launches - l0
+        check_etl(whole)
+        p0 = {k: counters.get(k) for k in ("pipeline.parked_blocks",
+                                           "pipeline.resumed_blocks",
+                                           "serve.preemptions")}
+        with env_scope(TFT_PREEMPT_AFTER_MS="0"):
+            with serve.QueryScheduler(
+                    quotas={"etl": TenantQuota(weight=1.0),
+                            "dashboard": TenantQuota(weight=4.0)},
+                    workers=1, name="prio") as s:
+                l0 = segment_reduce.launches
+                whale = s.submit(*etl(source=many), tenant="etl")
+                while whale._scope is None and not whale.done():
+                    time.sleep(0.0005)
+                vip = s.submit(*dashboard(), tenant="dashboard")
+                vip_cols = cols(vip.result(timeout=600))
+                got = cols(whale.result(timeout=600))
+                sync()
+                prio_launches = segment_reduce.launches - l0
+                order = [r["query"] for r in flight.recent(
+                    kind="serve.start") if r.get("query") in
+                    (whale.query_id, vip.query_id)]
+        moved = {k: counters.get(k) - v for k, v in p0.items()}
+        assert whale.preemptions == 1, whale.preemptions
+        assert order == [whale.query_id, vip.query_id, whale.query_id], \
+            order
+        assert same(got, whole), "the resumed etl differs"
+        assert same(vip_cols, serial["dashboard"])
+        assert prio_launches == alone_launches + \
+            serial_launches["dashboard"], (prio_launches, alone_launches)
+        assert moved["pipeline.parked_blocks"] >= 1
+        assert moved["pipeline.resumed_blocks"] == \
+            moved["pipeline.parked_blocks"], moved
+        part("3l_c_priority_preempt", t0, counts=moved,
+             partitions=preempt_parts, launches=prio_launches,
+             alone_launches=alone_launches,
+             walls_s={"whale": whale.finished_at - whale.submitted_at,
+                      "vip": vip.finished_at - vip.submitted_at})
+
+        # -- (d) admission against the card's memory --------------------------
+        t0 = time.perf_counter()
+        jl = jl_tables(np, whale_rows)
+        P = torch.from_numpy(jl["P"]).to(device)
+        block_bytes = whale_rows // whale_parts * 64 * 4
+
+        whale_frame = (jl_select(ttf, P, jl, whale_parts).group_by("key"),
+                       {"z": "sum"})
+        # the whale's estimate is its input (the chain's output estimate
+        # would be its 12 bytes a row); the limit leaves it exactly room
+        whale_est = int(jl["x"].nbytes + jl["key"].nbytes)
+        live0 = obs_device.watermark()["live_bytes"] \
+            if obs_device.watermark() else 0
+        # the whale fits beside what the card holds now, with half a
+        # block to spare for what it allocates before its admission; an
+        # arrival a block short of that fits only once the whale's
+        # blocks (two or three in flight while it streams) leave the card
+        margin = block_bytes // 2
+        limit = int((live0 + whale_est + margin) / 0.9) + 1
+        arrival_est = whale_est + margin - block_bytes
+        a0 = counters.get("serve.admission_preempts")
+        with env_scope(TFT_SERVE_HBM_LIMIT_BYTES=str(limit),
+                       TFT_SERVE_ADMISSION_WAIT_S="60",
+                       TFT_SERVE_ADMISSION_POLL_S="0.005"):
+            with serve.QueryScheduler(workers=2, name="admit") as s:
+                wq = s.submit(*whale_frame, tenant="etl",
+                              est_bytes=whale_est)
+                # the whale holds at least two blocks on the card
+                while not wq.done():
+                    wm = obs_device.watermark()
+                    if wq._scope is not None and wm and \
+                            wm["live_bytes"] >= live0 + 2 * block_bytes:
+                        break
+                    time.sleep(0.0005)
+                live_whale = obs_device.watermark()["live_bytes"]
+                arrival = s.submit(*etl(source=small), tenant="dashboard",
+                                   est_bytes=arrival_est)
+                arrival_cols = cols(arrival.result(timeout=600))
+                whale_cols = cols(wq.result(timeout=600))
+        admission_preempts = counters.get("serve.admission_preempts") - a0
+        assert admission_preempts == 1, admission_preempts
+        assert wq.preemptions == 1 and wq.state == "done", wq
+        zs = ((jl["x"].astype(np.float64) @ jl["P"].astype(np.float64))
+              ** 2).sum(-1)
+        jl_want = np.bincount(jl["key"], weights=zs, minlength=100_000)
+        absz = np.bincount(jl["key"], weights=np.abs(zs), minlength=100_000)
+        k = whale_cols["key"]
+        assert np.all(np.abs(whale_cols["z"] - jl_want[k])
+                      <= 1e-5 * absz[k] + 1e-6), "the whale's sums differ"
+        assert arrival.state == "done" and len(arrival_cols["key"])
+        del jl, P, whale_frame, zs
+        # an arrival larger than the limit is shed within the wait
+        with env_scope(TFT_SERVE_HBM_LIMIT_BYTES=str(limit),
+                       TFT_SERVE_ADMISSION_WAIT_S="1"):
+            with serve.QueryScheduler(workers=1, name="shed") as s:
+                t1 = time.perf_counter()
+                big = s.submit(*etl(source=small), tenant="etl",
+                               est_bytes=limit + 1)
+                try:
+                    big.result(timeout=60)
+                    raise AssertionError("an oversized query ran")
+                except AdmissionDeadline as e:
+                    shed_kind = error_kind(e)
+                shed_s = time.perf_counter() - t1
+        assert big.state == "shed" and shed_kind == "deadline_admission"
+        assert shed_s < 5.0, shed_s
+        part("3l_d_admission", t0, limit_bytes=limit, live0_bytes=live0,
+             live_with_whale_bytes=live_whale, whale_est_bytes=whale_est,
+             arrival_est_bytes=arrival_est, block_bytes=block_bytes,
+             admission_preempts=admission_preempts,
+             whale_preemptions=wq.preemptions, shed_s=shed_s,
+             shed_est_bytes=limit + 1)
+
+        # -- (e) the regression drill -----------------------------------------
+        t0 = time.perf_counter()
+        baseline.clear()
+        flight.clear()
+        with env_scope(TFT_PERSIST_DIR=persist_dir):
+            history.clear()
+            # driven by step(): each query's finish (its baseline and
+            # regression check) is done when step() returns
+            with serve.QueryScheduler(workers=0, name="drill") as s:
+                warm = []
+                for _ in range(6):
+                    fut = s.submit(*dashboard(), tenant="dashboard")
+                    assert s.step()
+                    assert same(cols(fut.result(timeout=600)),
+                                serial["dashboard"])
+                    warm.append(fut.finished_at - fut.started_at)
+                report = ttf.last_query_report()
+                med, mad = median_mad(np, warm)
+                assert ttf.regressions() == [], ttf.regressions()
+                # one median at least, and far enough past the warm runs'
+                # spread that the regression's guards hold on any host
+                slow_s = max(med, 8 * (1.4826 * mad + 0.005), 0.1)
+                with env_scope(TFT_FAULT_PERF_S=str(slow_s)):
+                    faults.arm("perf", 1)
+                    slow = s.submit(*dashboard(), tenant="dashboard")
+                    assert s.step()
+                    slow.result(timeout=600)
+                    faults.reset("perf")
+                regs = ttf.regressions()
+                fp = adaptive.aggregate_fingerprint(*dashboard())
+                assert fp is not None and fp[1], fp
+                # the bare chain keys a baseline of its own
+                assert adaptive.query_fingerprint(dash_chain())[0] != fp[0]
+                assert len(regs) == 1, regs
+                reg = regs[0]
+                assert reg["fingerprint"] == fp[0], (reg, fp)
+                assert reg["component"] == "stage_wall_s", reg
+                assert reg["query"] == slow.query_id
+                why = ttf.why(slow.query_id)
+                assert "PERF REGRESSION" in why and "stage_wall_s" in why
+                doc = ttf.doctor()
+                assert fp[0][:16] in doc, doc
+                warns = [w for w in ttf.health()["warnings"]
+                         if w.startswith("perf:")]
+                assert len(warns) == 1 and "stage_wall_s" in warns[0]
+                assert "PERF: 1 regression(s)" in ttf.serve_report(s)
+            persisted = baseline.baseline_for(fp[0])
+            assert persisted is not None and persisted.count == 7
+        part("3l_e_regression_drill", t0, warm_walls_s=warm,
+             warm_median_s=med, warm_mad_s=mad, fault_perf_s=slow_s,
+             slow_wall_s=slow.finished_at - slow.started_at,
+             regression=reg, fingerprint=fp[0])
+
+        # -- (h) reports ------------------------------------------------------
+        t0 = time.perf_counter()
+        for needle in ("rows     :", "block(s)", "marshalled",
+                       "wall time by stage", "plan.execute"):
+            assert needle in report, (needle, report)
+        if device == "cuda":
+            assert "peak HBM" in report, report
+        snap = ttf.health()
+        json.dumps(snap)
+        mem = snap["memory"]["device"]
+        if device == "cuda":
+            assert mem is not None and mem["limit_bytes"] > 0, mem
+        part("3l_h_reports", t0, last_query_report=report.splitlines(),
+             health_memory=snap["memory"], health_keys=sorted(snap))
+
+        # -- (g) the durable history across a process death -----------------
+        t0 = time.perf_counter()
+        hist_dir = os.path.join(persist_dir, "history")
+        arg = json.dumps({"device": device, "path": path, "cut": cut,
+                          "seed": 2, "keys": keys, "n": n, "parts": parts,
+                          "small": child_small})
+        env = dict(os.environ, TFT_HISTORY_DIR=hist_dir,
+                   TFT_PERSIST_DIR=persist_dir, TFT_RESULT_CACHE="0")
+        res = subprocess.run([sys.executable, "-c", SERVE_CHILD, arg],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if res.stderr:
+            sys.stderr.write(res.stderr[-4000:])
+        assert res.returncode == -signal.SIGKILL, res.returncode
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+        if out is not None:
+            out["child_launches"] = child["launches"]
+        assert child["portable"] and child["fingerprint"] == fp[0]
+        assert child["baseline_samples"] >= 6, child
+        assert child["archived"] == 3, child
+        with env_scope(TFT_HISTORY_DIR=hist_dir):
+            history.clear()
+            flight.clear()
+            unclean = history.unclean_shutdown()
+            assert unclean is not None and unclean["pid"] == child["pid"]
+            pm = ttf.postmortem()
+            assert "UNCLEAN SHUTDOWN" in pm and str(child["pid"]) in pm
+            recs = ttf.history(tenant="child", outcome="completed")
+            assert [r["query"] for r in recs] == \
+                [d["query"] for d in child["done"]], recs
+            for r in recs:
+                for k in ("tenant", "fingerprint", "cost", "run_s",
+                          "total_s", "queued_s"):
+                    assert k in r, (k, r)
+            why = ttf.why(recs[0]["query"])
+            assert "durable history" in why and "serve.finish" in why
+        ref_small = float(np.bincount(key[:child_small],
+                                      weights=2 * x[:child_small]).sum())
+        for d in child["done"]:
+            np.testing.assert_allclose(d["sum"], ref_small, rtol=1e-12)
+        part("3l_g_history", t0, child_pid=child["pid"],
+             child_start_s=child["start_s"], child_wall_s=child["wall_s"],
+             child_launches=child["launches"],
+             baseline_samples=child["baseline_samples"],
+             records=[{k: r.get(k) for k in ("query", "tenant", "outcome",
+                                             "run_s", "total_s")}
+                      for r in recs],
+             postmortem=pm.splitlines()[:3])
+
+        # -- (i) the card's busy share of a served query ----------------------
+        if profile:
+            t0 = time.perf_counter()
+            trace_dir = os.path.join(root, "build", "serve_profile")
+            with serve.QueryScheduler(workers=1, name="profile") as s:
+                q = dashboard()
+                sync()
+                t1 = time.perf_counter()
+                with tracing.profile(trace_dir) as prof:
+                    got = cols(s.submit(*q, tenant="dashboard")
+                               .result(timeout=600))
+                    sync()
+                wall = time.perf_counter() - t1
+            assert same(got, serial["dashboard"])
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kernels) * 1e-6
+            assert busy > 0, "the profiler saw no device time"
+            b1_names = ("radix_hist_kernel", "radix_scatter_kernel",
+                        "scan_digits_kernel", "offsets_kernel",
+                        "segment_kernel", "head_kernel")
+            b1 = sum(e.self_device_time_total for e in kernels
+                     if any(nm in e.key for nm in b1_names)) * 1e-3
+            kernels.sort(key=lambda e: -e.self_device_time_total)
+            part("3l_i_busy_share", t0, wall_s_query=wall,
+                 device_busy_s=busy, busy_share=busy / wall,
+                 segment_sum_device_ms=b1,
+                 top_kernels_ms={e.key[:80]: e.self_device_time_total
+                                 * 1e-3 for e in kernels[:6]})
+    shutil.rmtree(persist_dir, ignore_errors=True)
+    summary["total_s"] = time.perf_counter() - t_phase
+    return summary
+
+
 def segment_check(torch, segment_reduce, vals, tid, s, what) -> None:
     """The kernel twice (bit-identical) against the plain version on the
     same values widened to f64, to ``KERNEL_RTOL``."""
@@ -3092,10 +3839,17 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     100 campaigns; phase 3g's 1M-row fold is phase 3b's shape) and of
     phase 3h's JL fold (250,000 f32 rows, S = 100,000; its reference fold
     is phase 2's shape) and of phase 3j's k-means variant B (a block's
-    points, 250,000 x 64 f64, and its counts, 250,000 x 1 f64, S = 256),
+    points, 250,000 x 64 f64, and its counts, 250,000 x 1 f64, S = 256)
+    and of phase 3l: a block of the 80-partition etl query of part (c) and
+    of the child's queries (250,000 f64 rows, S = 100,000), a block of
+    part (d)'s whale (1M f32 rows, S = 100,000) and of the 200,000-row
+    frame of parts (b) and (d) (50,000 f64 rows, S = its distinct keys);
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    # phase 3l's 200,000-row frame: the first rows of phase 2's keys
+    small_s = int(np.unique(np.random.default_rng(2).integers(
+        0, 100_000, 20_000_000)[:200_000]).size)
     shapes = [time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
                                100_000, torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
@@ -3117,7 +3871,13 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 64,
                                256, torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 2_000_000 // 8, 1,
-                               256, torch.float64, flush)]
+                               256, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000 // 80,
+                               1, 100_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 8_000_000 // 8, 1,
+                               100_000, torch.float32, flush),
+              time_segment_sum(np, torch, segment_reduce, 200_000 // 4, 1,
+                               small_s, torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -3214,6 +3974,7 @@ def main(argv=None) -> int:
     counters = {"segment_sum": segment_reduce, "flash_attention": fa}
     per_phase = {}
     shipped = {}  # the child process's launches (phase 3h)
+    served = {}  # the child process's launches (phase 3l)
     frame_path = run_path(torch, (
         ("readme_x_plus_3", lambda: phase_readme(ttf, np)),
         ("reference_workload_20M",
@@ -3241,7 +4002,10 @@ def main(argv=None) -> int:
         ("aggregate_fold_20M", lambda: phase_aggregate_fold(ttf, np, torch)),
         ("kmeans_demo_2M",
          lambda: phase_kmeans_demo(ttf, np, torch, segment_reduce)),
-        ("adaptive_20M", lambda: phase_adaptive(ttf, np, torch))),
+        ("adaptive_20M", lambda: phase_adaptive(ttf, np, torch)),
+        ("serve_three_tenants_20M",
+         lambda: phase_serve_three_tenants(ttf, np, torch, segment_reduce,
+                                           out=served))),
         counters, per_phase)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"
@@ -3252,6 +4016,9 @@ def main(argv=None) -> int:
             f"the stream's fold never launched segment_sum in {name}"
     assert per_phase["kmeans_demo_2M"]["segment_sum"] == 48, \
         "k-means variant B did not launch segment_sum twice a block"
+    assert per_phase["serve_three_tenants_20M"]["segment_sum"] > 0 and \
+        served["child_launches"] > 0, \
+        "the served aggregates never launched segment_sum"
     state = {}
     lm_path = run_path(torch, (
         ("transformer_score_8x2048",
@@ -3279,7 +4046,8 @@ def main(argv=None) -> int:
         {"name": "segment_sum", "route": "cuda",
          "source": "tensorframes_tpu_torch/csrc/segment_sum.cu",
          "replaces": "tensorframes_tpu/ops/segment_reduce.py:75",
-         "launches": frame_path["segment_sum"] + shipped["child_launches"],
+         "launches": frame_path["segment_sum"] + shipped["child_launches"]
+         + served["child_launches"],
          **{k: shapes[0][k] for k in keys},
          "at": shapes[0]["shape"], "by_shape": shapes},
         {"name": "flash_attention", "route": "cuda",

@@ -41,6 +41,15 @@ keyed window folds into state on the device through the same segment
 reductions, with failure isolation, a slot pool and live metrics
 (``observability.metrics_text``, :func:`timeline`).
 
+``serve`` is the multi-tenant front end: :func:`submit` (or
+``TensorFrame.submit``) queues a query on a ``QueryScheduler`` with
+per-tenant weights, quotas, deadlines, admission against the card's
+memory and preemption; :func:`serve_report` shows it. The observability
+layer reports through :func:`last_query_report` and ``explain()``, the
+durable query :func:`history` and :func:`postmortem`, the performance
+sentinel's :func:`regressions`, per-tenant SLOs, :func:`why`,
+:func:`doctor` and :func:`health`.
+
 ``builder`` runs shipped programs: ``Computation.serialize`` (or
 ``builder.save_computation``) writes a program as bytes in one process,
 and ``builder.load_computation`` or ``builder.map_blocks_builder(df)
@@ -60,6 +69,8 @@ __version__ = "0.1.0"
 from .shape import Shape, Unknown
 from . import dtypes
 from . import utils
+from .utils.logging import initialize_logging
+from .utils.tracing import dump_stats
 from .device import default_device, set_default_device
 from .schema import Field, Schema
 from .frame import Block, GroupedFrame, Row, TensorFrame
@@ -67,7 +78,7 @@ from .computation import Computation, TensorSpec, analyze_graph
 from .engine.executor import BlockExecutor
 from .api import (
     aggregate, analyze, block, explain, filter_rows, frame, map_blocks,
-    map_rows, print_schema, reduce_blocks, reduce_rows, row,
+    map_rows, print_schema, reduce_blocks, reduce_rows, row, submit,
 )
 from .io import (from_pandas, read_csv, read_npz, read_parquet, to_pandas,
                  write_csv, write_npz, write_parquet)
@@ -84,7 +95,11 @@ from . import resilience
 from . import stream
 from . import builder
 from . import serve
+from .observability import (doctor, health, last_query_report, regressions,
+                            why)
+from .observability.history import history, postmortem
 from .observability.timeline import timeline
+from .serve import quarantine_status, serve_report, unquarantine
 from .relational import (approx_distinct, approx_quantile, approx_top_k,
                          join)
 
@@ -136,6 +151,19 @@ __all__ = [
     "stream",
     "builder",
     "serve",
+    "submit",
+    "serve_report",
+    "unquarantine",
+    "quarantine_status",
+    "initialize_logging",
+    "dump_stats",
+    "last_query_report",
+    "why",
+    "health",
+    "doctor",
+    "history",
+    "postmortem",
+    "regressions",
     "timeline",
     "join",
     "approx_distinct",

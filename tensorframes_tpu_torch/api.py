@@ -10,12 +10,13 @@ the DSL's frame-derived placeholders ``block`` and ``row``.
 - reduce results unpack to numpy: one array for a single fetch, a list for
   several.
 
-``submit`` (the serving layer) is not in this package yet.
+- :func:`submit` defers a frame's forcing to the serving scheduler
+  (``serve/scheduler.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
@@ -27,8 +28,34 @@ from .frame import GroupedFrame, TensorFrame, frame
 __all__ = [
     "map_blocks", "map_rows", "reduce_blocks", "reduce_rows", "aggregate",
     "filter_rows", "analyze", "print_schema", "explain", "frame", "block",
-    "row",
+    "row", "submit",
 ]
+
+
+def submit(dframe: Union[TensorFrame, GroupedFrame], fetches=None, *,
+           tenant: str = "default", deadline: Optional[float] = None,
+           est_rows: Optional[float] = None,
+           est_bytes: Optional[int] = None,
+           scheduler=None):
+    """Defer a frame's forcing to the multi-tenant query scheduler.
+
+    The query (``dframe``, with ``fetches`` applied through
+    ``map_blocks`` when given) joins ``tenant``'s bounded FIFO queue on
+    the process-default :class:`~.serve.QueryScheduler` (or on
+    ``scheduler``) and runs under its weighted-fair selection, admission
+    against the card's memory, and quotas. ``dframe`` may also be a
+    grouped frame: the query is then ``aggregate(fetches, dframe)``, run
+    whole on the scheduler's worker (the JAX package takes only a frame).
+    Returns a
+    :class:`~.serve.SubmittedQuery` future; a full queue or an exhausted
+    rows/sec budget raises a classified :class:`~.resilience.QueueFull` /
+    :class:`~.resilience.OverQuota` at once. ``deadline`` (seconds)
+    bounds the queue wait and the run together."""
+    from . import serve as _serve
+    sched = scheduler if scheduler is not None \
+        else _serve.default_scheduler()
+    return sched.submit(dframe, fetches, tenant=tenant, deadline=deadline,
+                        est_rows=est_rows, est_bytes=est_bytes)
 
 
 def map_blocks(fetches, dframe: TensorFrame, trim: bool = False,

@@ -53,6 +53,7 @@ import io
 import json
 import struct
 import threading
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -62,6 +63,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from . import dtypes as _dt
 from .shape import Shape, Unknown
+from .utils.tracing import histograms
 
 __all__ = [
     "TensorSpec",
@@ -236,8 +238,13 @@ class Computation:
                     else torch.as_tensor(v, device=device)
                     for k, v in out.items()}
 
+        t0 = time.perf_counter()
         out_specs = _infer_outputs(dict_fn, specs, share_lead_symbol,
                                    output_shapes)
+        # what the port pays for a new program: capture's probes (the
+        # performance sentinel's compile_s component reads this family)
+        histograms.observe("compile_seconds", time.perf_counter() - t0,
+                           engine="torch")
         return Computation(dict_fn, specs, out_specs)
 
     # -- serialization (torch.export) ---------------------------------------
@@ -429,11 +436,25 @@ class _Flat(torch.nn.Module):
         return self.fn(dict(zip(self.names, args)))
 
 
+# torch.fx's tracing state is process-wide (its patcher,
+# ``torch.fx._symbolic_trace.CURRENT_PATCHER``): two traces from two
+# threads at once (the serving scheduler's workers interning programs or
+# extracting a filter's atoms, a submit taking a fingerprint) fail each
+# other, so every ``torch.export`` and ``make_fx`` runs under this lock
+_EXPORT_LOCK = threading.RLock()
+
+
 def export_program(comp: Computation):
     """``torch.export`` of ``comp`` under :func:`_sym_shapes`, traced with
     fake tensors on the CPU. A program that closes over tensors on the
     package's CUDA device is traced there instead and its constants moved
-    to the CPU, so that the archive never names a card."""
+    to the CPU, so that the archive never names a card. One export at a
+    time in the process (``_EXPORT_LOCK``)."""
+    with _EXPORT_LOCK:
+        return _export_program(comp)
+
+
+def _export_program(comp: Computation):
     examples, dynamic = _sym_shapes(comp.inputs, share_lead_symbol=True)
 
     def trace(where):

@@ -90,6 +90,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import time
 import traceback
 import weakref
 from typing import Dict, Mapping, Optional, Union
@@ -107,7 +108,7 @@ from ..observability.events import current_trace as _obs_current_trace
 from ..resilience import (default_policy, env_bool, faults, is_oom,
                           is_permanent)
 from ..utils.logging import get_logger
-from ..utils.tracing import counters, span
+from ..utils.tracing import counters, histograms, span
 
 __all__ = ["BlockExecutor", "PendingBlock", "current_computation_interner",
            "default_executor", "default_padding_executor",
@@ -569,7 +570,9 @@ class BlockExecutor:
             seen = self._prepared.get(prog)
             if seen is not None and key in seen:
                 continue
+            t0 = time.perf_counter()
             prog.place(device)
+            placed_s = time.perf_counter() - t0
             with self._lock:
                 seen = self._prepared.setdefault(prog, set())
                 if key in seen:
@@ -577,6 +580,9 @@ class BlockExecutor:
                 seen.add(key)
                 self.compile_count += 1
             counters.inc("compile_cache.misses")
+            # a deserialized program's first placement is the port's
+            # compile (the first torch.export.load in a process included)
+            histograms.observe("compile_seconds", placed_s, engine="torch")
             _obs_event("compile_cache", hit=False)
             _log.debug("program #%d placed on %s", self.compile_count, key)
 

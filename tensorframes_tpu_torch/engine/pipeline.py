@@ -50,16 +50,19 @@ cannot lease drains its own oldest block first (``pipeline.slot_waits``)
 and waits only when it holds none, honouring the resilience deadline;
 the lease is released in the drain's ``finally``. The stream layer
 (``stream/runtime.py``) leases one slot per single-block batch. The
-serving scheduler that installs a pool of its own is not in this package
-yet (``ROADMAP.md`` A11).
+serving scheduler (``serve/scheduler.py``) installs a pool of its own
+while it is open, and a contended lease's wait counts into the served
+query's cost vector (``observability/baseline.py``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence, TypeVar
 
+from ..observability import baseline as _baseline
 from ..observability import device as _obs_device
 from ..observability import events as _obs
 from ..resilience import check_deadline, env_int
@@ -305,12 +308,16 @@ def run_pipelined(blocks: Sequence[B],
             return True
         counters.inc("pipeline.slot_waits")
         t0 = trace.clock() if trace is not None else 0.0
+        # measured always (on the contended path only): the sentinel's
+        # cost vector attributes this wait in seconds, not just a count
+        w0 = time.perf_counter()
         # while we hold blocks, draining our own oldest frees a slot at
         # once; only a stream holding none waits on the others
         while not pool.try_acquire(timeout=0.0 if window else 0.05):
             check_deadline("pipeline.slot")
             if window:
                 drain_one()
+        _baseline.note_wait(time.perf_counter() - w0)
         if trace is not None:
             trace.add("slot_wait", ts=t0, dur=trace.clock() - t0)
         return True

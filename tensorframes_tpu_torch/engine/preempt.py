@@ -8,8 +8,7 @@ submit/drain split gives every query natural yield points at block
 boundaries, and killing a kernel mid-flight is neither possible nor
 desirable. This module is the token that crosses into the engine:
 
-- the caller (the JAX package's serving scheduler; ``ROADMAP.md`` A11 in
-  the port) activates a :class:`PreemptionScope` (a contextvar) around a
+- the caller (the serving scheduler, ``serve/scheduler.py``) activates a :class:`PreemptionScope` (a contextvar) around a
   query's forcing and flips ``request_cancel`` / ``request_preempt`` from
   any thread;
 - :func:`~.pipeline.run_pipelined` polls the scope between submits

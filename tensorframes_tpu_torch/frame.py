@@ -35,8 +35,10 @@ recorded plan asks the plan-fingerprint result cache first
 ``uncache()`` bumps the frame's version, so a re-force is never served a
 stale entry.
 
-Not in this package yet: ``submit`` (the serve layer) and the hot-key
-observations of a salted ``daggregate`` (``hot_keys`` returns none).
+``submit`` defers a frame's forcing to the serving scheduler, and
+``explain`` renders its forcing's report (``observability/report.py``).
+Not in this package yet: the hot-key observations of a salted
+``daggregate`` (``hot_keys`` returns none).
 """
 
 from __future__ import annotations
@@ -240,8 +242,6 @@ class TensorFrame:
         # the optimized plan's rendering after a fused forcing
         self._plan_node = None
         self._plan_info: Optional[List[str]] = None
-        # host spans of the last forcing made with tracing on (explain)
-        self._spans: Optional[Dict[str, Dict[str, float]]] = None
         # the query trace of this frame's forcing (tracing on, and not
         # nested inside another query)
         self._trace = None
@@ -322,9 +322,6 @@ class TensorFrame:
                     _memory.note_frame_cache(self)
                     return self._cache
             from .observability import events as _obs
-            from .utils import tracing
-            before = tracing.timings.snapshot() if tracing.enabled() \
-                else None
             # forcing IS the query: open a correlated trace (None with
             # tracing off; a forcing nested inside another query joins
             # the ambient trace and yields None here)
@@ -341,9 +338,6 @@ class TensorFrame:
                     else self._thunk()
             if t is not None:
                 self._trace = t
-            if before is not None:
-                self._spans = _span_delta(before,
-                                          tracing.timings.snapshot())
             if self._plan_node is not None:
                 # two-touch admission: interned only when this exact
                 # fingerprint repeats, never for one-off chains or
@@ -539,6 +533,17 @@ class TensorFrame:
         "salt_slots": K}``. This package has no salted ``daggregate`` yet,
         so no frame carries any and the list is empty."""
         return []
+
+    def submit(self, fetches=None, *, tenant: str = "default",
+               deadline: Optional[float] = None, **kwargs):
+        """Defer this frame's forcing to the multi-tenant query scheduler
+        (``ttf.submit``): queued under ``tenant``'s quotas, admitted
+        against the card's memory, run under weighted-fair selection.
+        Returns a ``serve.SubmittedQuery`` future whose ``.result()`` is
+        the forced frame."""
+        from . import api
+        return api.submit(self, fetches, tenant=tenant, deadline=deadline,
+                          **kwargs)
 
     def limit(self, n: int) -> "TensorFrame":
         """The first ``n`` rows (in block order). Lazy."""
@@ -753,55 +758,24 @@ class TensorFrame:
 
     # -- introspection -----------------------------------------------------
     def explain(self) -> str:
-        """Execution report of this frame's forcing: rows, blocks, the
-        host spans by stage and, when the logical plan ran, its fused
-        stages, pruned columns, pushdown and resident edges.
+        """Execution report of this frame's forcing
+        (``observability.report.frame_report``): the query id, rows in and
+        out, blocks, bytes marshalled, retries, OOM splits, sync
+        fallbacks, preemption, the card's memory peak, the wall time by
+        stage and, when the logical plan ran, its fused stages, pruned
+        columns, pushdown and resident edges.
 
         A frame not yet forced with tracing on is (re-)forced once with
-        tracing enabled, so a post-hoc ``explain()`` re-runs the plan.
+        tracing enabled, so a post-hoc ``explain()`` re-runs the plan;
+        force under ``TFT_TRACE=1`` to avoid that. Eager results
+        (``reduce_*``, ``aggregate``) have ``ttf.last_query_report()``.
         Distinct from the function ``explain(df)``, which describes the
         schema."""
-        if self._spans is None:
-            from .utils import tracing
-            was = tracing.enabled()
-            tracing.enable()
-            try:
-                self._cache = None
-                self.blocks()
-            finally:
-                if not was:
-                    tracing.disable()
-        blocks = self.blocks()
-        lines = [f"query    : {self._plan}",
-                 f"  rows     : {sum(b.num_rows for b in blocks)} in "
-                 f"{len(blocks)} block(s)"]
-        if self._spans:
-            lines.append("  wall time by stage:")
-            width = max(len(k) for k in self._spans)
-            for name in sorted(self._spans,
-                               key=lambda k: -self._spans[k]["total_s"]):
-                st = self._spans[name]
-                lines.append(f"    {name:<{width}} {int(st['count']):6d}x "
-                             f"{st['total_s']:12.6f}s")
-        if self._plan_info:
-            lines.extend(self._plan_info)
-        return "\n".join(lines)
+        from .observability.report import frame_report
+        return frame_report(self)
 
     def explain_tensors(self) -> str:
         return self._schema.tree_string()
-
-
-def _span_delta(before: Dict[str, Dict[str, float]],
-                after: Dict[str, Dict[str, float]]
-                ) -> Dict[str, Dict[str, float]]:
-    """The spans recorded between two ``timings`` snapshots."""
-    out = {}
-    for name, st in after.items():
-        b = before.get(name, {"count": 0, "total_s": 0.0})
-        if st["count"] > b["count"]:
-            out[name] = {"count": st["count"] - b["count"],
-                         "total_s": st["total_s"] - b["total_s"]}
-    return out
 
 
 class GroupedFrame:

@@ -19,20 +19,28 @@ for the part the engine's recovery calls:
 
 - :mod:`.metrics`: :func:`metrics_text` renders the counters, spans,
   gauges, histograms and every registered provider (the flight
-  recorder's, the memory ledger's, the timeline's, the live streams') in
-  the Prometheus text format; :func:`serve_metrics` serves it on
-  loopback (``TFT_METRICS_PORT=<port>`` starts it at import);
+  recorder's, the memory ledger's, the timeline's, the live streams', the
+  SLOs', the sentinel's, the history's, a live scheduler's) in the
+  Prometheus text format; :func:`serve_metrics` serves it on loopback
+  (``TFT_METRICS_PORT=<port>`` starts it at import);
 - :mod:`.timeline`: the always-on bounded ring of periodic snapshots
-  (:func:`timeline` answers deltas and rates over a window).
+  (:func:`timeline` answers deltas and rates over a window);
+- :mod:`.report`: ``frame.explain()`` and :func:`last_query_report`;
+- :mod:`.baseline`: the performance sentinel, per-query cost vectors,
+  rolling per-fingerprint baselines and :func:`regressions`;
+- :mod:`.slo`: per-tenant latency objectives, error budgets and burn
+  rates (:func:`set_slo`, :func:`slo_status`, :func:`on_burn`);
+- :mod:`.history`: the durable query history and crash post-mortems
+  (``TFT_HISTORY_DIR``);
+- :mod:`.decisions`: :func:`why` (one query's decision chain) and
+  :func:`doctor` (the process triage report);
+- :mod:`.health`: :func:`health`, one snapshot across the subsystems.
 
 Zero cost when off: with ``TFT_TRACE`` unset :func:`query_trace` yields
 ``None`` and every hook is one ``None`` check. Importing this package
 installs :func:`.events._on_span` as the span observer, so every span is
 also credited to the active query's stage breakdown.
 
-Not in this package yet (``ROADMAP.md`` A11): SLOs, the performance
-baseline, the durable history, ``why``/``doctor``, ``health`` and the
-text report.
 """
 
 from __future__ import annotations
@@ -48,8 +56,16 @@ from .events import (DEVICE_TRACK_BASE, Event, QueryTrace, add_event,
 from . import device
 from . import flight
 from . import metrics
+from . import slo
 from . import timeline
+from . import baseline
+from . import history
+from .baseline import perf_stats, regressions
+from .decisions import doctor, why
+from .health import health
 from .metrics import metrics_port, metrics_text, serve_metrics, stop_metrics
+from .report import frame_report, last_query_report, render
+from .slo import SLO, on_burn, set_slo, slo_status
 
 __all__ = [
     "Event", "QueryTrace", "query_trace", "current_trace", "add_event",
@@ -57,6 +73,10 @@ __all__ = [
     "clear_ring", "block_meta", "bypass", "DEVICE_TRACK_BASE", "device",
     "flight", "metrics", "timeline", "metrics_text",
     "serve_metrics", "stop_metrics", "metrics_port",
+    "frame_report", "last_query_report", "render",
+    "slo", "why", "doctor", "health",
+    "SLO", "set_slo", "slo_status", "on_burn",
+    "baseline", "regressions", "perf_stats", "history",
 ]
 
 _log = get_logger("observability")
@@ -67,11 +87,14 @@ from .events import _on_span as _span_observer  # noqa: E402
 
 _tracing.set_span_observer(_span_observer)
 
-# the flight recorder's and the timeline's families register once the
-# provider registry exists (deferred: flight is imported by metrics' own
-# import chain)
+# the flight recorder's, the SLOs', the timeline's, the sentinel's and the
+# history's families register once the provider registry exists
+# (deferred: flight is imported by metrics' own import chain)
 flight._register_metrics()
+slo._register_metrics()
 timeline._register_metrics()
+baseline._register_metrics()
+history._register_metrics()
 
 
 def _maybe_autostart() -> None:

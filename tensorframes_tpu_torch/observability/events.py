@@ -21,18 +21,16 @@ query's block ran out of memory and where its time went:
   file; :meth:`QueryTrace.to_chrome_trace` exports a chrome://tracing /
   Perfetto timeline with one track per in-flight pipeline slot;
 - ``TFT_SLOW_QUERY_MS`` writes one condensed line for a query over the
-  threshold, traced or not. The JAX package adds the performance
-  sentinel's cost context to that line (best effort there too); the
-  port's line goes out without it, as the sentinel is not ported.
+  threshold, traced or not, with the performance sentinel's cost context
+  (``baseline.slow_context``) when the query is served;
+- a finished trace is archived in the durable query history
+  (``observability/history.py``), unless it is a served query, which the
+  scheduler archives itself; :meth:`QueryTrace.report` renders it
+  (``observability/report.py``).
 
 Zero cost when off: :func:`query_trace` yields ``None`` unless tracing is
 enabled (``TFT_TRACE=1`` / :func:`~..utils.tracing.enable`), and every
 hook is then a ``None`` check.
-
-Not in this package yet (``ROADMAP.md`` A11): the durable query history,
-which a finished trace archives when ``TFT_HISTORY_DIR`` is set (the
-port raises ``NotImplementedError`` there), and
-:meth:`QueryTrace.report`, which raises the same.
 """
 
 from __future__ import annotations
@@ -210,10 +208,17 @@ class QueryTrace:
         path = os.environ.get("TFT_TRACE_FILE")
         if path:
             self._write_jsonl(path, dicts)
-        if os.environ.get("TFT_HISTORY_DIR"):
-            raise NotImplementedError(
-                "TFT_HISTORY_DIR is set, and the durable query history "
-                "(ROADMAP.md A11) is not in tensorframes_tpu_torch yet")
+        # durable query history: traced forcings archive too; a served
+        # query's trace is skipped, as the scheduler archives its own
+        # richer record under the serving id
+        if self.op != "serve":
+            from . import history as _history
+            _history.record_finish(
+                self.query_id, outcome="error" if error else "ok",
+                error=error, run_s=self.duration,
+                total_s=self.duration, source="trace",
+                summary=self.op,
+                decisions=_flight.for_query(self.query_id))
         ms = _slow_query_threshold_ms()
         if ms is not None and self.duration * 1000.0 >= ms:
             s = self.summary()
@@ -377,10 +382,8 @@ class QueryTrace:
         return s
 
     def report(self) -> str:
-        raise NotImplementedError(
-            "QueryTrace.report() renders through observability/report.py "
-            "(ROADMAP.md A11), which is not in tensorframes_tpu_torch yet; "
-            "summary() and to_chrome_trace() are")
+        from .report import render
+        return render(self)
 
     # -- chrome trace export ----------------------------------------------
     def to_chrome_trace(self, file: Optional[str] = None) -> str:
@@ -484,7 +487,17 @@ def _emit_slow(rec: Dict[str, Any]) -> None:
     sink when set (size-capped rotation shared with the trace writer),
     else the logger. A slow query also triggers a flight-recorder dump
     when ``TFT_FLIGHT_DUMP`` is set: the decisions that made it slow are
-    in the ring right now. (No cost context: see the module docstring.)"""
+    in the ring right now."""
+    try:
+        # the sentinel's live cost preview: the in-flight cost vector, the
+        # plan fingerprint and the worst deviation against the stored
+        # baseline, so the line explains itself
+        from . import baseline as _baseline
+        ctx = _baseline.slow_context()
+        if ctx is not None:
+            rec = {**rec, **ctx}
+    except Exception as e:
+        _log.debug("slow-query cost context failed: %s", e)
     line = json.dumps(rec, default=str)
     _flight.maybe_dump("slow_query")
     path = os.environ.get("TFT_TRACE_FILE")

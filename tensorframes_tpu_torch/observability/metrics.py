@@ -21,7 +21,9 @@ Families:
   observed at every traced query's finish;
 - the providers' families: the flight recorder's (``tft_flight_*``), the
   memory manager's (``tft_memory_*``), the timeline's
-  (``tft_timeline_*``) and the live streams' (``tft_stream_*``);
+  (``tft_timeline_*``), the live streams' (``tft_stream_*``), the SLOs'
+  (``tft_serve_slo_*``), the sentinel's (``tft_perf_*``), the history's
+  (``tft_history_*``) and each live scheduler's (``tft_serve_*``);
 - ``tft_trace_ring_events``: events currently buffered in the ring.
 
 The endpoint binds ``127.0.0.1`` only: metric names leak workload
@@ -30,10 +32,10 @@ not a default. ``TFT_METRICS_PORT=<port>`` starts it at import (``0``
 picks a free port; ``observability/__init__.py``).
 
 Unlike the JAX package, spans carry no ``tft_span_seconds_min/_max``
-gauges (the port's span registry keeps counts and sums only), and there
-is no ``tft_compile_seconds`` family (the port compiles nothing per
-shape). The providers of modules not ported yet (serve, SLOs, history,
-the baseline) come with them (``ROADMAP.md`` A11).
+gauges (the port's span registry keeps counts and sums only), and
+``tft_compile_seconds{engine="torch"}`` observes what the port pays for a
+new program (a capture's probes, a deserialized program's first
+placement), where the JAX package observes XLA compiles.
 """
 
 from __future__ import annotations

@@ -1,0 +1,200 @@
+"""Human-readable per-query reports: ``frame.explain()`` and
+``ttf.last_query_report()``.
+
+The port's counterpart of ``tensorframes_tpu/observability/report.py``.
+One call renders what a query did: rows, blocks, bytes marshalled,
+retries, OOM splits, sync fallbacks, compile-cache behaviour, preemption,
+the card's memory peak, and the wall time by stage, all from the query's
+own :class:`~.events.QueryTrace`, so overlapping queries do not mix their
+numbers. :func:`frame_report` adds the logical plan's section (fused
+stages, pruned columns, pushdown, resident edges) and a join's routing.
+
+The JAX package's per-device (mesh) section, with its straggler ratio
+against ``TFT_SKEW_WARN``, comes with the parallel layer (``ROADMAP.md``
+A10): no port layer records per-device shard events yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..utils import tracing
+from . import events as _events
+
+__all__ = ["render", "frame_report", "last_query_report"]
+
+
+def _fmt_bytes(n) -> str:
+    # tolerant of None and strings: the decision audit feeds it whatever
+    # a flight record carried
+    try:
+        v = float(n)
+    except (TypeError, ValueError):
+        return str(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(v) < 1024.0 or unit == "TiB":
+            return f"{v:.1f} {unit}" if unit != "B" else f"{int(v)} B"
+        v /= 1024.0
+    return f"{int(n)} B"
+
+
+def _fmt_secs(s: float) -> str:
+    if s < 1e-3:
+        return f"{s * 1e6:.0f} us"
+    if s < 1.0:
+        return f"{s * 1e3:.2f} ms"
+    return f"{s:.3f} s"
+
+
+def render(trace: "_events.QueryTrace") -> str:
+    """Render one finished (or in-flight) trace as an aligned report."""
+    s = trace.summary()
+    lines = [
+        f"query {s['query_id']} · {s['op']} · "
+        f"{_fmt_secs(s['duration_s'])} · {s['blocks']} block(s)",
+        f"  rows     : {s['rows_in']} in / {s['rows_out']} out · "
+        f"{_fmt_bytes(s['bytes_in'])} marshalled",
+    ]
+    occ = (f", mean occupancy {s['occupancy_mean']:.2f}"
+           if s["occupancy_mean"] is not None else "")
+    if s["slots"] or occ:
+        lines.append(f"  pipeline : {s['slots']} in-flight slot(s){occ}, "
+                     f"{s['sync_fallbacks']} sync fallback(s)")
+    lines.append(
+        f"  resilience: {s['retries']} retried, {s['giveups']} gave up, "
+        f"{s['oom_splits']} oom split(s), "
+        f"{s['pad_fallbacks']} pad fallback(s)")
+    compile_s = (f" · {_fmt_secs(s['compile_seconds'])} compiling"
+                 if s["compile_seconds"] else "")
+    lines.append(
+        f"  compile  : {s['compile_misses']} miss(es) / "
+        f"{s['compile_hits']} hit(s){compile_s}")
+    if trace.meta:
+        meta = " ".join(f"{k}={v}" for k, v in sorted(trace.meta.items())
+                        if k != "plan")
+        if meta:
+            lines.append(f"  query    : {meta}")
+    for ev in list(trace.events):
+        a = ev.args or {}
+        if ev.etype == "adaptive_layout":
+            lines.append(
+                f"  adaptive : {a.get('blocks')} leaf block(s) "
+                f"re-bucketed into {a.get('units')} (coalesced "
+                f"{a.get('coalesced', 0)}, split {a.get('splits', 0)}) "
+                f"— original boundaries restored")
+        elif ev.etype == "replan":
+            lines.append(
+                f"  adaptive : mid-plan re-plan at block "
+                f"{a.get('at_block')} — observed selectivity deviated "
+                f"past TFT_REPLAN_RATIO; remaining filter stages "
+                f"re-ordered")
+        elif ev.etype == "result_cache_hit":
+            lines.append(
+                f"  adaptive : result cache HIT — {a.get('blocks')} "
+                f"block(s) / {a.get('bytes')} B served with zero "
+                f"dispatches")
+        elif ev.etype == "sched_admission_preempt":
+            lines.append(
+                f"  admission: preempted query {a.get('victim')} "
+                f"({a.get('victim_bytes')} B) to clear headroom "
+                f"instead of shedding")
+    if s["preempts"] or s["resumed_blocks"]:
+        lines.append(
+            f"  preempt  : parked {s['preempts']} time(s); "
+            f"{s['resumed_blocks']} block(s) restored from checkpoint "
+            f"instead of re-dispatched")
+    if s["hbm"] is not None:
+        h = s["hbm"]
+        lines.append(f"  memory   : peak HBM {_fmt_bytes(h['peak'])} "
+                     f"(live {_fmt_bytes(h['live_start'])} -> "
+                     f"{_fmt_bytes(h['live_end'])})")
+    if (s["spills"] or s["faults"] or s["proactive_splits"]
+            or s["external_sort_runs"]):
+        ext = (f", external sort in {s['external_sort_runs']} run(s)"
+               if s["external_sort_runs"] else "")
+        lines.append(
+            f"  spill    : {s['spills']} spill(s) "
+            f"({_fmt_bytes(s['spill_bytes'])} to host), "
+            f"{s['faults']} fault(s), {s['proactive_splits']} proactive "
+            f"split(s){ext}")
+    extra = f" (+{s['dropped']} dropped)" if s["dropped"] else ""
+    lines.append(f"  events   : {s['events']} recorded{extra}")
+    with trace._lock:
+        stages = {k: tuple(v) for k, v in trace.stages.items()}
+    if stages:
+        lines.append("  wall time by stage:")
+        width = max(len(k) for k in stages)
+        for name in sorted(stages, key=lambda k: -stages[k][1]):
+            count, total = stages[name]
+            lines.append(f"    {name:<{width}} {int(count):6d}x "
+                         f"{total:12.6f}s")
+    return "\n".join(lines)
+
+
+def _with_plan(df, report: str) -> str:
+    """The frame's own sections after the trace's: the optimized plan of
+    its forcing (absent under ``TFT_FUSE=0`` or when the chain ran per
+    op) and a join's routing decision."""
+    info = getattr(df, "_plan_info", None)
+    if info:
+        report = report + "\n" + "\n".join(info)
+    route = getattr(df, "_join_route", None)
+    if route:
+        est = route.get("est_build_bytes")
+        tail = ""
+        if est is not None or route.get("limit") is not None:
+            est_s = _fmt_bytes(est) if est is not None else "unknown"
+            tail = (f" — est build {est_s} vs limit "
+                    f"{_fmt_bytes(route.get('limit'))}")
+        report += (f"\n  join     : auto-routed to "
+                   f"{route['strategy']!r} ({route['reason']}){tail}")
+    return report
+
+
+def frame_report(df) -> str:
+    """``TensorFrame.explain()``: the execution report of the frame's
+    forcing.
+
+    A frame already forced with tracing on renders its recorded trace.
+    Otherwise it is (re-)forced once with tracing on: ``explain()`` is an
+    explicit request for the report, so it pays for one traced run rather
+    than returning nothing."""
+    t = getattr(df, "_trace", None)
+    if t is None:
+        if _events.current_trace() is not None:
+            # re-forcing inside an active query would join that trace and
+            # record nothing for this frame
+            return ("(no query trace recorded — explain() was called "
+                    "inside another active query; call it after that "
+                    "query finishes)")
+        was = tracing.enabled()
+        if not was:
+            tracing.enable()
+        old_cache = df._cache
+        try:
+            df._cache = None  # re-force under a trace
+            df.blocks()
+        except BaseException:
+            df._cache = old_cache  # a failed re-force keeps the result
+            raise
+        finally:
+            if not was:
+                tracing.disable()
+        t = getattr(df, "_trace", None)
+    if t is None:
+        return _with_plan(
+            df, "(no query trace recorded — the frame was forced inside "
+                "another query or tracing stayed off)")
+    return _with_plan(df, render(t))
+
+
+def last_query_report() -> str:
+    """The report of the most recently finished query (an eager op, such
+    as ``reduce_blocks`` or ``aggregate``, has no frame to call
+    ``explain()`` on)."""
+    t: Optional[_events.QueryTrace] = _events.last_query()
+    if t is None:
+        return ("(no query recorded yet — enable tracing with TFT_TRACE=1 "
+                "or tensorframes_tpu_torch.utils.tracing.enable() and run "
+                "a query)")
+    return render(t)

@@ -23,8 +23,8 @@ REPL on the host:
 ring's own health is scrapeable (``tft_timeline_*``). The knobs are read
 through ``utils/env.py``.
 
-Not in this package yet: the performance baseline that shares this gate
-(``observability/baseline.py``, ``ROADMAP.md`` A11).
+The performance sentinel (``observability/baseline.py``) shares this
+gate, and a served query's finish is one of the timeline's beats.
 """
 
 from __future__ import annotations

@@ -5,6 +5,11 @@ library with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` at
 the root of the checkout, and loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited source builds anew. Building happens at
 first use, never at import; :func:`build` compiles several sources at once.
+One process-wide lock serializes builds and loads, so threads that reach a
+kernel's first use together (the serving scheduler's workers) run one
+``nvcc`` per source and share one handle; each build writes a temporary
+file named for its process and thread, moved into place atomically, so
+two processes building the same source cannot tear each other's library.
 A failed or impossible build raises
 :class:`~..resilience.classify.KernelError`, which the resilience layer
 treats as permanent: it is not retried and nothing falls back to a plain
@@ -18,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -31,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -56,13 +63,19 @@ def build(*names: str) -> Dict[str, ctypes.CDLL]:
     """The kernel libraries ``names``, each built first if need be: one
     ``nvcc`` per source, all started together. Raises with the compiler's
     output if one fails (after every ``nvcc`` has ended)."""
+    with _lock:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> Dict[str, ctypes.CDLL]:
     jobs = []
     for name in names:
         out = _library_path(name)
         if name in _loaded or out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

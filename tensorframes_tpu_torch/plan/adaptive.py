@@ -53,9 +53,10 @@ three legs:
 ``TFT_ADAPTIVE=0`` disables legs 1 and 2 wholesale; every unprovable case
 (non-row-local ops, ragged inputs, an active preemption scope, whose
 checkpoint tags pin the static block count) keeps the static layout
-bit-identically. The one call into ``observability/baseline.py``
-(``record_stream_feedback``) is a no-op until that module is ported
-(``ROADMAP.md`` A item 3).
+bit-identically. :func:`record_stream_feedback` also feeds each
+forcing's wall to the performance sentinel (``observability/baseline.py``),
+and :func:`query_fingerprint` is the key of its baselines and of the
+serving quarantine.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ from ..utils.tracing import counters, gauge
 __all__ = ["enabled", "result_cache_enabled", "replan_ratio",
            "StreamFeedback", "record_stream_feedback", "stream_feedback",
            "Layout", "choose_layout", "fingerprint", "program_state",
-           "portable_fingerprint", "cached_result",
+           "portable_fingerprint", "query_fingerprint", "cached_result",
            "offer_result", "invalidate_results", "result_cache_stats",
            "AdaptiveBatcher"]
 
@@ -172,11 +173,7 @@ def record_stream_feedback(key: str, blocks: int, rows: int,
             _feedback.popitem(last=False)
     # the same measured wall that calibrates layouts attributes the
     # serving query's cost in the performance sentinel's baselines
-    # (observability/baseline.py); a no-op until that module is ported
-    try:
-        from ..observability import baseline as _baseline
-    except ImportError:
-        return
+    from ..observability import baseline as _baseline
     _baseline.note_stage_wall(wall_s)
 
 
@@ -701,6 +698,92 @@ def portable_fingerprint(frame) -> Optional[str]:
         return None
     raw = repr((tuple(parts), getattr(frame, "_version", 0)))
     return hashlib.sha256(raw.encode()).hexdigest()
+
+
+def _identity_node_fp(node) -> Optional[tuple]:
+    """One plan node's identity for :func:`query_fingerprint`: the JAX
+    package's rule, the structural signature of a node's program without
+    the values it reads (a baseline keyed by a program whose state moved
+    only calibrates another baseline, never serves a wrong result, so it
+    needs none of :func:`program_state`'s soundness); ``("src", ...)``
+    for an in-memory leaf, ``None`` for a join or another leaf."""
+    kind = node.kind
+    if kind == "parquet":
+        return _portable_node_fp(node)
+    if kind in ("map_blocks", "map_rows", "filter"):
+        from ..serve.cache import computation_signature
+        sig = computation_signature(node.comp)
+        if sig is None:
+            return None
+        if kind == "map_blocks":
+            return ("mb", sig, node.trim)
+        return ("mr" if kind == "map_rows" else "f", sig)
+    if kind == "select":
+        return ("sel", node.names)
+    if kind == "source" and node.frame is not None:
+        f = node.frame
+        try:
+            rows = f.estimated_rows()
+        except Exception:  # noqa: BLE001 - lazy source
+            rows = None
+        return ("src", repr(getattr(f, "schema", None)), rows)
+    return None
+
+
+def query_fingerprint(frame) -> Optional[Tuple[str, bool]]:
+    """``(digest, portable)`` identity of a frame's chain for the
+    performance sentinel's cost baselines (``observability/baseline.py``)
+    and the poison-query quarantine, or ``None`` when the chain has no
+    usable identity (a bare leaf, a join). Programs count by their
+    structural signatures (:func:`_identity_node_fp`), so the same logical
+    query re-submitted over fresh frame and program objects keeps one
+    baseline. A parquet-rooted chain is portable: another process that
+    builds the same chain over the same file derives the same digest, and
+    its baseline persists (``memory/persist.py``). An in-memory leaf adds
+    its schema and row estimate and is process-local, never persisted.
+
+    Unlike the JAX package's, the digest is not the durable result tier's
+    key: the port's :func:`portable_fingerprint` also holds each
+    program's :func:`program_state`, which a DSL program does not have."""
+    node = getattr(frame, "_plan_node", None)
+    parts: List[tuple] = []
+    portable = True
+    has_pq = False
+    depth = 0
+    while node is not None and depth < 256:
+        fp = _identity_node_fp(node)
+        if fp is None:
+            return None
+        portable = portable and fp[0] != "src"
+        has_pq = has_pq or fp[0] == "pq"
+        parts.append(fp)
+        node = node.input
+        depth += 1
+    if node is not None or len(parts) < 2:
+        return None
+    raw = repr((tuple(parts), getattr(frame, "_version", 0)))
+    return (hashlib.sha256(raw.encode()).hexdigest(),
+            portable and has_pq)
+
+
+def aggregate_fingerprint(grouped, fetches) -> Optional[Tuple[str, bool]]:
+    """``(digest, portable)`` identity of ``aggregate(fetches, grouped)``
+    served as one query (``QueryScheduler.submit(grouped, fetches)``, a
+    form the JAX package's scheduler does not take): the grouped chain's
+    :func:`query_fingerprint` with the keys and each column's combiner,
+    so that the served aggregate and its bare chain keep apart baselines
+    and quarantine streaks. ``None`` when the chain has no identity or a
+    combiner is not a name (a sketch combiner, a program)."""
+    if not isinstance(fetches, dict) or not fetches or not all(
+            isinstance(k, str) and isinstance(v, str)
+            for k, v in fetches.items()):
+        return None
+    base = query_fingerprint(grouped.frame)
+    if base is None:
+        return None
+    raw = repr((base[0], "aggregate", tuple(grouped.keys),
+                tuple(sorted(fetches.items()))))
+    return hashlib.sha256(raw.encode()).hexdigest(), base[1]
 
 
 def _warm_lookup(frame, key, validators, comps) -> Optional[List]:

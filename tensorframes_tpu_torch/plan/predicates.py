@@ -151,7 +151,9 @@ def _extract(comp) -> List[Atom]:
                               for d in specs[n].shape.dims),
                         dtype=_dt.device_dtype(specs[n].dtype))
             for n in names]
-    gm = make_fx(traced, tracing_mode="fake")(*args)
+    from ..computation import _EXPORT_LOCK
+    with _EXPORT_LOCK:  # one torch.fx trace at a time in the process
+        gm = make_fx(traced, tracing_mode="fake")(*args)
     src = {}     # fx node -> ("col", name) | ("lit", value)
     bools = {}   # fx node -> the atoms it provably equals (a bool vector)
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]

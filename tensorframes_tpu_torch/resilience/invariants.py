@@ -21,9 +21,11 @@ Two modes, one knob pair:
   context): a violation also raises a classified
   :class:`~.classify.InvariantViolation` at the quiesce point.
 
-Built-in auditors, consulted live at each audit: slot-pool lease balance
-and memory-ledger reservation balance with spillable-registry
-consistency. :func:`register` adds process-wide custom auditors.
+Built-in auditors, consulted live at each audit: slot-pool lease balance,
+memory-ledger reservation balance with spillable-registry consistency,
+and every live serving scheduler's queue, running and in-flight
+accounting (no orphaned query at its close). :func:`register` adds
+process-wide custom auditors.
 
 Per-query row conservation is threaded, not global: ``plan/execute.py``
 opens a :func:`row_ledger` around a row-local fused plan, filter stages
@@ -32,9 +34,9 @@ opens a :func:`row_ledger` around a row-local fused plan, filter stages
 prior attempt's prefix calls :func:`taint_rows`, and the check is skipped,
 not faked. :func:`conserve` raises in every mode.
 
-Not in this package yet: the serving scheduler's and the fabric's
-auditors (with ``serve``, ``ROADMAP.md`` A11), and the strict mode an
-active chaos schedule implies (with ``resilience/chaos.py``, A11).
+Not in this package yet: the serving fabric's auditor and the strict mode
+an active chaos schedule implies (with ``serve/fabric.py`` and
+``resilience/chaos.py``, ``ROADMAP.md`` A11).
 """
 
 from __future__ import annotations
@@ -219,7 +221,16 @@ def _audit_memory(point: str) -> List[str]:
     return m.audit()
 
 
-_BUILTIN = (("slots", _audit_slots), ("memory", _audit_memory))
+def _audit_scheduler(point: str) -> List[str]:
+    from ..serve.scheduler import live_schedulers
+    out: List[str] = []
+    for s in live_schedulers():
+        out.extend(s.audit_invariants(point))
+    return out
+
+
+_BUILTIN = (("slots", _audit_slots), ("memory", _audit_memory),
+            ("scheduler", _audit_scheduler))
 
 
 def audit(point: str) -> List[str]:

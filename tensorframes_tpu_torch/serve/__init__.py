@@ -1,13 +1,36 @@
-"""Serving layer: the shared compile cache.
+"""The serving layer: the multi-tenant query scheduler, its statistics,
+poison-query quarantine and the shared compile cache.
 
-The port's counterpart of ``tensorframes_tpu/serve``, so far only its
-``cache`` module: :func:`computation_signature` and
-:class:`SharedCompileCache`, whose ``intern`` is installed on the executor
-with :func:`~..engine.executor.set_computation_interner`. The scheduler,
-its statistics, quarantine and the serving fabric are not in this package
-yet (``ROADMAP.md`` A11).
+The port's counterpart of ``tensorframes_tpu/serve``:
+
+- :class:`QueryScheduler` (``scheduler.py``): per-tenant bounded queues,
+  weighted-fair stride selection, rows/sec quotas, deadlines, admission
+  against the card's memory with preemption, priority preemption with
+  park and resume, cancellation; ``ttf.submit()`` and
+  ``TensorFrame.submit()`` use the process default
+  (:func:`default_scheduler`);
+- :func:`serve_report` and :class:`ServerStats` (``stats.py``), with the
+  ``tft_serve_*`` metrics families;
+- :func:`quarantine_status` and :func:`unquarantine` (``quarantine.py``);
+- :class:`SharedCompileCache` (``cache.py``), which a scheduler installs
+  as the executor's interner.
+
+The serving fabric (``serve/fabric.py``: workers, leases, re-placement)
+comes in a later slice (``ROADMAP.md`` A11).
 """
 
 from .cache import SharedCompileCache, computation_signature
+from .quarantine import quarantine_status, unquarantine
+from .scheduler import (QueryScheduler, SubmittedQuery, TenantQuota,
+                        default_scheduler, live_scheduler,
+                        set_default_scheduler, shutdown_default_scheduler)
+from .stats import ServerStats, serve_report
 
-__all__ = ["SharedCompileCache", "computation_signature"]
+__all__ = [
+    "QueryScheduler", "SubmittedQuery", "TenantQuota",
+    "default_scheduler", "set_default_scheduler",
+    "shutdown_default_scheduler", "live_scheduler",
+    "SharedCompileCache", "computation_signature",
+    "ServerStats", "serve_report",
+    "unquarantine", "quarantine_status",
+]

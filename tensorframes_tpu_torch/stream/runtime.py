@@ -46,14 +46,14 @@ batch's wall, within the ledger's per-block ceiling); an int pins a row
 target; ``None`` is one source block per batch. ``TFT_ADAPTIVE=0`` turns
 both coalescing modes off.
 
-Not in this package yet: the durable query history's records of skipped
-and emitting batches (``TFT_HISTORY_DIR``, A11) make the handle raise
-``NotImplementedError`` when that knob is set.
+A skipped batch and a batch that emits windows each append one record to
+the durable query history (``observability/history.py``), and a slot
+wait counts into the served query's cost vector
+(``observability/baseline.py``).
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 import weakref
@@ -62,6 +62,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from ..engine import pipeline as _pipeline
 from ..frame import TensorFrame
+from ..observability import baseline as _baseline
 from ..observability import events as _obs
 from ..observability import metrics as _metrics
 from ..observability import timeline as _timeline
@@ -170,11 +171,6 @@ class StreamHandle:
         self._sink = sink
         self._on_update = on_update
         self.name = name or f"stream-{id(self) & 0xffff:x}"
-        if os.environ.get("TFT_HISTORY_DIR"):
-            raise NotImplementedError(
-                "TFT_HISTORY_DIR is set, and the durable query history a "
-                "stream records its skipped and emitting batches in "
-                "(ROADMAP.md A11) is not in tensorframes_tpu_torch yet")
         # batch sizing: "adaptive" sizes batches from runtime feedback
         # (AIMD over the measured batch wall inside the ledger ceiling);
         # an int coalesces already-available source blocks up to a fixed
@@ -440,6 +436,14 @@ class StreamHandle:
             _flight.record("stream.batch_skip", stream=self.name,
                            batch=i, error=type(e).__name__,
                            error_kind=kind)
+            # durable query history: a poisoned batch is the record a
+            # post-mortem wants to find after the process dies
+            from ..observability import history as _history
+            _history.record_finish(
+                f"{self.name}-b{i}", tenant=self.name,
+                outcome="skipped", error=f"{type(e).__name__}: {e}",
+                error_kind=kind, source="stream",
+                summary=f"stream {self.name!r} batch {i} skipped")
             if env_bool("TFT_STREAM_FAIL_FAST", False):
                 raise
             _log.error(
@@ -463,6 +467,16 @@ class StreamHandle:
         # batch boundaries are the timeline's beat on streaming-only
         # processes (interval-gated; off-interval cost is one compare)
         _timeline.maybe_sample()
+        if self._agg is not None and outputs:
+            # durable query history: a window EMIT is the stream's
+            # query-terminal moment (committed results left the runtime);
+            # once per emit, never per batch
+            from ..observability import history as _history
+            _history.record_finish(
+                f"{self.name}-b{i}", tenant=self.name, outcome="ok",
+                run_s=dt, total_s=dt, est_rows=rows, source="stream",
+                summary=f"stream {self.name!r} batch {i}: "
+                        f"{len(outputs)} window frame(s) emitted")
         for frame in outputs:
             self._deliver(frame)
 
@@ -486,11 +500,12 @@ class StreamHandle:
         counters.inc("stream.slot_waits")
         tr = _obs.current_trace()
         t0 = tr.clock() if tr is not None else 0.0
-        # (the JAX package also notes this wait for the performance
-        # baseline, which has an effect only inside the serving
-        # scheduler's capture: with the scheduler, ROADMAP.md A11)
+        # measured always (on the contended path only), for the
+        # sentinel's per-query slot_wait_s
+        w0 = time.perf_counter()
         while not pool.try_acquire(timeout=0.05):
             check_deadline("stream.slot")
+        _baseline.note_wait(time.perf_counter() - w0)
         if tr is not None:
             tr.add("slot_wait", ts=t0, dur=tr.clock() - t0)
         return pool

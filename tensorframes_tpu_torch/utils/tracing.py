@@ -36,8 +36,11 @@ defined), ``relational.probe_dispatches`` (gather programs run),
 ``oom_split.dispatches``, ``pipeline.sync_fallbacks`` and
 ``faults.<site>.injected``; ``trace.queries``. Spans of the recovery:
 ``executor.oom_split`` and ``resilience.<op>.attempt``. Gauge:
-``pipeline.occupancy``. Histogram: ``query_latency_seconds`` (by ``op``
-and ``outcome``).
+``pipeline.occupancy``. Histograms: ``query_latency_seconds`` (by ``op``
+and ``outcome``; served queries also by ``tenant``) and
+``compile_seconds`` (by ``engine``: what the port pays for a new program
+signature, a capture's probes and a deserialized program's first
+placement on a device).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from .logging import get_logger
 
 __all__ = ["Timings", "timings", "Counters", "counters", "Histograms",
            "histograms", "span", "gauge", "enable", "disable", "enabled",
-           "set_span_observer"]
+           "set_span_observer", "dump_stats", "profile"]
 
 _log = get_logger("utils.tracing")
 
@@ -120,6 +123,45 @@ class Timings:
             self._stats.clear()
             self._gauges.clear()
 
+    def report(self, include_counters: bool = True) -> str:
+        """One human-readable report: spans, gauges and (by default) the
+        always-on :data:`counters`."""
+        spans = self.snapshot()
+        gauges = self.gauges_snapshot()
+        counts = counters.snapshot() if include_counters else {}
+        if not spans and not gauges and not counts:
+            return "(no spans recorded; enable tracing first)"
+        lines = []
+        if spans:
+            width = max(len(k) for k in spans)
+            lines.append("%-*s %8s %12s %12s" % (width, "span", "count",
+                                                 "total_s", "mean_s"))
+            for name in sorted(spans, key=lambda k: -spans[k]["total_s"]):
+                s = spans[name]
+                lines.append("%-*s %8d %12.6f %12.6f"
+                             % (width, name, s["count"], s["total_s"],
+                                s["total_s"] / max(s["count"], 1)))
+        else:
+            lines.append("(no spans recorded; enable tracing first)")
+        if gauges:
+            width = max(len(k) for k in gauges)
+            lines.append("")
+            lines.append("%-*s %8s %12s %12s %12s" % (width, "gauge",
+                                                      "count", "mean",
+                                                      "max", "last"))
+            for name in sorted(gauges):
+                g = gauges[name]
+                lines.append("%-*s %8d %12.4f %12.4f %12.4f"
+                             % (width, name, g["count"], g["mean"],
+                                g["max"], g["last"]))
+        if counts:
+            width = max(len(k) for k in counts)
+            lines.append("")
+            lines.append("%-*s %8s" % (width, "counter", "value"))
+            for name in sorted(counts):
+                lines.append("%-*s %8d" % (width, name, counts[name]))
+        return "\n".join(lines)
+
 
 timings = Timings()
 
@@ -138,6 +180,11 @@ class Counters:
     def get(self, name: str) -> int:
         with self._lock:
             return self._counts.get(name, 0)
+
+    def get_many(self, names) -> Dict[str, int]:
+        """Several counters in one consistent read."""
+        with self._lock:
+            return {n: self._counts.get(n, 0) for n in names}
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
@@ -205,12 +252,27 @@ class Histograms:
         with self._lock:
             return {k: v.as_dict() for k, v in self._hists.items()}
 
+    def family_sum(self, family: str) -> float:
+        """The summed observations of one family over every label set,
+        read in place (the per-query cost capture reads the
+        ``compile_seconds`` total at every served query's start and
+        finish)."""
+        with self._lock:
+            return sum(h.sum for (fam, _), h in self._hists.items()
+                       if fam == family)
+
     def reset(self) -> None:
         with self._lock:
             self._hists.clear()
 
 
 histograms = Histograms()
+
+
+def dump_stats(file=None) -> None:
+    """Print spans, gauges and counters in one report
+    (``ttf.dump_stats()``)."""
+    print(timings.report(include_counters=True), file=file)
 
 _enabled = os.environ.get("TFT_TRACE", "") not in ("", "0", "false")
 
@@ -285,3 +347,40 @@ def gauge(name: str, value: float) -> None:
     unless tracing is on."""
     if _enabled:
         timings.add_gauge(name, float(value))
+
+
+@contextlib.contextmanager
+def profile(log_dir: str, host_spans: bool = True):
+    """Record a ``torch.profiler`` trace of the body into ``log_dir`` as a
+    Chrome trace (``trace.json``), with the CUDA activity when CUDA is
+    initialized, and the host spans on for the same window (each span is
+    also a ``record_function`` range in the trace). Yields the profiler,
+    whose ``key_averages()`` hold the device time once the body is done.
+
+    A profiler that fails to stop is logged, never raised: it must not
+    mask the body's own exception, nor fail a body that succeeded."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    was = _enabled
+    prof.__enter__()  # before enable(): a failure here must not leave
+    if host_spans:    # spans on for good
+        enable()
+    try:
+        yield prof
+    finally:
+        if not was:
+            disable()
+        try:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        except Exception as e:
+            _log.error("torch.profiler stop failed (trace in %s may be "
+                       "incomplete): %s", log_dir, e)
+        else:
+            _log.info("profile written to %s", log_dir)

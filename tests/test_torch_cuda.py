@@ -1087,3 +1087,49 @@ def test_adaptive_layout_on_the_card_stages_pinned_units(cuda, monkeypatch):
         for n in cb:
             assert ca[n].dtype == cb[n].dtype
             assert np.array_equal(ca[n], cb[n])
+
+
+def test_scheduler_serves_two_tenants_aggregates_through_the_kernel(
+        cuda, monkeypatch):
+    """Two tenants' keyed f64 sums served as aggregates
+    (``submit(grouped, fetches)``) by a ``QueryScheduler`` with two
+    workers on the card: every block's B1 launch runs on a worker thread,
+    inside the served query and before its future resolves, and each
+    result equals numpy's to rtol 1e-12."""
+    import threading
+
+    from tensorframes_tpu_torch import serve
+    rng = np.random.default_rng(12)
+    n, keys = 200_000, 1_000
+    x = rng.standard_normal(n)
+    k = rng.integers(0, keys, n)
+    want = np.bincount(k, weights=x + x, minlength=keys)
+    real = segment_reduce.segment_sum_cuda
+    threads = []
+
+    def spy(values, ids, num_segments):
+        threads.append(threading.current_thread().name)
+        return real(values, ids, num_segments)
+
+    monkeypatch.setattr(segment_reduce, "segment_sum_cuda", spy)
+
+    def query():
+        df = ttf.frame({"k": k, "x": x}, num_partitions=4)
+        return df.map_blocks(lambda x: {"z": x + x}).select(["k", "z"]) \
+            .group_by("k")
+
+    before = segment_reduce.launches
+    with serve.QueryScheduler(workers=2, name="cuda-two") as sched:
+        futs = [sched.submit(query(), {"z": "sum"}, tenant=t)
+                for t in ("a", "b", "a")]
+        served = [f.result(timeout=120) for f in futs]
+        launched = segment_reduce.launches - before
+        on = list(threads)
+        for frame in served:
+            got = dict((int(r["k"]), float(r["z"])) for r in frame.collect())
+            np.testing.assert_allclose([got[i] for i in range(keys)], want,
+                                       rtol=1e-12)
+        snap = sched.snapshot()
+    assert snap["a"]["completed"] == 2 and snap["b"]["completed"] == 1
+    assert launched == len(on) == 3 * 4, (launched, on)
+    assert threading.current_thread().name not in on, on

@@ -203,8 +203,16 @@ class TestCorrelation:
         assert traces[ttf] is not None and traces[ttf].op == op
         assert traces[ttf].op == traces[jtf].op
         assert _event_types(traces[ttf]) == _event_types(traces[jtf])
-        with pytest.raises(NotImplementedError, match="A11"):
-            traces[ttf].report()
+        # report() renders through observability/report.py in both
+        # packages: the rows and resilience lines agree
+        reports = {m: traces[m].report() for m in (jtf, ttf)}
+
+        def key_lines(r):
+            return [ln for ln in r.splitlines()
+                    if ln.startswith(("  rows ", "  resilience:"))]
+
+        assert key_lines(reports[ttf]) == key_lines(reports[jtf])
+        assert reports[ttf].startswith(f"query {traces[ttf].query_id} · {op}")
 
     def test_flight_records_correlate_to_the_trace(self, monkeypatch):
         """Decisions made inside a traced query carry its id (the port
@@ -487,11 +495,27 @@ class TestDeviceMemory:
 
 class TestNotYetPorted:
     def test_history_dir_raises(self, monkeypatch, tmp_path):
+        """``TFT_HISTORY_DIR`` on a traced query raised while the durable
+        history was not ported; now the forcing archives one record,
+        which the JAX package's reader returns too."""
+        from tensorframes_tpu.observability import history as jhistory
+        from tensorframes_tpu_torch.observability import history
+
         monkeypatch.setenv("TFT_HISTORY_DIR", str(tmp_path))
+        history.clear()
+        jhistory.clear()
         tracing.enable()
         df = ttf.frame({"x": np.arange(4.0)})
-        with pytest.raises(NotImplementedError, match="A11"):
-            df.map_blocks(lambda x: {"y": x + 1.0}).blocks()
+        out = df.map_blocks(lambda x: {"y": x + 1.0})
+        out.blocks()
+        recs = history.history()
+        assert [r["query"] for r in recs] == [out._trace.query_id]
+        assert recs[0]["source"] == "trace"
+        assert recs[0]["outcome"] == "ok"
+        assert recs[0]["summary"] == "map_blocks"
+        assert jhistory.history() == recs
+        history.clear()
+        jhistory.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -735,3 +759,180 @@ class TestDumps:
         heads, _ = _parse_dump(out)
         assert len(heads) == 2
         assert flight.stats()["dump_evictions"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# reports: explain() and last_query_report() (TestExplain)
+# ---------------------------------------------------------------------------
+
+def _report_lines(report):
+    """The lines both packages render alike: rows, pipeline, resilience."""
+    return [ln for ln in report.splitlines()
+            if ln.startswith(("  rows ", "  pipeline :", "  resilience:"))]
+
+
+class TestExplain:
+    def test_explain_counts_match_counters(self, monkeypatch):
+        reports = {}
+        for m, tr in ((jtf, jtracing), (ttf, tracing)):
+            base = tr.counters.snapshot()
+            _, out, t = _traced_map(monkeypatch, n=30, parts=6, depth=3, m=m)
+            s = t.summary()
+            now = tr.counters.snapshot()
+            assert s["blocks"] == now.get("pipeline.submitted", 0) \
+                - base.get("pipeline.submitted", 0) == 6
+            assert s["rows_in"] == s["rows_out"] == 30
+            assert s["bytes_in"] == 30 * np.dtype(float).itemsize
+            report = out.explain()
+            assert "30 in / 30 out" in report and "6 block(s)" in report
+            assert t.query_id in report and "wall time by stage" in report
+            reports[m] = report
+            tr.disable()
+        assert _report_lines(reports[ttf]) == _report_lines(reports[jtf])
+
+    def test_explain_reports_sync_fallbacks(self, monkeypatch):
+        reports = {}
+        for m, tr, fz in ((jtf, jtracing, jfaults), (ttf, tracing, faults)):
+            _depth(monkeypatch, 3)
+            tr.enable()
+            out = m.frame({"x": np.arange(20.0)}, num_partitions=4) \
+                .map_blocks(lambda x: {"y": x + 1.0})
+            with fz.inject("dispatch", fail_n=2):
+                out.blocks()
+            got = np.asarray([r["y"] for r in out.collect()], float).ravel()
+            np.testing.assert_array_equal(got, np.arange(20.0) + 1.0)
+            reports[m] = out.explain()
+            assert "2 sync fallback(s)" in reports[m]
+            tr.disable()
+        assert _report_lines(reports[ttf]) == _report_lines(reports[jtf])
+
+    def test_explain_reports_retries_with_classified_error(
+            self, monkeypatch):
+        _depth(monkeypatch, 1)  # serial: the fault reaches the retry loop
+        tracing.enable()
+        out = ttf.frame({"x": np.arange(12.0)}, num_partitions=3) \
+            .map_blocks(lambda x: {"y": x + 1.0})
+        with faults.inject("dispatch", fail_n=1):
+            out.blocks()
+        retry = [e for e in out._trace.events if e.etype == "retry"][0]
+        assert retry.args["kind"] == "transient"
+        assert "1 retried" in out.explain()
+
+    def test_explain_forces_untraced_frame(self, monkeypatch):
+        _depth(monkeypatch, 3)
+        out = ttf.frame({"x": np.arange(10.0)}, num_partitions=2) \
+            .map_blocks(lambda x: {"y": x * 3.0})
+        out.blocks()  # tracing off: no trace recorded
+        assert out._trace is None
+        report = out.explain()  # re-forces once, tracing on
+        assert out._trace is not None and "map_blocks" in report
+        assert "10 in / 10 out" in report
+        assert not tracing.enabled()
+
+    def test_explain_inside_another_query_says_so(self):
+        out = ttf.frame({"x": np.arange(4.0)}).map_blocks(
+            lambda x: {"y": x + 1.0})
+        tracing.enable()
+        with obs.query_trace("outer"):
+            assert "inside another active query" in out.explain()
+
+    def test_last_query_report_without_queries(self):
+        assert "no query recorded" in ttf.last_query_report()
+
+    def test_last_query_report_of_an_eager_aggregate(self, monkeypatch):
+        reports = {}
+        for m, tr in ((jtf, jtracing), (ttf, tracing)):
+            tr.enable()
+            df = m.frame({"x": np.arange(12.0), "k": np.arange(12) % 4},
+                         num_partitions=3)
+            m.aggregate({"x": "sum"}, df.group_by("k"))
+            tr.disable()
+            reports[m] = m.last_query_report()
+        assert reports[ttf].startswith("query q")
+        assert "· aggregate ·" in reports[ttf]
+        assert _report_lines(reports[ttf]) == _report_lines(reports[jtf])
+
+    def test_memory_line_reads_the_cards_samples(self, monkeypatch):
+        _on_fake_cards(monkeypatch, [_FakeDevice(100, 4096, 1 << 30)])
+        _, out, _ = _traced_map(monkeypatch, n=8, parts=2)
+        assert "peak HBM 4.0 KiB" in out.explain()
+
+
+# ---------------------------------------------------------------------------
+# the slow-query log (TestSlowQueryLog)
+# ---------------------------------------------------------------------------
+
+def _slow_lines(path):
+    return [r for r in (json.loads(ln) for ln in
+                        path.read_text().splitlines())
+            if r["type"] == "slow_query"]
+
+
+class TestSlowQueryLog:
+    def test_logs_jsonl_with_tracing_off(self, monkeypatch, tmp_path):
+        got = {}
+        for m in (jtf, ttf):
+            path = tmp_path / f"slow-{m.__name__}.jsonl"
+            monkeypatch.setenv("TFT_SLOW_QUERY_MS", "0")
+            monkeypatch.setenv("TFT_TRACE_FILE", str(path))
+            m.frame({"x": np.arange(8.0)}, num_partitions=2) \
+                .map_blocks(lambda x: {"y": x + 1.0}).blocks()
+            (slow,) = _slow_lines(path)
+            got[m] = sorted(slow)
+            assert slow["op"] == "map_blocks" and "query_id" not in slow
+        assert got[ttf] == got[jtf]
+
+    def test_includes_summary_fields_when_traced(self, monkeypatch,
+                                                 tmp_path):
+        path = tmp_path / "slow.jsonl"
+        monkeypatch.setenv("TFT_SLOW_QUERY_MS", "0")
+        monkeypatch.setenv("TFT_TRACE_FILE", str(path))
+        tracing.enable()
+        out = ttf.frame({"x": np.arange(12.0)}, num_partitions=3) \
+            .map_blocks(lambda x: {"y": x + 1.0})
+        out.blocks()
+        (slow,) = _slow_lines(path)
+        assert slow["query_id"] == out._trace.query_id
+        assert slow["blocks"] == 3 and slow["retries"] == 0
+
+    def test_fast_queries_stay_silent(self, monkeypatch, tmp_path):
+        path = tmp_path / "slow.jsonl"
+        monkeypatch.setenv("TFT_SLOW_QUERY_MS", "60000")
+        monkeypatch.setenv("TFT_TRACE_FILE", str(path))
+        ttf.frame({"x": np.arange(8.0)}, num_partitions=2) \
+            .map_blocks(lambda x: {"y": x + 1.0}).blocks()
+        assert not path.exists() or not _slow_lines(path)
+
+    def test_failed_query_marked_in_log_and_histogram(self, monkeypatch,
+                                                      tmp_path):
+        path = tmp_path / "slow.jsonl"
+        monkeypatch.setenv("TFT_SLOW_QUERY_MS", "0")
+        monkeypatch.setenv("TFT_TRACE_FILE", str(path))
+        tracing.enable()
+        with pytest.raises(RuntimeError, match="boom"):
+            with obs.query_trace("doomed"):
+                raise RuntimeError("boom")
+        assert _slow_lines(path)[0]["error"] == "RuntimeError"
+        key = ("query_latency_seconds",
+               (("op", "doomed"), ("outcome", "error")))
+        assert tracing.histograms.snapshot()[key]["count"] == 1
+        assert obs.last_query().meta["error"] == "RuntimeError"
+
+    def test_served_slow_query_carries_the_cost_vector(self, monkeypatch,
+                                                       tmp_path):
+        path = tmp_path / "slow.jsonl"
+        monkeypatch.setenv("TFT_SLOW_QUERY_MS", "0")
+        monkeypatch.setenv("TFT_TRACE_FILE", str(path))
+        chain = ttf.frame({"x": np.arange(16.0)}, num_partitions=4) \
+            .map_blocks(lambda x: {"y": x + 1.0}) \
+            .map_blocks(lambda y: {"z": y * 2.0})
+        with ttf.serve.QueryScheduler(workers=0, name="slow") as s:
+            fut = s.submit(chain, tenant="t")
+            s.step()
+            fut.result(timeout=30)
+        slow = [r for r in _slow_lines(path) if r.get("op") == "serve"]
+        # the fingerprint is taken after the forcing, so the line (written
+        # when the trace closes) carries the cost vector only, as in the
+        # JAX package
+        assert slow and "cost" in slow[0]
+        assert slow[0]["cost"]["stage_wall_s"] > 0.0

@@ -1068,10 +1068,20 @@ class TestBatchRows:
 
 class TestWaitsForLaterLayers:
     def test_history_dir_raises(self, monkeypatch, tmp_path):
+        """``TFT_HISTORY_DIR`` on a stream raised while the durable
+        history was not ported; now a plain pass-through stream starts,
+        runs, and archives nothing (records are per window emit and per
+        skipped batch, as in the JAX package)."""
+        from tensorframes_tpu_torch.observability import history
+
         monkeypatch.setenv("TFT_HISTORY_DIR", str(tmp_path))
+        history.clear()
         sf = tstream.from_source(tstream.GeneratorSource(_batches(1)))
-        with pytest.raises(NotImplementedError, match="A11"):
-            sf.start()
+        h = sf.start()
+        h.run()
+        assert h.metrics()["batches"] == 1
+        assert history.history() == []
+        history.clear()
 
     def test_mesh_fold_raises_and_one_shard_does_not(self):
         g = tstream.from_source(
