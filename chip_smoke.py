@@ -172,6 +172,27 @@ paths through its public entry points and checks every result:
    ``why`` from the archive (its launches join the ``kernels`` line);
    (i) the card's busy share of one served dashboard query under
    ``tracing.profile``;
+3m. the serving fabric (``fabric_three_workers_20M``,
+   :func:`phase_fabric_three_workers`): phase 3l's three tenants at full
+   size through a three-worker ``serve.ServeFabric`` with
+   ``TFT_PERSIST_DIR`` under ``build/``: (a) 4 queries a tenant (and the
+   etl program once from adhoc), one tenant a worker, every result
+   bit-equal to 3l's serial forcing, the launches equal to the serial
+   count, the programs interned once for the three workers; (b) the
+   worker serving the 80-block etl lost mid-query through the ``worker``
+   fault site: the query resumed on a survivor from its persisted
+   checkpoint under its id, only the blocks the dead worker never
+   finished dispatched, bit-equal, ``why`` one chain across two workers,
+   the queries queued behind it re-placed, the card's bytes in use back
+   at their value before the fabric; (c) a rolling restart of all three
+   workers with a query a tenant in flight: none lost, every restarted
+   worker's admission probe passed on the card, a repeated dashboard
+   chain (pure programs) answered warm from the durable tier with no
+   dispatch; (d) the port's chaos drill (``tools.chaos_soak``) at seed
+   11, rate 0.3 over ``worker|preempt|disk|oom``, two rounds: bit-equal
+   to the fault-free run, every failure classified, no invariant
+   violation, the same firings replayed, the card's bytes back; (e)
+   ``TFT_FABRIC=0``: one query bit-equal to a plain scheduler's;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
    seed carried in through ``params_from_jax``: ``apply`` and ``loss`` over
@@ -191,7 +212,7 @@ paths through its public entry points and checks every result:
    its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3l for
+with each kernel's launches during its main path (phases 1-3m for
 segment_sum, the child processes of phases 3h and 3l included, phase 4 for
 flash_attention), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
@@ -2960,6 +2981,16 @@ def phase_serve_three_tenants(ttf, np, torch, segment_reduce,
         assert serial_launches["dashboard"] == groups // 2, serial_launches
         assert serial_launches["etl"] == parts, serial_launches
         assert serial_launches["adhoc"] == parts, serial_launches
+        # phase 3m serves the same tenants through the fabric and holds
+        # its results against these serial forcings (and (a)'s interner
+        # and (c)'s 80-block etl, filled in below)
+        shared = {"dashboard": dashboard, "etl": etl, "adhoc": adhoc,
+                  "alone": alone, "read": read, "same": same,
+                  "serial": serial, "serial_launches": serial_launches,
+                  "key": key, "x": x, "preempt_parts": preempt_parts,
+                  "path": path, "cut": cut}
+        if out is not None:
+            out["tenants"] = shared
         part("3l_serial", t0, walls_s=all_walls,
              warm_median_walls_s=serial_walls,
              launches=serial_launches, data_s=data_s,
@@ -3064,6 +3095,7 @@ def phase_serve_three_tenants(ttf, np, torch, segment_reduce,
         assert 0.25 <= share <= 1.0, (picks, share)
         walls = {t: [futs[k].finished_at - futs[k].submitted_at
                      for k in futs if k[0] == t] for t in work}
+        shared["mix_cache"] = cache
         part("3l_a_mix", t0, mix_wall_s=mix_wall,
              fresh_program_submit_s=submit_s[fresh],
              submit_s={t: [submit_s[(t, i)] for i in range(len(work[t]))]
@@ -3209,6 +3241,7 @@ def phase_serve_three_tenants(ttf, np, torch, segment_reduce,
         assert moved["pipeline.parked_blocks"] >= 1
         assert moved["pipeline.resumed_blocks"] == \
             moved["pipeline.parked_blocks"], moved
+        shared.update(whole=whole, alone_launches=alone_launches)
         part("3l_c_priority_preempt", t0, counts=moved,
              partitions=preempt_parts, launches=prio_launches,
              alone_launches=alone_launches,
@@ -3435,6 +3468,418 @@ def phase_serve_three_tenants(ttf, np, torch, segment_reduce,
                  top_kernels_ms={e.key[:80]: e.self_device_time_total
                                  * 1e-3 for e in kernels[:6]})
     shutil.rmtree(persist_dir, ignore_errors=True)
+    summary["total_s"] = time.perf_counter() - t_phase
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 3m: the serving fabric and seeded chaos
+# ---------------------------------------------------------------------------
+
+def dash_z(x, y):
+    """Phase 3m's pure twin of the dashboard's DSL program ``x + y``
+    (module level: one function object, so that every build of the chain
+    keys the result cache alike; a DSL program is never cached)."""
+    return {"z": x + y}
+
+
+def dash_w(z):
+    """The dashboard chain's ``map_rows``, module level as :func:`dash_z`."""
+    return {"w": z * 2.0}
+
+
+def host_columns(np, frame) -> dict:
+    """Every block's columns of a forced frame, concatenated on the
+    host."""
+    out = {}
+    for b in frame.blocks():
+        for k, v in b.columns.items():
+            out.setdefault(k, []).append(
+                np.asarray(v.cpu() if hasattr(v, "cpu") else v))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def on_host(np, cols) -> dict:
+    return {k: np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+            for k, v in cols.items()}
+
+
+def phase_fabric_three_workers(ttf, np, torch, segment_reduce, served,
+                               small_rows=200_000, small_parts=4,
+                               crash_after=20, drill_rounds=2,
+                               device="cuda") -> dict:
+    """The serving fabric on the card (``fabric_three_workers_20M``, phase
+    3m): phase 3l's three tenants at full size through a three-worker
+    ``serve.ServeFabric`` with ``TFT_PERSIST_DIR`` under ``build/``.
+    ``served["tenants"]`` is what phase 3l left: its query builders, its
+    serial results and launches. (a) four queries a tenant, each its
+    grouped frame and fetches, and the etl program once more from adhoc
+    (``TFT_RESULT_CACHE=0``): one tenant per worker, every result
+    bit-equal to its serial forcing, the launches equal to the serial
+    count, the programs interned once for the three workers, as one
+    scheduler does, and reused across workers; (b) the worker serving the
+    80-block etl is lost mid-query (``worker`` armed once after
+    ``crash_after`` of its blocks dispatched): declared lost, the query
+    resumed on a survivor from its persisted checkpoint under its id,
+    only the blocks the dead worker never finished dispatched again,
+    bit-equal, ``why`` one chain across two workers, the two etl queries
+    queued behind it re-placed and served, and the card's bytes in use
+    back at their value before the fabric opened; (c) a rolling restart
+    of the three workers with a query a tenant in flight and
+    ``TFT_RESULT_CACHE`` at its default: no query lost, each restarted
+    worker's admission probe passed on the card, a repeated dashboard
+    chain (pure programs) answered warm from the durable tier with no
+    dispatch; (d) the port's chaos drill (``tools.chaos_soak.run_drill``)
+    at seed 11, rate 0.3 over ``worker|preempt|disk|oom``,
+    ``drill_rounds`` rounds at the drill's own small size, the card's
+    bytes in use back at their value before it; (e) ``TFT_FABRIC=0``: one
+    query bit-equal to a plain scheduler's. ``device="cpu"`` rehearses it
+    on the CPU."""
+    import gc
+    import re
+    import shutil
+
+    from tensorframes_tpu_torch import serve
+    from tensorframes_tpu_torch.engine import executor as engine_executor
+    from tensorframes_tpu_torch.observability import flight, slo
+    from tensorframes_tpu_torch.plan import adaptive
+    from tensorframes_tpu_torch.resilience import faults
+    from tensorframes_tpu_torch.tools import chaos_soak
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    t = served["tenants"]
+    read, same, serial = t["read"], t["same"], t["serial"]
+    sl = t["serial_launches"]
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    persist_dir = os.path.join(root, "build", "fabric_persist")
+    drill_dir = os.path.join(root, "build", "chaos_persist")
+    for d in (persist_dir, drill_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    summary = {}
+
+    def part(name, t0, **info):
+        info = {"part": name, "wall_s": time.perf_counter() - t0, **info}
+        summary[name] = info["wall_s"]
+        emit(info)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def card_bytes():
+        """The card's bytes in use, the result cache dropped first."""
+        adaptive.invalidate_results()
+        gc.collect()
+        sync()
+        return torch.cuda.memory_allocated() if device == "cuda" else 0
+
+    def counts(prefix):
+        return {k: v for k, v in counters.snapshot().items()
+                if k.startswith(prefix)}
+
+    tenants = ("dashboard", "etl", "adhoc")
+    quotas = {"dashboard": serve.TenantQuota(weight=2.0, max_inflight=2),
+              "etl": serve.TenantQuota(weight=1.0),
+              "adhoc": serve.TenantQuota(weight=1.0)}
+
+    def fabric(name):
+        # the monitor beats every 100 ms; every worker passes its
+        # admission probe on the default device before it takes tenants
+        return serve.ServeFabric(workers=3, quotas=quotas, name=name)
+
+    # objectives every query meets, over this phase's completions only: no
+    # tenant burns its budget, so the fabric's SLO rebalance keeps one
+    # tenant a worker (3l left etl burning)
+    tracing.histograms.reset()
+    slo.clear_slos()
+    for tenant in tenants:
+        slo.set_slo(tenant, 600_000.0, target=0.99)
+
+    with env_scope(TFT_RESULT_CACHE="0", TFT_PERSIST_DIR=persist_dir):
+        # -- (a) the mix: one tenant a worker --------------------------------
+        t0 = time.perf_counter()
+        fresh = ("adhoc", 4)
+
+        def etl_fresh():
+            # a program object new to the process (3l interned etl_z's
+            # own, which short-circuits any later interner): the first
+            # of these interns it, the others reuse it, the one from
+            # adhoc's worker across workers
+            return t["etl"](lambda x: {"z": x + x})
+
+        work = {"dashboard": [t["dashboard"]() for _ in range(4)],
+                "etl": [etl_fresh() for _ in range(4)],
+                "adhoc": [t["adhoc"]() for _ in range(4)] + [etl_fresh()]}
+        owners, hits = {}, []
+        m0 = counters.get("serve.compile_cache.misses")
+        l0 = segment_reduce.launches
+        with fabric("mix") as fab:
+            intern = engine_executor.current_computation_interner()
+
+            def spy(comp):
+                canon = intern(comp)
+                w = flight.current_worker()
+                owners.setdefault(id(canon), w)
+                if canon is not comp:
+                    hits.append((w, owners[id(canon)]))
+                return canon
+
+            engine_executor.set_computation_interner(spy)
+            futs = {}
+            try:
+                # each tenant's first query places it (least loaded
+                # first); the rest queue behind on the same worker
+                for i in range(5):
+                    for tenant in tenants:
+                        if i < len(work[tenant]):
+                            futs[(tenant, i)] = fab.submit(
+                                *work[tenant][i], tenant=tenant)
+                results = {k: on_host(np, (read["etl"] if k == fresh
+                                           else read[k[0]])(
+                    f.result(timeout=900))) for k, f in futs.items()}
+                sync()
+            finally:
+                engine_executor.set_computation_interner(intern)
+            mix_wall = time.perf_counter() - t0
+            placement = fab.health_snapshot()["placement"]
+            report_a = fab.placement_report()
+            cache = fab.compile_cache.stats()
+            shared = all(w.scheduler.compile_cache is fab.compile_cache
+                         for w in fab._workers)
+            ran_on = {k: sorted({r["worker"] for r in
+                                 flight.for_query(f.query_id)
+                                 if r.get("worker")})
+                      for k, f in futs.items()}
+            del futs, work
+        # the closed fabric still holds its queries' frames, whose chains
+        # cache blocks on the card: drop it before (b) reads the card
+        del fab
+        mix_launches = segment_reduce.launches - l0
+        assert sorted(placement) == sorted(tenants) and \
+            len(set(placement.values())) == 3, placement
+        for (tenant, i), c in results.items():
+            program = "etl" if (tenant, i) == fresh else tenant
+            assert same(c, on_host(np, serial[program])), \
+                f"{tenant} query {i} differs from its serial forcing"
+            assert ran_on[(tenant, i)] == [placement[tenant]], \
+                (tenant, i, ran_on[(tenant, i)], placement)
+        want_launches = 4 * sl["dashboard"] + 5 * sl["etl"] + \
+            4 * sl["adhoc"]
+        assert mix_launches == want_launches, (mix_launches, want_launches)
+        cross = [(w, o) for w, o in hits if w and o and w != o]
+        assert shared and cross, (shared, hits)
+        # every program interned once for the three workers: the
+        # programs one scheduler interned for 3l's mix, and the admission
+        # probe's
+        assert cache["misses"] == cache["entries"] == \
+            counters.get("serve.compile_cache.misses") - m0 == \
+            t["mix_cache"]["entries"] + 1, (cache, t["mix_cache"])
+        del results
+        part("3m_a_mix", t0, mix_wall_s=mix_wall, placement=placement,
+             placement_report=report_a.splitlines(), launches=mix_launches,
+             serial_launches=want_launches, interner=cache,
+             cross_worker_hits=len(cross))
+
+        # -- (b) a worker lost mid-query -------------------------------------
+        t0 = time.perf_counter()
+        # everything this part makes is dropped again before the bytes are
+        # read after it
+        bytes0 = card_bytes()
+        parts = t["preempt_parts"]
+        many = ttf.frame({"key": t["key"], "x": t["x"]},
+                         num_partitions=parts)
+        small = ttf.frame({"key": t["key"][:small_rows],
+                           "x": t["x"][:small_rows]},
+                          num_partitions=small_parts)
+        s0 = counters.get("pipeline.submitted")
+        l0 = segment_reduce.launches
+        small_want = on_host(np, read["etl"](t["alone"](
+            t["etl"](source=small))))
+        small_launches = segment_reduce.launches - l0
+        assert counters.get("pipeline.submitted") - s0 == small_parts
+        f0 = counts("fabric.")
+        l0 = segment_reduce.launches
+        s0 = counters.get("pipeline.submitted")
+        with fabric("crash") as fab:
+            big = fab.submit(*t["etl"](source=many), tenant="etl")
+            queued = [fab.submit(*t["etl"](source=small), tenant="etl")
+                      for _ in range(2)]
+            victim = fab._workers[fab._placement["etl"]].worker_id
+            # the worker dies once it has dispatched `crash_after` blocks
+            while counters.get("pipeline.submitted") - s0 < crash_after \
+                    and not big.done():
+                time.sleep(0.0005)
+            faults.arm("worker", 1)
+            big_cols = on_host(np, read["etl"](big.result(timeout=900)))
+            queued_cols = [on_host(np, read["etl"](q.result(timeout=900)))
+                           for q in queued]
+            sync()
+            faults.reset("worker")
+            snap = fab.health_snapshot()
+            health_fabric = ttf.health()["fabric"]
+            report_b = fab.placement_report()
+            qid, attempts = big.query_id, big.attempts
+            why = ttf.why(qid)
+            recs = flight.for_query(qid)
+            queued_recs = [[r for r in flight.for_query(q.query_id)
+                            if r["kind"] == "fabric.resume_dispatch"]
+                           for q in queued]
+            del big, queued
+        del fab, many, small
+        crash_launches = segment_reduce.launches - l0
+        submits = counters.get("pipeline.submitted") - s0
+        bytes1 = card_bytes()
+        fabric_counts = {k: v - f0.get(k, 0)
+                         for k, v in counts("fabric.").items()}
+        resume = [r for r in recs if r["kind"] == "fabric.resume_dispatch"]
+        assert snap["lost"] == 1 and health_fabric["lost"] == 1 and \
+            health_fabric["live"] == 2, (snap, health_fabric)
+        assert attempts == 2 and len(resume) == 1, (attempts, resume)
+        resumed = resume[0]["resumed_blocks"]
+        assert resume[0]["from_checkpoint"] and 0 < resumed < parts, resume
+        assert resume[0]["worker"] != victim, (resume, victim)
+        redispatched = parts - resumed
+        # the dead worker's blocks went to the checkpoint; the survivor
+        # dispatched only the rest: no block ran twice
+        assert submits == parts + 2 * small_parts, (submits, resumed)
+        assert crash_launches == t["alone_launches"] + 2 * small_launches, \
+            (crash_launches, t["alone_launches"], small_launches)
+        assert same(big_cols, on_host(np, t["whole"])), \
+            "the resumed etl differs from its run alone"
+        for c in queued_cols:
+            assert same(c, small_want), "a re-placed queued query differs"
+        for rs in queued_recs:
+            assert len(rs) == 1 and not rs[0]["from_checkpoint"], rs
+        assert snap["queries"]["done"] == snap["queries"]["total"] == 3
+        chain_workers = set(re.findall(r" w=(w\d) ", why))
+        assert len(chain_workers) == 2 and "fabric.resume_dispatch" in why \
+            and "resume from the persisted checkpoint" in why, why
+        assert bytes1 == bytes0, (bytes0, bytes1)
+        part("3m_b_worker_lost", t0, victim=victim,
+             resumed_blocks=resumed, redispatched_blocks=redispatched,
+             blocks=parts, pipeline_submits=submits,
+             launches=crash_launches, health_fabric=health_fabric,
+             placement_report=report_b.splitlines(),
+             why_workers=sorted(chain_workers),
+             fabric_counters=fabric_counts, card_bytes_before=bytes0,
+             card_bytes_after=bytes1)
+
+    # -- (c) a rolling restart with queries in flight -----------------------
+    with env_scope(TFT_PERSIST_DIR=persist_dir):
+        t0 = time.perf_counter()
+        adaptive.invalidate_results()
+        cut = t["cut"]
+
+        def pred(ts):
+            return ts >= cut
+
+        def warm_chain():
+            df = ttf.read_parquet(t["path"])
+            return (df.map_blocks(dash_z).filter(pred).map_rows(dash_w)
+                    .select(["key", "w"]))
+
+        w0 = counters.get("plan.result_cache_warm_hits")
+        p0 = counters.get("persist.result_writes")
+        lost0 = counters.get("fabric.workers_lost")
+        admits0 = len(flight.recent(kind="fabric.admit"))
+        with fabric("roll") as fab:
+            # two forcings admit the chain (two-touch); the admit persists
+            cold = host_columns(np, fab.submit(
+                warm_chain(), tenant="dashboard").result(timeout=600))
+            again = host_columns(np, fab.submit(
+                warm_chain(), tenant="dashboard").result(timeout=600))
+            writes = counters.get("persist.result_writes") - p0
+            inflight = {tenant: fab.submit(*t[tenant](), tenant=tenant)
+                        for tenant in tenants}
+            while not any(f.state == "running"
+                          for f in inflight.values()):
+                time.sleep(0.0005)
+            t1 = time.perf_counter()
+            healthy = fab.rolling_restart()
+            restart_s = time.perf_counter() - t1
+            epochs = [w.epoch for w in fab._workers]
+            got = {tenant: on_host(np, read[tenant](f.result(timeout=900)))
+                   for tenant, f in inflight.items()}
+            attempts = {tenant: f.attempts for tenant, f in inflight.items()}
+            h0 = counters.get("plan.result_cache_warm_hits")
+            sub0 = counters.get("pipeline.submitted")
+            warm = host_columns(np, fab.submit(
+                warm_chain(), tenant="dashboard").result(timeout=600))
+            warm_hits = counters.get("plan.result_cache_warm_hits") - h0
+            warm_submits = counters.get("pipeline.submitted") - sub0
+            snap = fab.health_snapshot()
+            del inflight
+        del fab
+        admits = flight.recent(kind="fabric.admit")[admits0:]
+        assert writes >= 1 and same(again, cold), writes
+        assert healthy == 3 and epochs == [1, 1, 1], (healthy, epochs)
+        # a worker drained for its restart is not a lost one
+        assert counters.get("fabric.workers_lost") == lost0 and \
+            snap["lost"] == 0, snap
+        assert sorted(r["worker"] for r in admits
+                      if r.get("epoch") == 1) == ["w0", "w1", "w2"], admits
+        for tenant in tenants:
+            assert same(got[tenant], on_host(np, serial[tenant])), tenant
+        assert snap["queries"]["done"] == snap["queries"]["total"] == 6
+        assert warm_hits >= 1 and warm_submits == 0, \
+            (warm_hits, warm_submits)
+        assert same(warm, cold), "the warm hit differs from its forcing"
+        part("3m_c_rolling_restart", t0, healthy=healthy,
+             restart_s=restart_s, attempts=attempts,
+             warm_hits=counters.get("plan.result_cache_warm_hits") - w0,
+             warm_submits=warm_submits, result_writes=writes,
+             admits=[(r["worker"], r["epoch"]) for r in admits])
+
+    # -- (d) the chaos drill ------------------------------------------------
+    t0 = time.perf_counter()
+    bytes0 = card_bytes()
+    v0 = counters.get("invariants.violations")
+    c0 = counts("chaos.")
+    report = chaos_soak.run_drill(seed=11, rate=0.3, rounds=drill_rounds,
+                                  persist_dir=drill_dir)
+    bytes1 = card_bytes()
+    shutil.rmtree(drill_dir, ignore_errors=True)
+    fired = sorted({site for site, _ in report["firings"]})
+    chaos_counts = {k: v - c0.get(k, 0) for k, v in counts("chaos.").items()}
+    assert {"worker", "preempt", "disk"} <= set(fired), fired
+    assert all(kind != "permanent" for kind, _ in report["failures"])
+    assert counters.get("invariants.violations") == v0
+    assert chaos_soak.check_prefix_replay(
+        report["firings"], report["consults"], report["replay_firings"],
+        report["replay_consults"]) == []
+    assert bytes1 == bytes0, (bytes0, bytes1)
+    part("3m_d_chaos_drill", t0, seed=11, rate=0.3,
+         sites=report["sites"], rounds=drill_rounds, fired_sites=fired,
+         fired=report["fired"], firings=report["firings"],
+         replay_firings=report["replay_firings"],
+         replay_equal=report["firings"] == report["replay_firings"],
+         consults=report["consults"],
+         failure_kinds=sorted({k for k, _ in report["failures"]}),
+         failures=len(report["failures"]), chaos_counters=chaos_counts,
+         card_bytes_before=bytes0, card_bytes_after=bytes1)
+
+    # -- (e) TFT_FABRIC=0: one pass-through worker ---------------------------
+    t0 = time.perf_counter()
+    small = ttf.frame({"key": t["key"][:small_rows],
+                       "x": t["x"][:small_rows]}, num_partitions=small_parts)
+    with env_scope(TFT_FABRIC="0", TFT_RESULT_CACHE="0",
+                   TFT_PERSIST_DIR=persist_dir):
+        with serve.QueryScheduler(workers=1, name="plain") as sched:
+            plain = on_host(np, read["etl"](sched.submit(
+                *t["etl"](source=small), tenant="etl").result(timeout=600)))
+        with fabric("off") as fab:
+            one = (len(fab._workers), fab.enabled)
+            got = on_host(np, read["etl"](fab.submit(
+                *t["etl"](source=small), tenant="etl").result(timeout=600)))
+    assert one == (1, False) and same(got, plain), one
+    part("3m_e_fabric_off", t0, workers=one[0])
+    shutil.rmtree(persist_dir, ignore_errors=True)
+    assert counts("fabric.rebalances") == {}, counts("fabric.rebalances")
+    slo.clear_slos()
+    emit({"part": "3m_counters", "fabric": counts("fabric."),
+          "chaos": counts("chaos.")})
     summary["total_s"] = time.perf_counter() - t_phase
     return summary
 
@@ -3843,7 +4288,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     and of phase 3l: a block of the 80-partition etl query of part (c) and
     of the child's queries (250,000 f64 rows, S = 100,000), a block of
     part (d)'s whale (1M f32 rows, S = 100,000) and of the 200,000-row
-    frame of parts (b) and (d) (50,000 f64 rows, S = its distinct keys);
+    frame of parts (b) and (d) (50,000 f64 rows, S = its distinct keys)
+    and of phase 3m's chaos drill (its aggregate's 1,024 f64 rows a block,
+    S = 64; 3m's other shapes are 3l's);
     flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
     (the model's) and bf16."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -3877,7 +4324,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 8_000_000 // 8, 1,
                                100_000, torch.float32, flush),
               time_segment_sum(np, torch, segment_reduce, 200_000 // 4, 1,
-                               small_s, torch.float64, flush)]
+                               small_s, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 4_096 // 4, 1, 64,
+                               torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -4005,7 +4454,10 @@ def main(argv=None) -> int:
         ("adaptive_20M", lambda: phase_adaptive(ttf, np, torch)),
         ("serve_three_tenants_20M",
          lambda: phase_serve_three_tenants(ttf, np, torch, segment_reduce,
-                                           out=served))),
+                                           out=served)),
+        ("fabric_three_workers_20M",
+         lambda: phase_fabric_three_workers(ttf, np, torch, segment_reduce,
+                                            served))),
         counters, per_phase)
     assert frame_path["segment_sum"] > 0, \
         "aggregate never launched segment_sum"
@@ -4019,6 +4471,8 @@ def main(argv=None) -> int:
     assert per_phase["serve_three_tenants_20M"]["segment_sum"] > 0 and \
         served["child_launches"] > 0, \
         "the served aggregates never launched segment_sum"
+    assert per_phase["fabric_three_workers_20M"]["segment_sum"] > 0, \
+        "the fabric's aggregates never launched segment_sum"
     state = {}
     lm_path = run_path(torch, (
         ("transformer_score_8x2048",

@@ -44,7 +44,15 @@ reductions, with failure isolation, a slot pool and live metrics
 ``serve`` is the multi-tenant front end: :func:`submit` (or
 ``TensorFrame.submit``) queues a query on a ``QueryScheduler`` with
 per-tenant weights, quotas, deadlines, admission against the card's
-memory and preemption; :func:`serve_report` shows it. The observability
+memory and preemption; :func:`serve_report` shows it.
+``serve.ServeFabric`` places tenants across several schedulers
+(``serve.FabricWorker``), resumes a lost worker's queries on a survivor
+from their persisted checkpoints (``serve.FabricQuery`` survives its
+worker) and restarts workers one by one; ``serve.live_fabric`` and
+``serve.fabric_enabled`` read its state and ``TFT_FABRIC``.
+``resilience.chaos`` composes the fault sites into seeded schedules
+(``TFT_CHAOS``), and ``tools.chaos_soak`` drives a mixed workload under
+one. The observability
 layer reports through :func:`last_query_report` and ``explain()``, the
 durable query :func:`history` and :func:`postmortem`, the performance
 sentinel's :func:`regressions`, per-tenant SLOs, :func:`why`,

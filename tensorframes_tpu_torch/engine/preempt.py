@@ -27,8 +27,10 @@ desirable. This module is the token that crosses into the engine:
 The deterministic ``preempt`` fault site (``TFT_FAULTS=preempt:N``)
 drives this path without a concurrent preemptor: :func:`boundary`
 converts the injected fault into a preempt request. The ``worker`` site
-of the JAX package (a park that doubles as a worker crash) comes with
-the serving fabric (A11).
+(``TFT_FAULTS=worker:1``) parks the same way and also flags the scope
+(``worker_fault``): the scheduler's requeue path reports the crash to
+the serving fabric, which kills that worker and resumes the query on a
+survivor from its persisted checkpoint (``serve/fabric.py``).
 
 Zero-cost when idle: with no scope active, the engine pays one
 contextvar read per stream (not per block).
@@ -66,13 +68,17 @@ class PreemptionScope:
     is never cleared (a cancelled query must not resume).
     """
 
-    __slots__ = ("query_id", "checkpoint", "reason", "_cancel", "_preempt",
-                 "_lock", "_tag_counts")
+    __slots__ = ("query_id", "checkpoint", "reason", "worker_fault",
+                 "_cancel", "_preempt", "_lock", "_tag_counts")
 
     def __init__(self, query_id: str, checkpoint=None):
         self.query_id = query_id
         self.checkpoint = checkpoint  # QueryCheckpoint or None
         self.reason = ""
+        # set by boundary() when the `worker` fault site fires: the park
+        # doubles as a worker crash, and the scheduler's requeue path
+        # tells the serving fabric so that it can kill this worker
+        self.worker_fault = False
         self._cancel = False
         self._preempt = False
         self._lock = threading.Lock()
@@ -183,6 +189,16 @@ def boundary(scope: PreemptionScope, progressed: bool = True) -> bool:
             _faults.check("preempt")
         except _faults.InjectedFault as e:
             scope.request_preempt(f"injected fault: {e}")
+    if progressed and _faults.may_fire("worker"):
+        # the `worker` site kills the PROCESS, not just the query: park
+        # like a preempt (the checkpoint persists to the durable tier),
+        # and flag the scope so that the scheduler's requeue path reports
+        # the crash to the serving fabric
+        try:
+            _faults.check("worker")
+        except _faults.InjectedFault as e:
+            scope.worker_fault = True
+            scope.request_preempt(f"worker fault: {e}")
     return scope.preempt_requested
 
 

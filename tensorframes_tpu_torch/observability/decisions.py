@@ -11,9 +11,13 @@ is the process-wide triage report: :func:`~.health.health`'s vitals and
 warnings, the SLO burn table, and the recent anomalous decisions grouped
 by kind.
 
-The JAX package's lines for the mesh, the fabric and the distributed plan
-come with those layers (``ROADMAP.md`` A10, A11); a record of an unknown
-kind renders as ``key=value``.
+The serving fabric's decisions (placement, re-placement, rebalance, a
+worker's crash and loss, a query's resume on a survivor, restarts and
+admission probes) and a join's route render as lines of their own, and
+:func:`doctor` shows the open fabric and merges per-worker flight dumps.
+The JAX package's lines for the mesh and the distributed plan come with
+the parallel layer (``ROADMAP.md`` A10); a record of an unknown kind
+renders as ``key=value``.
 """
 
 from __future__ import annotations
@@ -27,8 +31,7 @@ from .report import _fmt_bytes
 __all__ = ["why", "doctor"]
 
 # kinds that indicate something went wrong: doctor() surfaces these (the
-# JAX package's list, whose mesh and fabric kinds no port layer records
-# yet)
+# JAX package's list, whose mesh kinds no port layer records yet)
 ANOMALY_KINDS = (
     "serve.shed", "serve.reject", "serve.over_quota", "serve.preempt",
     "serve.admission_preempt", "serve.cancel", "resilience.giveup",
@@ -176,6 +179,57 @@ def _detail(r: Dict[str, Any]) -> str:
         return (f"result persisted to the durable tier "
                 f"({_fmt_bytes(r.get('bytes') or 0)}, fingerprint "
                 f"{r.get('fingerprint')}…)")
+    if k == "relational.join_route":
+        est = r.get("est_build_bytes")
+        est_s = _fmt_bytes(est) if est is not None else "unknown"
+        return (f"join routed to {r.get('strategy')!r} "
+                f"({r.get('reason')}): est build {est_s}, keys "
+                f"{r.get('keys')}, how={r.get('how')}")
+    if k == "fabric.place":
+        return (f"tenant {r.get('tenant')!r} placed on "
+                f"{r.get('worker')} (least loaded: "
+                f"{r.get('tenants_on_worker')} tenant(s) there)")
+    if k == "fabric.replace":
+        return (f"tenant {r.get('tenant')!r} re-placed "
+                f"{r.get('source')} -> {r.get('worker')} "
+                f"({r.get('reason')})")
+    if k == "fabric.rebalance":
+        return (f"tenant {r.get('tenant')!r} re-placed "
+                f"{r.get('source')} -> {r.get('worker')}: SLO burn "
+                f"{r.get('burn_rate')}x vs hottest peer "
+                f"{r.get('peer_max')}x (> {r.get('factor')}x, "
+                f"TFT_FABRIC_BURN_FACTOR)")
+    if k == "fabric.worker_crash":
+        return (f"worker {r.get('worker')} (epoch {r.get('epoch')}) "
+                f"CRASHED: running queries parked to the durable "
+                f"tier, in-memory caches died with it")
+    if k == "fabric.worker_lost":
+        return (f"worker {r.get('worker')} declared LOST after "
+                f"{r.get('missed')} missed heartbeat(s) (classified "
+                f"{r.get('classified')}); tenants re-placed, queries "
+                f"re-dispatched")
+    if k == "fabric.heartbeat_miss":
+        return (f"worker {r.get('worker')} missed a heartbeat "
+                f"({r.get('missed')}/{r.get('limit')} before the "
+                f"lease expires)")
+    if k == "fabric.resume_dispatch":
+        cp = r.get("from_checkpoint")
+        return (f"re-dispatched to {r.get('worker')} "
+                f"({r.get('reason')}, attempt #{r.get('attempt')}): "
+                + (f"{r.get('resumed_blocks')} block(s) resume from "
+                   f"the persisted checkpoint" if cp
+                   else "no checkpoint found — cold re-run"))
+    if k == "fabric.worker_restart":
+        return (f"rolling restart of {r.get('worker')}: epoch "
+                f"{r.get('epoch')} -> {r.get('next_epoch')} (drain, "
+                f"persist, re-admit via probe)")
+    if k == "fabric.admit":
+        return (f"worker {r.get('worker')} (epoch {r.get('epoch')}) "
+                f"passed its admission probe")
+    if k == "fabric.admit_probe_failed":
+        return (f"worker {r.get('worker')} (epoch {r.get('epoch')}) "
+                f"FAILED its admission probe ({r.get('error')}); not "
+                f"admitted")
     if k == "history.unclean_shutdown":
         return (f"UNCLEAN SHUTDOWN: pid {r.get('pid')} "
                 + (f"(worker {r['worker']}) " if r.get("worker") else "")
@@ -331,6 +385,16 @@ def doctor(max_per_kind: int = 5,
             f"worker(s), {serve['slots']} slot(s)")
     else:
         lines.append("  serve    : no scheduler running")
+    fab = snap.get("fabric") or {}
+    if fab.get("running"):
+        ps = fab.get("persist") or {}
+        lines.append(
+            f"  fabric   : {fab['name']!r} · {fab['live']}/"
+            f"{fab['workers']} worker(s) live, {fab['lost']} lost · "
+            f"{fab['queries']['inflight']} quer(ies) in flight · "
+            f"persist {_fmt_bytes((ps.get('checkpoint_bytes') or 0) + (ps.get('result_bytes') or 0))} "
+            f"({ps.get('checkpoints', 0)} ckpt / "
+            f"{ps.get('results', 0)} result)")
     for t, s in snap["slo"].items():
         if s["total"] == 0:
             continue
@@ -378,12 +442,17 @@ def doctor(max_per_kind: int = 5,
         f"{res['plan_oom_fallbacks']}+{res['dplan_fallbacks']} plan "
         f"fallback(s)")
     inv = snap.get("invariants") or {}
+    chaos = inv.get("chaos")
+    chaos_s = (f" · chaos seed {chaos['seed']} rate {chaos['rate']:g} "
+               f"({chaos['fired']} firing(s) over "
+               f"{'|'.join(chaos['sites'])})" if chaos else "")
     lines.append(
         f"  invariant: audits {'on' if inv.get('enabled', True) else 'OFF'}"
         f"{' [strict]' if inv.get('strict') else ''} · "
         f"{inv.get('audits', 0)} audit(s), "
         f"{inv.get('violations', 0)} violation(s), "
-        f"{inv.get('rows_tainted', 0)} tainted row ledger(s)")
+        f"{inv.get('rows_tainted', 0)} tainted row ledger(s)"
+        f"{chaos_s}")
     quar = snap.get("quarantine") or {}
     active_q = quar.get("active") or {}
     if active_q:

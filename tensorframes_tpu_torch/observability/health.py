@@ -15,8 +15,11 @@ its budget, skipped stream batches, performance regressions, invariant
 violations, an unclean shutdown, cold history segments, quarantined
 plans.
 
-The JAX package's ``mesh`` and ``fabric`` sections come with those layers
-(``ROADMAP.md`` A10, A11): the snapshot has no such keys.
+The ``fabric`` section is the open serving fabric's
+:meth:`~..serve.fabric.ServeFabric.health_snapshot` (``{"running":
+False}`` without one), and a worker declared lost raises a warning. The
+JAX package's ``mesh`` section comes with the parallel layer
+(``ROADMAP.md`` A10): the snapshot has no such key.
 """
 
 from __future__ import annotations
@@ -169,7 +172,7 @@ def _stream_section() -> Dict[str, Any]:
 def _invariants_section(counts: Dict[str, int]) -> Dict[str, Any]:
     out: Dict[str, Any] = {
         "enabled": True, "strict": False, "audits": 0, "violations": 0,
-        "rows_tainted": 0,
+        "rows_tainted": 0, "chaos": None,
     }
     try:
         from ..resilience import invariants as _invariants
@@ -180,6 +183,13 @@ def _invariants_section(counts: Dict[str, int]) -> Dict[str, Any]:
     out["audits"] = counts.get("invariants.audits", 0)
     out["violations"] = counts.get("invariants.violations", 0)
     out["rows_tainted"] = counts.get("invariants.rows.tainted", 0)
+    try:
+        from ..resilience import chaos as _chaos
+        sched = _chaos.active()
+        if sched is not None:
+            out["chaos"] = sched.stats()
+    except Exception as e:  # noqa: BLE001 - optional subsystem
+        _log.debug("health: chaos schedule unavailable: %s", e)
     return out
 
 
@@ -201,6 +211,22 @@ def _quarantine_section() -> Dict[str, Any]:
         return {"active": {}, "streaks": {}}
 
 
+def _fabric_section() -> Dict[str, Any]:
+    try:
+        from ..serve.fabric import live_fabric
+        fab = live_fabric()
+    except Exception as e:  # noqa: BLE001 - optional subsystem
+        _log.debug("health: fabric unavailable: %s", e)
+        fab = None
+    if fab is None:
+        return {"running": False}
+    try:
+        return fab.health_snapshot()
+    except Exception as e:  # noqa: BLE001 - a closing fabric is not news
+        _log.debug("health: fabric snapshot failed: %s", e)
+        return {"running": False}
+
+
 def _warnings(snap: Dict[str, Any]) -> List[str]:
     warns: List[str] = []
     mem = snap["memory"]
@@ -217,6 +243,12 @@ def _warnings(snap: Dict[str, Any]) -> List[str]:
                     f"serve: tenant {t!r} had {s['shed']} shed / "
                     f"{s['rejected']} rejected quer(ies) — admission "
                     f"or queue pressure")
+    fab = snap.get("fabric") or {}
+    if fab.get("running") and fab.get("lost"):
+        warns.append(
+            f"fabric: {fab['lost']} worker(s) declared lost — their "
+            f"tenants re-placed and queries re-dispatched; restart "
+            f"them (ServeFabric.restart_worker) to restore capacity")
     for t, s in snap["slo"].items():
         burn = s.get("burn_rate")
         if burn is not None and burn > 1.0:
@@ -269,7 +301,8 @@ def health() -> Dict[str, Any]:
     """One cross-subsystem snapshot: the ledger's headroom and spill
     pressure with the card's allocator, serve queue depths and in-flight,
     compile and result cache hit ratios, per-stream watermark lag and
-    state size, SLO burn, the sentinel, the history, invariants,
+    state size, the serving fabric, SLO burn, the sentinel, the history,
+    invariants,
     quarantine and the flight recorder's own liveness, plus a
     ``warnings`` triage list. Read-only; see the module docstring."""
     counts = tracing.counters.snapshot()
@@ -277,6 +310,7 @@ def health() -> Dict[str, Any]:
         "ts": time.time(),
         "memory": _memory_section(counts),
         "serve": _serve_section(),
+        "fabric": _fabric_section(),
         "caches": _cache_section(counts),
         "streams": _stream_section(),
         "slo": _slo.slo_status(),

@@ -23,7 +23,8 @@ Families:
   memory manager's (``tft_memory_*``), the timeline's
   (``tft_timeline_*``), the live streams' (``tft_stream_*``), the SLOs'
   (``tft_serve_slo_*``), the sentinel's (``tft_perf_*``), the history's
-  (``tft_history_*``) and each live scheduler's (``tft_serve_*``);
+  (``tft_history_*``), the relational layer's (``tft_relational_*``)
+  and each live scheduler's (``tft_serve_*``);
 - ``tft_trace_ring_events``: events currently buffered in the ring.
 
 The endpoint binds ``127.0.0.1`` only: metric names leak workload

@@ -776,17 +776,20 @@ def join(left: TensorFrame, right: TensorFrame, on,
          mesh=None, indicator: Optional[str] = None) -> TensorFrame:
     """Join two frames (lazy). ``strategy=None`` routes to the broadcast
     join, the only route without a mesh, and records the decision on the
-    result as ``_join_route``. A ``mesh`` raises ``NotImplementedError``:
-    the routing between broadcast, partitioned and mesh sort-merge joins
-    (``TFT_SHUFFLE``, ``TFT_BROADCAST_LIMIT_BYTES``) comes with the
-    parallel layer."""
+    result as ``_join_route``. Every route the port takes, broadcast or a
+    requested sort-merge, is flight-recorded (``relational.join_route``,
+    with the build side's estimated bytes; ``ttf.why()`` renders it). A
+    ``mesh`` raises ``NotImplementedError``: the routing between
+    broadcast, partitioned and mesh sort-merge joins (``TFT_SHUFFLE``,
+    ``TFT_BROADCAST_LIMIT_BYTES``) comes with the parallel layer."""
     if mesh is not None:
         raise _mesh_unavailable("join with a mesh")
     on_l = [on] if isinstance(on, str) else list(on)
     route = None
+    reason = "requested"
     if strategy is None:
-        strategy = "broadcast"
-        route = {"strategy": strategy, "reason": "no mesh", "how": how,
+        strategy, reason = "broadcast", "no mesh"
+        route = {"strategy": strategy, "reason": reason, "how": how,
                  "keys": on_l}
     if strategy == "broadcast":
         out = broadcast_join(left, right, on, how=how,
@@ -801,6 +804,66 @@ def join(left: TensorFrame, right: TensorFrame, on,
         raise ValueError(
             f"unknown join strategy {strategy!r}; use 'broadcast', "
             f"'sort_merge', or 'partitioned'")
+    _, rbytes = _memory.frame_estimate(right)
+    from ..observability import flight as _flight
+    _flight.record("relational.join_route", strategy=strategy,
+                   reason=reason,
+                   est_build_bytes=(int(rbytes) if rbytes is not None
+                                    else None),
+                   how=how, shuffle=False, keys=on_l)
     if route is not None:
         out._join_route = route
     return out
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+
+# the JAX package's families; the partitioned ones read 0 until the
+# parallel layer gives the port a partitioned join
+_REL_FAMILIES = (
+    ("relational.broadcast_joins", "tft_relational_broadcast_joins_total",
+     "Broadcast hash joins defined."),
+    ("relational.sort_merge_joins",
+     "tft_relational_sort_merge_joins_total",
+     "Sort-merge joins defined."),
+    ("relational.partitioned_joins",
+     "tft_relational_partitioned_joins_total",
+     "Shuffle-partitioned hash joins defined."),
+    ("relational.partitioned_fallbacks",
+     "tft_relational_partitioned_fallbacks_total",
+     "Partitioned joins that fell back to broadcast (TFT_SHUFFLE=0, "
+     "single-shard mesh, or a degenerate empty side)."),
+    ("relational.partitioned_probe_rows",
+     "tft_relational_partitioned_probe_rows_total",
+     "Probe rows routed through the shuffle exchange."),
+    ("relational.rows_joined", "tft_relational_rows_joined_total",
+     "Join output rows produced."),
+    ("relational.probe_dispatches",
+     "tft_relational_probe_dispatches_total",
+     "Fused build-table gather programs dispatched."),
+    ("relational.build_chunks", "tft_relational_build_chunks_total",
+     "Build-side chunks created because the ledger refused a resident "
+     "broadcast."),
+    ("relational.sketch_folds", "tft_relational_sketch_folds_total",
+     "Sketch partial tables folded (aggregate/daggregate/stream)."),
+    ("relational.key_distinct_probes",
+     "tft_relational_key_distinct_probes_total",
+     "HLL key-distinct probes run for join cardinality estimates."),
+)
+
+
+def _render_metrics() -> List[str]:
+    snap = counters.snapshot()
+    lines: List[str] = []
+    for key, fam, help_text in _REL_FAMILIES:
+        lines.append(f"# HELP {fam} {help_text}")
+        lines.append(f"# TYPE {fam} counter")
+        lines.append(f"{fam} {snap.get(key, 0)}")
+    return lines
+
+
+from ..observability import metrics as _metrics  # noqa: E402
+
+_metrics.register_metrics_provider("relational", _render_metrics)

@@ -1,8 +1,7 @@
 """Resilient execution: retries, deadlines, fault injection, classification.
 
 The port's counterpart of ``tensorframes_tpu/resilience/__init__.py``,
-with the same exports but ``chaos``, which is not ported yet
-(``ROADMAP.md`` A11):
+with the same exports:
 
 - **policy** (:mod:`.policy`): :class:`RetryPolicy` (bounded attempts,
   exponential backoff with deterministic jitter, an overall deadline) and
@@ -16,9 +15,13 @@ with the same exports but ``chaos``, which is not ported yet
 - **faults** (:mod:`.faults`): the deterministic fault-injection harness
   (``with faults.inject("oom", fail_n=2): ...``) that drives every
   recovery path on the CPU and on the card;
+- **chaos** (:mod:`.chaos`): seeded multi-site schedules over the fault
+  sites (``TFT_CHAOS="seed:42,rate:0.05,sites:worker|oom|disk"``), the
+  same decision function as the JAX package's, replayable on their seed;
 - **invariants** (:mod:`.invariants`): the auditors that hold the slot
-  pool's leases, the memory ledger and a fused query's rows against each
-  other at quiesce points (a stream's batch boundary, a query's close).
+  pool's leases, the memory ledger, the schedulers' and the fabric's
+  query accounting and a fused query's rows against each other at
+  quiesce points; strict (raising) under an active chaos schedule.
 
 Consumers: ``engine/executor.py`` (dispatch retry, the row split of an
 OOM'd row-local block), ``engine/pipeline.py`` (the drain's sync
@@ -37,6 +40,7 @@ from .faults import InjectedFault, inject
 from .policy import (DEFAULT_POLICY, ClusterInitError, DeadlineExceeded,
                      RetryPolicy, check_deadline, deadline, default_policy,
                      env_bool, env_float, env_int, remaining_time)
+from . import chaos
 from . import faults
 from . import invariants
 
@@ -51,5 +55,5 @@ __all__ = [
     "DeviceLost", "WorkerLost", "KernelError",
     "QueryInterrupted", "QueryPreempted", "QueryCancelled",
     "env_bool", "env_float", "env_int",
-    "faults", "inject", "InjectedFault", "invariants",
+    "faults", "inject", "InjectedFault", "invariants", "chaos",
 ]

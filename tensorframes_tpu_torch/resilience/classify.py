@@ -15,9 +15,10 @@ Three buckets, three responses:
   ``RESOURCE_EXHAUSTED``; on the host a ``MemoryError``.
 - **device_lost** / **worker_lost**, and the serving layer's rejections
   and interruptions: the whole of the JAX package's classifier is kept,
-  with the contracts of the layers that will raise them (the mesh, the
-  serving scheduler and fabric, preemption; not ported yet), so that
-  those layers land on the classification they were written against.
+  with the contracts of the layers that raise them (the serving
+  scheduler and fabric, preemption; the mesh, which is not ported yet),
+  so that those layers land on the classification they were written
+  against.
 - **permanent**: everything else (shape errors, type errors, a kernel that
   fails to build or to launch): fail fast, loudly, once.
 

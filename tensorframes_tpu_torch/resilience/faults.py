@@ -43,22 +43,28 @@ disk        ``memory.persist`` artifact reads: never raised out of a
 batch       ``stream.runtime.StreamHandle`` per-batch processing: a
             transient fault retries the batch, a permanent one skips and
             counts it
+worker      ``engine.preempt.boundary`` (a running query) and the
+            ``serve.fabric`` heartbeat (an idle worker): like ``preempt``
+            NOT raised out of the query; the scope parks the query (its
+            checkpoint persisted) and flags the worker as crashed, so
+            ``TFT_FAULTS=worker:1`` kills one serving worker mid-query and
+            the fabric declares it ``worker_lost`` and resumes elsewhere
 ========== ===========================================================
 
 ``pad_compile`` has no counterpart: the port has no padding buckets, so
 there is no bucketed compile to fail. The other sites of the JAX package
-(``cluster_init``, ``dmap``, ``device``, ``worker``,
-``pjrt_execute``), with the shaping of their faults (device loss, worker
-loss), come with their layers (``ROADMAP.md`` A10, A11); arming one now
-warns, as any unknown site does, and nothing checks it.
+(``cluster_init``, ``dmap``, ``device``, ``pjrt_execute``), with the
+device-loss shaping of their faults, come with their layers
+(``ROADMAP.md`` A10, A13); arming one now warns, as any unknown site
+does, and nothing checks it.
 
 Counting is deterministic (a lock-guarded integer per site, decremented
 per check), so a test asserting "succeeds on the 3rd attempt" is exact.
-Seeded chaos schedules (``TFT_CHAOS``, ``resilience/chaos.py`` in the JAX
-package, and the consult hook it installs here) are not ported
-(``ROADMAP.md`` A11): with ``TFT_CHAOS`` set, the first check raises
-``NotImplementedError``, and :func:`may_fire` is true only while a
-scripted budget is armed.
+Seeded chaos schedules compose on top of this (``resilience/chaos.py``,
+``TFT_CHAOS``): while a schedule is active, a :func:`check` whose site
+has no scripted budget consults it, and a seed-deterministic firing arms
+a one-shot budget through :func:`arm`: same machinery, same counters,
+same shaping.
 """
 
 from __future__ import annotations
@@ -73,7 +79,7 @@ from ..utils.logging import get_logger
 from ..utils.tracing import counters
 
 __all__ = ["InjectedFault", "inject", "check", "arm", "reset", "active",
-           "may_fire", "slowdown", "sites"]
+           "may_fire", "slowdown", "sites", "set_chaos_hook"]
 
 _log = get_logger("resilience.faults")
 
@@ -92,12 +98,15 @@ _SITES = {
     "disk": "memory.persist artifact reads (read failure, or checksum "
             "corruption when armed with a 'corrupt' message)",
     "batch": "stream.runtime.StreamHandle per-batch processing",
+    "worker": "engine.preempt.boundary / serve.fabric heartbeat "
+              "(worker-loss shaped: park + fabric re-placement)",
 }
 
 
 def sites() -> Dict[str, str]:
     """The instrumented fault-site table: ``{site: where it fires}``, the
-    single source of truth for what :func:`arm` can usefully arm."""
+    single source of truth for what :func:`arm` can usefully arm: chaos
+    schedules (``resilience/chaos.py``) reject sites outside it."""
     return dict(_SITES)
 
 
@@ -133,25 +142,36 @@ _state = _State()
 _OOM_MESSAGE = ("RESOURCE_EXHAUSTED: injected fault: out of memory "
                 "allocating scratch for block")
 
+# the "worker" site must be caught by classify.is_worker_lost (fabric
+# re-placement and checkpoint resume), never the retry loop
+_WORKER_MESSAGE = ("WORKER_LOST: injected fault: worker process died "
+                   "(crash simulated)")
+
 # the "disk" site never escapes memory.persist (its reads are best-effort
 # try/except); non-transient so nothing would retry it if an
 # instrumentation point outside that layer ever picked it up
 _DISK_MESSAGE = ("injected disk fault: persist artifact read failed "
                  "(I/O error simulated)")
 
+# set by resilience.chaos while a schedule is active: called with the
+# site on every budget-exhausted check; returns True after arming a
+# one-shot seed-deterministic budget for it (None costs one load)
+_chaos_hook = None
+
+
+def set_chaos_hook(hook) -> None:
+    """Install (or clear with ``None``) the chaos scheduler's consult
+    hook: owned by ``resilience.chaos``, not a public tuning point."""
+    global _chaos_hook
+    _chaos_hook = hook
+
 
 def _arm_from_env() -> None:
-    """Parse ``TFT_FAULTS="site:count,site:count"`` once per process;
-    ``TFT_CHAOS`` raises (seeded chaos schedules are not ported)."""
+    """Parse ``TFT_FAULTS="site:count,site:count"`` once per process, and
+    arm ``TFT_CHAOS`` the same lazy way."""
     with _state.lock:
         if _state._armed_env:
             return
-        if os.environ.get("TFT_CHAOS"):
-            raise NotImplementedError(
-                "TFT_CHAOS is set, and seeded chaos schedules "
-                "(resilience/chaos.py, ROADMAP.md A11) are not in "
-                "tensorframes_tpu_torch yet; unset it, or script faults "
-                "with TFT_FAULTS")
         _state._armed_env = True
         raw = os.environ.get("TFT_FAULTS", "")
     for part in raw.split(","):
@@ -163,6 +183,10 @@ def _arm_from_env() -> None:
             arm(site.strip(), int(count) if count else 1)
         except ValueError:
             _log.warning("ignoring malformed TFT_FAULTS entry %r", part)
+    # the chaos twin: memoized inside, a no-op without the knob; a
+    # malformed spec raises there
+    from . import chaos as _chaos
+    _chaos.maybe_start_from_env()
 
 
 def arm(site: str, fail_n: int = 1, message: Optional[str] = None,
@@ -171,14 +195,15 @@ def arm(site: str, fail_n: int = 1, message: Optional[str] = None,
 
     ``transient`` defaults to True except for the ``oom`` site, whose
     faults must reach the OOM classifier (the row split), not the retry
-    loop, and the ``disk`` site (the persist cold path, never a retry).
+    loop, the ``worker`` site (fabric re-placement) and the ``disk`` site
+    (the persist cold path), never a retry.
     """
     if fail_n < 0:
         raise ValueError(f"fail_n must be >= 0, got {fail_n}")
     if site not in _SITES:
         # loud, not fatal: arming still proceeds (a nothing-checks-it
-        # site is harmless) but a typo in TFT_FAULTS must never turn a
-        # drill vacuous silently
+        # site is harmless) but a typo in TFT_FAULTS / TFT_CHAOS must
+        # never turn a drill vacuous silently
         counters.inc("faults.unknown_sites")
         _log.warning(
             "arming UNKNOWN fault site %r — no instrumentation point "
@@ -187,6 +212,11 @@ def arm(site: str, fail_n: int = 1, message: Optional[str] = None,
     if site == "oom":
         if message is None:
             message = _OOM_MESSAGE
+        if transient is None:
+            transient = False
+    elif site == "worker":
+        if message is None:
+            message = _WORKER_MESSAGE
         if transient is None:
             transient = False
     elif site == "disk":
@@ -225,10 +255,17 @@ def active(site: str) -> int:
 
 def may_fire(site: str) -> bool:
     """True when a :func:`check` of ``site`` could raise right now: a
-    scripted budget is armed. For gated instrumentation points
-    (``engine.preempt.boundary``) that enter their fault branch only when
-    something might fire."""
-    return active(site) > 0
+    scripted budget is armed, or an active chaos schedule names the site.
+    For gated instrumentation points (``engine.preempt.boundary``) that
+    enter their fault branch only when something might fire: gating on
+    :func:`active` alone would hide those sites from chaos schedules."""
+    if active(site) > 0:
+        return True
+    if _chaos_hook is None:
+        return False
+    from . import chaos as _chaos
+    sched = _chaos.active()
+    return sched is not None and site in sched.sites
 
 
 def _consume(site: str):
@@ -247,12 +284,22 @@ def check(site: str) -> None:
     """Raise the site's scripted fault while its budget lasts.
 
     Instrumentation points call this unconditionally: the disarmed path
-    is one env read (memoized) plus a dict lookup under a lock.
+    is one env read (memoized) plus a dict lookup under a lock (and one
+    global load for the chaos hook). With a chaos schedule active and no
+    scripted budget, the schedule decides seed-deterministically whether
+    this check fires: a firing arms a one-shot budget through :func:`arm`
+    (site-correct message shaping included) and consumes it here, so a
+    chaos fault is indistinguishable from a scripted one.
     """
     _arm_from_env()
     got = _consume(site)
     if got is None:
-        return
+        hook = _chaos_hook
+        if hook is None or not hook(site):
+            return
+        got = _consume(site)  # the firing armed a one-shot budget
+        if got is None:
+            return  # lost a race with reset(); the firing was recorded
     left, message, transient = got
     counters.inc(f"faults.{site}.injected")
     _log.info("injecting fault at site %r (%d more scripted)",
@@ -266,11 +313,18 @@ def slowdown(site: str = "perf") -> float:
     INSIDE the caller's timed region and return the duration slept —
     never raises, so the query completes normally, just slower
     (``TFT_FAULTS=perf:1``). Returns 0.0 on the disarmed path (one
-    memoized env read + a locked dict lookup, same as :func:`check`)."""
+    memoized env read + a locked dict lookup, same as :func:`check`). A
+    chaos schedule naming this site can fire it too, as in
+    :func:`check`."""
     _arm_from_env()
     got = _consume(site)
     if got is None:
-        return 0.0
+        hook = _chaos_hook
+        if hook is None or not hook(site):
+            return 0.0
+        got = _consume(site)
+        if got is None:
+            return 0.0
     left = got[0]
     dur = max(env_float("TFT_FAULT_PERF_S", 0.05), 0.0)
     counters.inc(f"faults.{site}.injected")

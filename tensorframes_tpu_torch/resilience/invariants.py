@@ -4,12 +4,16 @@ The port's counterpart of ``tensorframes_tpu/resilience/invariants.py``.
 Each subsystem keeps local books: the slot pool counts leases
 (``engine/pipeline.py``), the memory ledger counts reserved and resident
 bytes (``memory/manager.py``), checkpoints carry resume cursors
-(``memory/checkpoint.py``). Each book balances by construction on the
-paths its own tests drive. This module audits the books against each
-other at quiesce points (a stream's batch boundary, a fused query's
-close), where a composed fault would surface as a leak no single
-subsystem can see: a lease left behind by an error that unwound through
-two layers, a reservation released twice.
+(``memory/checkpoint.py``), the scheduler counts queued and running
+queries per tenant (``serve/scheduler.py``), the serving fabric keeps
+every query attached to a worker (``serve/fabric.py``). Each book
+balances by construction on the paths its own tests drive. This module
+audits the books against each other at quiesce points (a stream's batch
+boundary, a fused query's close, a query's finish, a scheduler's close,
+the chaos drill's checkpoints), where a composed fault (``.chaos``) would
+surface as a leak no single subsystem can see: a lease left behind by an
+error that unwound through two layers, a reservation released twice, a
+query neither queued nor running nor finished.
 
 Two modes, one knob pair:
 
@@ -17,15 +21,17 @@ Two modes, one knob pair:
   flight-recorded (``invariant.violation``), counted
   (``invariants.violations`` + ``invariants.<auditor>.violations``) and
   logged, never raised; ``TFT_INVARIANTS=0`` bypasses even that;
-- **strict** (tests, ``TFT_INVARIANTS_STRICT=1``, or the :func:`strict`
-  context): a violation also raises a classified
+- **strict** (an active chaos schedule, tests,
+  ``TFT_INVARIANTS_STRICT=1``, or the :func:`strict` context): a
+  violation also raises a classified
   :class:`~.classify.InvariantViolation` at the quiesce point.
 
 Built-in auditors, consulted live at each audit: slot-pool lease balance,
 memory-ledger reservation balance with spillable-registry consistency,
-and every live serving scheduler's queue, running and in-flight
-accounting (no orphaned query at its close). :func:`register` adds
-process-wide custom auditors.
+every live serving scheduler's queue, running and in-flight accounting
+(no orphaned query at its close), and the live fabric's no-orphan
+accounting (every fabric query placed on a real worker, or done).
+:func:`register` adds process-wide custom auditors.
 
 Per-query row conservation is threaded, not global: ``plan/execute.py``
 opens a :func:`row_ledger` around a row-local fused plan, filter stages
@@ -33,10 +39,6 @@ opens a :func:`row_ledger` around a row-local fused plan, filter stages
 ``rows in == rows out + rows filtered``. A preemption resume restoring a
 prior attempt's prefix calls :func:`taint_rows`, and the check is skipped,
 not faked. :func:`conserve` raises in every mode.
-
-Not in this package yet: the serving fabric's auditor and the strict mode
-an active chaos schedule implies (with ``serve/fabric.py`` and
-``resilience/chaos.py``, ``ROADMAP.md`` A11).
 """
 
 from __future__ import annotations
@@ -74,11 +76,14 @@ def enabled() -> bool:
 
 
 def strict_mode() -> bool:
-    """Raise on violation? True inside :func:`strict` or with
-    ``TFT_INVARIANTS_STRICT=1``."""
+    """Raise on violation? True inside :func:`strict`, under an active
+    chaos schedule, or with ``TFT_INVARIANTS_STRICT=1``."""
     if _strict_depth > 0:
         return True
-    return os.environ.get("TFT_INVARIANTS_STRICT", "") not in ("", "0")
+    if os.environ.get("TFT_INVARIANTS_STRICT", "") not in ("", "0"):
+        return True
+    from . import chaos as _chaos
+    return _chaos.active() is not None
 
 
 @contextlib.contextmanager
@@ -229,8 +234,16 @@ def _audit_scheduler(point: str) -> List[str]:
     return out
 
 
+def _audit_fabric(point: str) -> List[str]:
+    from ..serve.fabric import live_fabric
+    f = live_fabric()
+    if f is None:
+        return []
+    return f.audit_invariants(point)
+
+
 _BUILTIN = (("slots", _audit_slots), ("memory", _audit_memory),
-            ("scheduler", _audit_scheduler))
+            ("scheduler", _audit_scheduler), ("fabric", _audit_fabric))
 
 
 def audit(point: str) -> List[str]:

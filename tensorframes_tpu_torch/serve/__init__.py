@@ -1,5 +1,6 @@
-"""The serving layer: the multi-tenant query scheduler, its statistics,
-poison-query quarantine and the shared compile cache.
+"""The serving layer: the multi-tenant query scheduler, the serving
+fabric over several of them, their statistics, poison-query quarantine
+and the shared compile cache.
 
 The port's counterpart of ``tensorframes_tpu/serve``:
 
@@ -13,13 +14,18 @@ The port's counterpart of ``tensorframes_tpu/serve``:
   ``tft_serve_*`` metrics families;
 - :func:`quarantine_status` and :func:`unquarantine` (``quarantine.py``);
 - :class:`SharedCompileCache` (``cache.py``), which a scheduler installs
-  as the executor's interner.
-
-The serving fabric (``serve/fabric.py``: workers, leases, re-placement)
-comes in a later slice (``ROADMAP.md`` A11).
+  as the executor's interner;
+- :class:`ServeFabric` (``fabric.py``): tenants placed across
+  :class:`FabricWorker` s (each a full scheduler), heartbeats and leases,
+  a lost worker's queries resumed on a survivor from their persisted
+  checkpoints (:class:`FabricQuery` survives its worker), rolling
+  restarts behind an admission probe; :func:`live_fabric` is the open
+  one, :func:`fabric_enabled` reads ``TFT_FABRIC``.
 """
 
 from .cache import SharedCompileCache, computation_signature
+from .fabric import (FabricQuery, FabricWorker, ServeFabric,
+                     fabric_enabled, live_fabric)
 from .quarantine import quarantine_status, unquarantine
 from .scheduler import (QueryScheduler, SubmittedQuery, TenantQuota,
                         default_scheduler, live_scheduler,
@@ -32,5 +38,7 @@ __all__ = [
     "shutdown_default_scheduler", "live_scheduler",
     "SharedCompileCache", "computation_signature",
     "ServerStats", "serve_report",
+    "ServeFabric", "FabricQuery", "FabricWorker",
+    "live_fabric", "fabric_enabled",
     "unquarantine", "quarantine_status",
 ]

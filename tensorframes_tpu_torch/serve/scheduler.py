@@ -62,11 +62,18 @@ tenant), ``TFT_SERVE_INFLIGHT`` (2 per tenant), ``TFT_SERVE_SLOTS``,
 (0.02), ``TFT_SERVE_SHARED_CACHE`` (1), ``TFT_SERVE_DEADLINE_S``,
 ``TFT_SERVE_PREEMPT`` (1), ``TFT_PREEMPT_AFTER_MS`` (100).
 
-The serving fabric's hooks (a worker id stamped on records, re-dispatch
-under an original id with a persisted checkpoint, ``mark_lost``,
-``request_park_all``, the ``worker`` fault site) and the JAX package's
-one retry of a query that lost a mesh device come with the fabric and
-the parallel layer (``ROADMAP.md`` A10, A11).
+The serving fabric (``serve/fabric.py``) drives every scheduler of its
+workers through hooks: ``worker_id`` is stamped on the flight scopes and
+history records, ``on_worker_fault`` fires (on the victim's own worker
+thread, before the scheduler's lock is taken) when a running query's park
+was caused by the ``worker`` fault site, :meth:`QueryScheduler.mark_lost`
+stops a dying worker's intake, :meth:`QueryScheduler.request_park_all`
+parks every running query, and ``submit(..., query_id=, _checkpoint=)``
+re-dispatches a migrated query under its original id with its persisted
+checkpoint. A query orphaned at :meth:`QueryScheduler.close` keeps its
+persisted checkpoint file, so that the fabric can resume it elsewhere.
+The JAX package's one retry of a query that lost a mesh device comes
+with the parallel layer (``ROADMAP.md`` A10).
 """
 
 from __future__ import annotations
@@ -347,6 +354,10 @@ class QueryScheduler:
         self._vtime = 0.0
         self._qid = itertools.count(1)
         self._open = True
+        # a lost worker's scheduler: stops picking work and orphans
+        # parked queries, but close() (full teardown, thread joins)
+        # still runs later from another thread; see mark_lost()
+        self._dying = False
         self._admission = admission
         self._preemption = (preemption if preemption is not None
                             else env_bool("TFT_SERVE_PREEMPT", True))
@@ -366,6 +377,11 @@ class QueryScheduler:
             use_cache = (shared_cache if shared_cache is not None
                          else env_bool("TFT_SERVE_SHARED_CACHE", True))
             self.compile_cache = SharedCompileCache() if use_cache else None
+        # set by the serving fabric: worker_id tags this scheduler's
+        # flight records; on_worker_fault(self) fires when a running
+        # query's park was caused by the `worker` fault site
+        self.worker_id: Optional[str] = None
+        self.on_worker_fault = None
         for tname, quota in (quotas or {}).items():
             self._tenants[tname] = _Tenant(tname, quota)
         self._threads: List[threading.Thread] = []
@@ -405,6 +421,20 @@ class QueryScheduler:
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
+
+    def mark_lost(self) -> None:
+        """Flag this scheduler as dying WITHOUT joining its threads.
+
+        The serving fabric's worker-fault hook runs on the victim's own
+        worker thread, where a full :meth:`close` would join itself.
+        This flips the kill switch synchronously instead: workers stop
+        picking queries, new submits are refused, and a parked query's
+        requeue takes the orphan path (a classified rejection the fabric
+        reads as *migrating*, not failed). A later :meth:`close` from
+        another thread still runs the full teardown."""
+        with self._cond:
+            self._dying = True
+            self._cond.notify_all()
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop accepting, fail still-queued queries with a classified
@@ -512,7 +542,9 @@ class QueryScheduler:
     def submit(self, frame, fetches=None, *, tenant: str = "default",
                deadline: Optional[float] = None,
                est_rows: Optional[float] = None,
-               est_bytes: Optional[int] = None) -> SubmittedQuery:
+               est_bytes: Optional[int] = None,
+               query_id: Optional[str] = None,
+               _checkpoint=None) -> SubmittedQuery:
         """Queue one query: force ``frame`` (after applying ``fetches``
         via ``map_blocks`` when given) under the tenant's quotas. A
         grouped frame (``frame.group_by(...)``) is served as
@@ -524,6 +556,14 @@ class QueryScheduler:
         :class:`~..resilience.OverQuota` (rows/sec budget), all
         classified, all *before* any work happens. Returns a
         :class:`SubmittedQuery` future otherwise.
+
+        ``query_id`` / ``_checkpoint`` are the serving fabric's
+        re-dispatch hooks (``serve/fabric.py``): a query migrated off a
+        lost worker re-submits under its ORIGINAL id carrying its
+        persisted checkpoint, so that ``ttf.why(query_id)`` shows one
+        causal chain across workers and the resume re-dispatches only
+        the blocks the dead worker never finished. A grouped submit
+        re-dispatches as a grouped submit.
         """
         from ..frame import GroupedFrame
         grouped = frame if isinstance(frame, GroupedFrame) else None
@@ -568,16 +608,20 @@ class QueryScheduler:
         except Exception as e:
             _log.debug("query fingerprint failed at submit: %s", e)
         with self._cond:
-            if not self._open:
+            if not self._open or self._dying:
                 raise RuntimeError(
                     f"scheduler {self.name!r} is closed")
             t = self._tenant(tenant)
-            try:
-                _quarantine.check(fp)
-            except _quarantine.QueryQuarantined:
-                t.counts["quarantined"] += 1
-                gauge("serve.queue_depth", self._queued_locked())
-                raise
+            if query_id is None and _checkpoint is None:
+                # a fabric re-dispatch (original id or checkpoint in
+                # hand) is a MIGRATION, not a fresh submission: it must
+                # not fast-reject mid-flight
+                try:
+                    _quarantine.check(fp)
+                except _quarantine.QueryQuarantined:
+                    t.counts["quarantined"] += 1
+                    gauge("serve.queue_depth", self._queued_locked())
+                    raise
             if len(t.queue) >= t.max_queue:
                 t.counts["rejected"] += 1
                 counters.inc("serve.rejected")
@@ -607,11 +651,13 @@ class QueryScheduler:
                 parts = max(1, getattr(frame, "num_partitions", 1) or 1)
                 est_stream = max(1, int(est_bytes / parts))
             q = SubmittedQuery(
-                f"{self.name}-q{next(self._qid)}", tenant,
+                query_id or f"{self.name}-q{next(self._qid)}", tenant,
                 thunk, est_rows, est_bytes,
                 time.monotonic() + dl if dl is not None else None,
                 est_stream_bytes=est_stream)
             q.fingerprint = fp
+            if _checkpoint is not None:
+                q._checkpoint = _checkpoint
             if grouped is not None and got is not None:
                 q._identity = got
             was_empty = not t.queue
@@ -748,7 +794,7 @@ class QueryScheduler:
     def _next(self, block: bool) -> Optional[SubmittedQuery]:
         with self._cond:
             while True:
-                if not self._open:
+                if not self._open or self._dying:
                     return None
                 t = self._pick_locked()
                 if t is not None:
@@ -787,7 +833,7 @@ class QueryScheduler:
         # regression record correlates to the same query id, and a
         # preempted run that requeues discards its partial capture at
         # this context exit (partial runs must not calibrate baselines)
-        with _flight.scope(q.query_id):
+        with _flight.scope(q.query_id, worker=self.worker_id):
             with _baseline.capture(q.query_id, tenant=q.tenant):
                 self._execute_scoped(q)
 
@@ -873,10 +919,23 @@ class QueryScheduler:
         scope = q._scope
         if scope is not None and scope.checkpoint is not None:
             q._checkpoint = scope.checkpoint
+        worker_fault = scope is not None and scope.worker_fault
         q._scope = None
+        if worker_fault and self.on_worker_fault is not None:
+            # the `worker` fault site fired during this query: tell the
+            # fabric BEFORE taking our lock (its handler may close this
+            # scheduler, which takes _cond: holding it here would
+            # deadlock); the query still requeues below so that the
+            # fabric finds it on the dead worker and re-places it
+            try:
+                self.on_worker_fault(self)
+            except Exception as e:
+                _log.warning("on_worker_fault hook failed: %s", e)
         with self._cond:
-            if not self._open:
-                # lost the race with close(): fail like any orphan
+            if not self._open or self._dying:
+                # lost the race with close()/mark_lost(): fail like any
+                # orphan; the fabric reads this rejection from a dead
+                # worker as "migrating" and re-dispatches elsewhere
                 self._queries.pop(q.query_id, None)
                 t.inflight -= 1
                 t.counts["rejected"] += 1
@@ -1075,8 +1134,9 @@ class QueryScheduler:
         q._complete(result=result, error=error)
         from ..memory import persist as _persist
         if _persist.enabled():
-            # a terminal state is the only point where a query's durable
-            # checkpoint dies
+            # a TERMINAL state is the only point where a query's durable
+            # checkpoint dies: close()'s orphan path keeps the file so
+            # that the fabric can resume the query on another worker
             _persist.discard_checkpoint(q.query_id)
         dur = q.finished_at - q.submitted_at  # end-to-end serving latency
         if error is None:
@@ -1136,7 +1196,7 @@ class QueryScheduler:
             error=(f"{type(error).__name__}: {error}"
                    if error is not None else None),
             error_kind=outcome if error is not None else None,
-            cost=vec,
+            worker=self.worker_id, cost=vec,
             queued_s=(q.started_at - q.submitted_at
                       if q.started_at is not None else None),
             run_s=run_s, total_s=dur,
@@ -1146,6 +1206,24 @@ class QueryScheduler:
         # SLO burn-rate callbacks evaluate off the completion path
         # (throttled per tenant)
         _slo.note_completion(t.name)
+
+    def request_park_all(self, reason: str = "drain") -> int:
+        """Ask every RUNNING query to park at its next block boundary
+        (their checkpoints write through to the durable tier when it is
+        on). The fabric's crash and drain primitive: called before
+        :meth:`close` so that a simulated worker death leaves resumable
+        checkpoints instead of completed queries. Returns the number of
+        queries asked."""
+        with self._cond:
+            scopes = [sc for q in self._queries.values()
+                      for sc in (q._scope,)
+                      if q.state == "running" and sc is not None]
+        for sc in scopes:
+            sc.request_preempt(reason)
+        if scopes:
+            _log.info("scheduler %r: park requested for %d running "
+                      "query(ies) (%s)", self.name, len(scopes), reason)
+        return len(scopes)
 
     # -- introspection -----------------------------------------------------
     def audit_invariants(self, point: str = "inline") -> List[str]:

@@ -16,8 +16,9 @@ source of truth: the scheduler's per-tenant snapshot and the always-on
   ``tft_serve_queries_total{tenant=...,outcome=...}`` counters, read live
   at scrape time.
 
-The JAX package appends the serving fabric's placement table to
-:func:`serve_report`; that comes with the fabric (``ROADMAP.md`` A11).
+While a :class:`~.fabric.ServeFabric` is open, :func:`serve_report` ends
+in its placement table (worker epochs, lease state, tenant placement,
+the durable tier's footprint).
 """
 
 from __future__ import annotations
@@ -189,7 +190,8 @@ def serve_report(scheduler=None) -> str:
     """The serving layer's ``explain()``: per-tenant queues, in-flight,
     outcome totals, p99, SLOs, regressions, quarantines and the shared
     compile cache. Uses the most recently created live scheduler when
-    none is given."""
+    none is given. While a :class:`~.fabric.ServeFabric` is open, its
+    placement table is appended."""
     if scheduler is None:
         from .scheduler import live_scheduler
         scheduler = live_scheduler()
@@ -210,6 +212,13 @@ def serve_report(scheduler=None) -> str:
         if hs.get("unclean"):
             out += ("\n  UNCLEAN SHUTDOWN detected on startup — "
                     "ttf.postmortem() has the triage report")
+    try:
+        from .fabric import live_fabric
+        fab = live_fabric()
+    except Exception:  # noqa: BLE001 - report must render regardless
+        fab = None
+    if fab is not None:
+        out = out + "\n\n" + fab.placement_report()
     return out
 
 

@@ -1133,3 +1133,82 @@ def test_scheduler_serves_two_tenants_aggregates_through_the_kernel(
     assert snap["a"]["completed"] == 2 and snap["b"]["completed"] == 1
     assert launched == len(on) == 3 * 4, (launched, on)
     assert threading.current_thread().name not in on, on
+
+
+def test_fabric_resumes_a_lost_workers_aggregate_on_the_card(
+        cuda, monkeypatch, tmp_path):
+    """A three-worker ``ServeFabric`` on the card: the worker serving a
+    keyed f64 aggregate (``submit(grouped, fetches)``) is lost mid-query;
+    the query resumes on a survivor from its persisted checkpoint (any
+    device value in it restored to the card), every B1 launch takes
+    values on the card, and the result is bit-equal to the serial run."""
+    from tensorframes_tpu_torch import serve
+    from tensorframes_tpu_torch.memory import checkpoint
+    from tensorframes_tpu_torch.observability import flight
+    from tensorframes_tpu_torch.resilience import faults
+    rng = np.random.default_rng(13)
+    n, keys, parts = 400_000, 2_000, 16
+    x = rng.standard_normal(n)
+    k = rng.integers(0, keys, n)
+
+    def query():
+        df = ttf.frame({"k": k, "x": x}, num_partitions=parts)
+        return df.map_blocks(lambda x: {"z": x + x}).select(["k", "z"]) \
+            .group_by("k")
+
+    def host(frame):
+        c = frame.blocks()[0].columns
+        return tuple(np.asarray(c[n].cpu() if hasattr(c[n], "cpu")
+                                else c[n]) for n in ("k", "z"))
+
+    serial = host(ttf.aggregate({"z": "sum"}, query()))
+    restored = []
+    real_restore = checkpoint._restore
+
+    def spy_restore(t):
+        v = real_restore(t)
+        if t[0] == "dev":
+            restored.append(v.device.type)
+        return v
+
+    monkeypatch.setattr(checkpoint, "_restore", spy_restore)
+    on = []
+    real_kernel = segment_reduce.segment_sum_cuda
+
+    def spy_kernel(values, ids, num_segments):
+        on.append(values.device.type)
+        return real_kernel(values, ids, num_segments)
+
+    monkeypatch.setattr(segment_reduce, "segment_sum_cuda", spy_kernel)
+    import gc
+
+    from tensorframes_tpu_torch.plan import adaptive
+    adaptive.invalidate_results()
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    with serve.ServeFabric(workers=3, monitor=False,
+                           persist_dir=str(tmp_path), name="cuda-fab") as fab:
+        before = segment_reduce.launches
+        faults.arm("worker", fail_n=1)
+        fq = fab.submit(query(), {"z": "sum"}, tenant="etl")
+        got = host(fq.result(timeout=300))
+        launched = segment_reduce.launches - before
+        lost = fab.health_snapshot()["lost"]
+        recs = [r for r in flight.for_query(fq.query_id)
+                if r["kind"] == "fabric.resume_dispatch"]
+        workers = {r.get("worker") for r in flight.for_query(fq.query_id)
+                   if r.get("worker")}
+        del fq
+    faults.reset()
+    np.testing.assert_array_equal(got[0], serial[0])
+    np.testing.assert_array_equal(got[1], serial[1])
+    assert lost == 1 and recs and recs[0]["from_checkpoint"]
+    assert 0 < recs[0]["resumed_blocks"] < parts
+    assert len(workers) == 2, workers
+    assert set(restored) <= {"cuda"}, restored
+    assert launched == parts == len(on) and set(on) == {"cuda"}, \
+        (launched, on)
+    del fab
+    adaptive.invalidate_results()
+    gc.collect()
+    assert torch.cuda.memory_allocated() == mem0

@@ -265,15 +265,26 @@ class TestFaults:
             assert str(ei.value).startswith("RESOURCE_EXHAUSTED")
 
     def test_sites_are_the_ports_and_chaos_waits(self, monkeypatch):
+        """The port's sites are the JAX package's but the mesh's and the
+        native core's; ``TFT_CHAOS`` is read at the first check, and a
+        spec the JAX package refuses (no sites) is refused with its
+        message."""
+        from tensorframes_tpu.resilience import chaos as jchaos
+        from tensorframes_tpu_torch.resilience import chaos
         assert set(faults.sites()) == {"compile", "dispatch", "oom",
                                        "drain", "perf", "preempt", "disk",
-                                       "batch"}
+                                       "batch", "worker"}
         assert set(faults.sites()) <= set(jrz.faults.sites())
         monkeypatch.setenv("TFT_CHAOS", "seed:1,rate:0.5")
+        monkeypatch.setattr(chaos, "_env_armed", False)
         faults._state._armed_env = False
         try:
-            with pytest.raises(NotImplementedError, match="A11"):
+            with pytest.raises(ValueError) as ei:
                 faults.check("dispatch")
+            with pytest.raises(ValueError) as ej:
+                jchaos.parse("seed:1,rate:0.5")
+            assert str(ei.value) == str(ej.value)
+            assert chaos.active() is None
         finally:
             monkeypatch.delenv("TFT_CHAOS")
             faults._state._armed_env = False
@@ -285,18 +296,25 @@ class TestFaults:
 
     @pytest.mark.parametrize("site", ["device", "worker"])
     def test_sites_of_later_layers_are_unknown_and_unshaped(self, site):
-        """The mesh's and the fabric's sites come with those layers:
-        arming one warns like any unknown site, and its fault carries none
-        of the JAX package's shaping (device loss, worker loss)."""
+        """The mesh's site comes with the parallel layer: arming it warns
+        like any unknown site, and its fault carries none of the JAX
+        package's device-loss shaping. The fabric's ``worker`` site is
+        the port's now: known, and shaped as the JAX package shapes it."""
         with faults.inject(site, fail_n=1):
             with pytest.raises(trz.InjectedFault) as ei:
                 faults.check(site)
-        assert counters.get("faults.unknown_sites") == 1
-        assert trz.error_kind(ei.value) == "transient"
         with jrz.faults.inject(site, fail_n=1):
             with pytest.raises(jrz.InjectedFault) as ej:
                 jrz.faults.check(site)
         assert jrz.error_kind(ej.value) != "transient"
+        if site == "device":
+            assert counters.get("faults.unknown_sites") == 1
+            assert trz.error_kind(ei.value) == "transient"
+        else:
+            assert counters.get("faults.unknown_sites") == 0
+            assert trz.error_kind(ei.value) == jrz.error_kind(ej.value) \
+                == "worker_lost"
+            assert str(ei.value) == str(ej.value)
 
     def test_disk_site_is_shaped_like_the_jax_package(self):
         """The persist tier's site came with ``memory/persist.py``: it is
