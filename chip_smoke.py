@@ -201,20 +201,41 @@ paths through its public entry points and checks every result:
 5. ``generate_via_frame`` over 16 prompts of 128 tokens in 2 partitions,
    16 new tokens, greedy: bit-equal to ``generate`` on the same prompts; a
    sampled run reproduces itself;
+5b. training at the same width (``transformer_train_8x2048``,
+   :func:`phase_transformer_train`): ``make_sharded_train_step(
+   learning_rate=1e-3)`` (adam) over the same [8, 2048] tokens, step 0's
+   gradients within 1e-4 of each parameter's max-abs of the plain
+   attention's, 5 timed steps each launching the flash forward and its
+   backward kernels 6 times, the loss falling, one step profiled, and a
+   checkpoint saved under ``build/`` and restored into a fresh state whose
+   next step equals the uninterrupted run's bit for bit;
+5c. the ported ``train_lm`` demo (``train_lm_demo``): 30 steps with a
+   checkpoint every 10, a "crash", a resume to 40, the loss at step 40
+   under a tenth of step 1's;
+5d. BASELINE config 4 (``resnet50_infer_b32``): ResNet-50 over 256 seeded
+   224 x 224 x 3 f32 images in 8 partitions of 32 through
+   ``infer_via_frame``, logits [256, 1000], image 0 against the same
+   weights on the CPU;
+5e. BASELINE config 5 (``logreg_262kx64``): logistic regression over
+   262,144 x 64 f32 features in 8 partitions, ``gradient_via_frame``
+   against numpy f64 to rtol 1e-5, then 10 steps of ``fit_via_frame``, the
+   loss falling;
 6. each kernel against its plain PyTorch version on the card: segment_sum
    over dtypes, segment counts, widths, dropped ids, a hot segment with 90%
    of the rows and a single segment (also at the main path's 250k x 64
    block), 4 sort passes, an empty input and a ragged tail;
    flash_attention over f32/bf16/f16, causal or not, sequence lengths,
-   Sq != Sk and head dims; each case twice for bit-identity. Then, at the
-   main paths' shapes, each kernel held against the plain version and
-   itself again and timed beside the plain version, one library call and
-   its bound.
+   Sq != Sk and head dims; its backward (dq, dk, dv and the forward's
+   log-sum-exp) over the same types, lengths 1 to 2,048 and head dims 32,
+   64, 128 and 40; each case twice for bit-identity. Then, at the main
+   paths' shapes, each kernel held against the plain version and itself
+   again and timed beside the plain version, one library call and its
+   bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
 with each kernel's launches during its main path (phases 1-3m for
-segment_sum, the child processes of phases 3h and 3l included, phase 4 for
-flash_attention), the card's name and power
+segment_sum, the child processes of phases 3h and 3l included, phases 4-5e
+for flash_attention, 5b-5e for its backward), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
 It refuses to run without CUDA. Data is random from fixed seeds.
@@ -230,6 +251,7 @@ checkouts on one card, alternating (old, new, new, old).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import os
@@ -4030,11 +4052,15 @@ def random_lm_params(np, cfg, seed: int) -> dict:
             "layers": layers, "ln_f": ones, "head": dense((D, V), D)}
 
 
+# the backward's three kernels (csrc/flash_attention_backward.cu)
+FLASH_BACKWARD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+
+
 def device_breakdown(torch, fn, top=6) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity):
     its wall time up to a synchronize, the device's busy time (the kernels'
-    summed time on the one stream), the idle share, and the device time of
-    the ``top`` kernels by name."""
+    and copies' summed time on the one stream), the idle share, and the
+    device time of the ``top`` kernels by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -4044,8 +4070,14 @@ def device_breakdown(torch, fn, top=6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the profiler also lists each record_function span that covers
+    # kernels as a device event of the span's name: those are left out,
+    # or the kernels under a span would count twice
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = {e.key for e in events if e.device_type != cuda}
+    kernels = [e for e in events
+               if e.device_type == cuda and e.key not in spans]
     busy = sum(e.self_device_time_total for e in kernels) * 1e-6
     assert busy > 0, "the profiler saw no device time"
     kernels.sort(key=lambda e: -e.self_device_time_total)
@@ -4055,7 +4087,10 @@ def device_breakdown(torch, fn, top=6) -> dict:
                                for e in kernels[:top]},
             "flash_attention_ms": sum(
                 e.self_device_time_total for e in kernels
-                if "flash_fwd_kernel" in e.key) * 1e-3}
+                if "flash_fwd_kernel" in e.key) * 1e-3,
+            "flash_backward_ms": sum(
+                e.self_device_time_total for e in kernels
+                if any(n in e.key for n in FLASH_BACKWARD_KERNELS)) * 1e-3}
 
 
 def phase_transformer_score(np, torch, fa, models, state, batch=8, seq=2048,
@@ -4179,6 +4214,238 @@ def phase_generate_via_frame(ttf, np, torch, state, n=16, s0=128, new=16,
             "new_tokens_per_s": n * new / frame_s}
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for a
+    block: the embedding's backward (an accumulating ``index_put_``) then
+    sums in a fixed order (cuBLAS only warns: its products on one stream
+    repeat bit for bit)."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def phase_transformer_train(np, torch, fa, fab, models, ckpt, batch=8,
+                            seq=2048, seed=6, steps=5, lr=1e-3,
+                            cfg=None) -> dict:
+    """The adam train step at full width (``TransformerConfig()``, f32)
+    over [batch, seq] tokens, weights from a numpy seed. Step 0 is taken
+    as ``step`` takes it (``loss_and_grads`` then ``adam_update``), its
+    gradients held against the same weights' gradients through the plain
+    attention on the card to 1e-4 of each parameter's max-abs; then
+    ``steps`` timed steps through ``step`` on the same batch, each
+    launching the flash forward and backward once per layer, the loss
+    falling; one more under the profiler. The state is saved to
+    ``build/``, restored into a fresh ``init_state()``, and one step from
+    it equals the uninterrupted run's next step bit for bit (under
+    :func:`deterministic`, both)."""
+    import shutil
+    from unittest import mock
+
+    from tensorframes_tpu_torch.models import transformer as tr
+
+    cfg = cfg or models.TransformerConfig()
+    model = models.TransformerLM(cfg)
+    step, init_state = model.make_sharded_train_step(learning_rate=lr)
+    state = init_state(models.params_from_jax(random_lm_params(np, cfg,
+                                                               seed)))
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq))).to(model.device)
+    targets = torch.roll(tokens, -1, dims=1)
+
+    def counted(fn):
+        before = (fa.launches, fab.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (fa.launches - before[0], fab.launches - before[1])
+        assert got == (cfg.n_layers, cfg.n_layers), \
+            f"a step launched (forward, backward) {got}, not {cfg.n_layers}"
+        return out, wall
+
+    # step 0: the kernels' gradients against the plain attention's
+    with mock.patch.object(tr, "flash_attention",
+                           fa.flash_attention_reference):
+        _, plain = model.loss_and_grads(state["params"], tokens, targets)
+    torch.cuda.synchronize()
+    (loss0, grads), first_s = counted(
+        lambda: model.loss_and_grads(state["params"], tokens, targets))
+    worst = 0.0
+    for name, want in plain.items():
+        top = float(want.abs().max())
+        err = float((grads[name] - want).abs().max())
+        assert err <= 1e-4 * top, (name, err, top)
+        worst = max(worst, err / top)
+    del plain
+    tr.adam_update(state["params"], grads, state["opt"], lr)
+    del grads
+    losses = [float(loss0)]
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(steps):
+        (state, loss), wall = counted(lambda: step(state, tokens, targets))
+        losses.append(float(loss))
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    profiled, _ = counted(lambda: device_breakdown(
+        torch, lambda: step(state, tokens, targets)))
+    done = steps + 2
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save_step(root, done, state)
+    save_s = time.perf_counter() - t0
+    with deterministic(torch):
+        state, loss_a = step(state, tokens, targets)
+        t0 = time.perf_counter()
+        restored, at = ckpt.restore_step(root, init_state())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert at == done and int(restored["opt"]["count"]) == done
+        restored, loss_b = step(restored, tokens, targets)
+        torch.cuda.synchronize()
+    assert torch.equal(loss_a, loss_b), (float(loss_a), float(loss_b))
+    for name, p in state["params"].items():
+        assert torch.equal(restored["params"][name], p), name
+    shutil.rmtree(root, ignore_errors=True)
+    wall = sum(walls) / len(walls)
+    busy = profiled["device_busy_s"]
+    return {"config": {"vocab": cfg.vocab_size, "d_model": cfg.d_model,
+                       "heads": cfg.n_heads, "layers": cfg.n_layers,
+                       "d_ff": cfg.d_ff, "dtype": str(cfg.dtype)},
+            "tokens": [batch, seq], "learning_rate": lr,
+            "losses": losses, "step0_wall_s": first_s, "step_walls_s": walls,
+            "step_wall_s": wall, "tokens_per_s": batch * seq / wall,
+            "max_memory_allocated_bytes": peak,
+            "step0_grad_max_rel_err": worst,
+            "backward_share_of_device": profiled["flash_backward_ms"] * 1e-3
+            / busy, "forward_share_of_device":
+            profiled["flash_attention_ms"] * 1e-3 / busy,
+            "step_profile": profiled, "checkpoint_save_s": save_s,
+            "checkpoint_restore_s": restore_s,
+            "resumed_step_bit_equal": True}
+
+
+def phase_train_lm_demo(np, torch) -> dict:
+    """The ported ``train_lm`` demo's ``main`` on the card: 30 steps with
+    a checkpoint every 10 under ``build/``, a "crash", a resume from step
+    30 to 40; the loss at step 40 below a tenth of step 1's, and the
+    trained model continuing a +1 sequence."""
+    import shutil
+
+    from tensorframes_tpu_torch.demos import train_lm
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_lm_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    out = train_lm.main(checkpoint_root=root)
+    shutil.rmtree(root, ignore_errors=True)
+    assert out["resumed_from"] == 30 and len(out["losses"]) == 40, out
+    assert out["final_loss"] < out["first_loss"] / 10, out
+    assert all(np.isfinite(out["losses"]))
+    return {"first_loss": out["first_loss"], "final_loss": out["final_loss"],
+            "resumed_from": out["resumed_from"],
+            "continuation": out["continuation"]}
+
+
+def phase_resnet50_infer(ttf, np, torch, models, n=256, parts=8, size=224,
+                         seed=12) -> dict:
+    """BASELINE config 4: ``n`` seeded NHWC images (f32) in ``parts``
+    partitions through ``ResNet50.infer_via_frame`` (weights from a seed),
+    once cold and once timed; logits ``[n, 1000]``, finite, and image 0's
+    within 1e-4 of their max-abs of the same weights on the CPU (f32
+    convolutions in other orders and algorithms, TF32 off)."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.standard_normal((n, size, size, 3), dtype=np.float32)
+    model = models.ResNet50(generator=torch.Generator().manual_seed(seed))
+    df = ttf.frame({"image": imgs}, num_partitions=parts)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = model.infer_via_frame(df).blocks()
+        torch.cuda.synchronize()
+        return blocks, time.perf_counter() - t0
+
+    _, cold_s = run()
+    blocks, wall = run()
+    logits = np.concatenate([b.dense("logits") for b in blocks])
+    assert logits.shape == (n, 1000) and logits.dtype == np.float32, \
+        logits.shape
+    assert np.isfinite(logits).all()
+    cpu = models.ResNet50(device="cpu",
+                          generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        ref = cpu.apply(torch.from_numpy(imgs[:1]))[0].numpy()
+    err = float(np.abs(logits[0] - ref).max())
+    assert err <= 1e-4 * float(np.abs(ref).max()), (err, np.abs(ref).max())
+    return {"images": n, "image": [size, size, 3], "partitions": parts,
+            "cold_wall_s": cold_s, "timed_wall_s": wall, "block_wall_s":
+            wall / parts, "images_per_s": n / wall,
+            "image0_max_abs_err": err,
+            "image0_logits_max_abs": float(np.abs(ref).max())}
+
+
+def phase_logreg(ttf, np, torch, models, n=262_144, d=64, parts=8, seed=13,
+                 steps=10) -> dict:
+    """BASELINE config 5: ``n`` x ``d`` f32 features in ``parts``
+    partitions, labels drawn from the logistic model of a seeded true
+    ``w``. ``gradient_via_frame`` at the model's initial parameters
+    against numpy in f64 on the same f32 rows: rtol 1e-5 (f32 products and
+    sums over 32,768-row blocks), with an absolute floor of 1e-6 of the
+    largest component for components near zero; then ``fit_via_frame``
+    for ``steps`` steps, the loss falling; one more step under the
+    profiler gives the card's busy and idle share of a step."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    w_true = rng.standard_normal(d) / np.sqrt(d) * 4.0
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-(x @ w_true)))) \
+        .astype(np.float32)
+    df = ttf.frame({"features": x, "label": y}, num_partitions=parts)
+    model = models.LogisticRegression(d)
+    params = {k: v.cpu().numpy() for k, v in model.init().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad, loss = model.gradient_via_frame(params, df)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    xd = x.astype(np.float64)
+    z = xd @ params["w"].astype(np.float64) + float(params["b"])
+    err = 1.0 / (1.0 + np.exp(-z)) - y
+    want_w = xd.T @ err / n
+    want_b = err.mean()
+    nll = np.maximum(z, 0) - z * y + np.log1p(np.exp(-np.abs(z)))
+    floor = 1e-6 * np.abs(want_w).max()
+    np.testing.assert_allclose(grad["w"], want_w, rtol=1e-5, atol=floor)
+    np.testing.assert_allclose(grad["b"], want_b, rtol=1e-5, atol=floor)
+    assert abs(loss - nll.mean()) <= 1e-5 * nll.mean(), (loss, nll.mean())
+    t0 = time.perf_counter()
+    _, losses = model.fit_via_frame(df, steps=steps, lr=1.0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    profiled = device_breakdown(
+        torch, lambda: model.fit_via_frame(df, steps=1, lr=1.0))
+    return {"rows": n, "features": d, "partitions": parts,
+            "gradient_wall_s": grad_s, "fit_steps": steps,
+            "fit_wall_s": fit_s, "step_wall_s": fit_s / steps,
+            "one_step_breakdown": profiled, "losses": losses,
+            "grad_w_max_rel_err": float(np.max(
+                np.abs(grad["w"] - want_w) / np.abs(want_w).max())),
+            "loss_numpy_f64": float(nll.mean())}
+
+
 # flash_attention against its f64 plain version: f32 to 2e-5 (the JAX
 # tests' bound, tests/test_kernels.py): 3xTF32 products, about f32's own
 # rounding, summed in another order; bf16 and f16 to 1e-2: exact 16-bit
@@ -4236,6 +4503,146 @@ def phase_flash_checks(np, torch, fa) -> dict:
     return {"cases": cases + 1, "max_abs_err": worst}
 
 
+# the backward against autograd of the plain version on the same inputs
+# widened to f64, each cotangent's worst error over its reference's
+# max-abs: f32 to 1e-4 (f32 products in another order, from the forward's
+# 3xTF32 log-sum-exp), bf16 and f16 to 2e-2 (delta from the output rounded
+# to 8 or 11 bits, one rounding of each gradient); a cotangent that is zero
+# by symmetry (one key: the softmax is constant, dq = dk = 0 up to
+# rounding) against the largest of the three. The log-sum-exp to 1e-5.
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
+
+
+def flash_backward_check(torch, fa, fab, q, k, v, g, causal) -> dict:
+    """The op's forward (with its log-sum-exp) and backward kernels twice
+    on the card (bit-identical) against the f64 plain backward. Returns
+    each cotangent's error over its scale, and the log-sum-exp's."""
+    b, sq, h, d = q.shape
+    name = str(q.dtype).replace("torch.", "")
+    what = f"{name} causal={causal} B={b} Sq={sq} Sk={k.shape[1]} H={h} D={d}"
+
+    def grads():
+        out, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+        return fab.flash_attention_backward_cuda(q, k, v, out, lse, g,
+                                                 causal), lse
+
+    (got, lse), (again, _) = grads(), grads()
+    torch.cuda.synchronize()
+    want = fab.flash_attention_backward_reference(
+        q.double(), k.double(), v.double(), g.double(), causal)
+    tops = [float(w.abs().max()) for w in want]
+    errs = {}
+    for c, x, y, w, top in zip(("dq", "dk", "dv"), got, again, want, tops):
+        assert x.dtype == q.dtype and x.shape == w.shape, what
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), \
+            f"not bit-identical: {c} {what}"
+        scale = top if top > 1e-6 * max(tops) else max(tops)
+        errs[c + "_abs"] = float((x.double() - w).abs().max())
+        errs[c] = errs[c + "_abs"] / scale
+        assert errs[c] <= FLASH_BWD_TOL[name], f"{c} {what}: {errs[c]}"
+    _, ref = fa.flash_attention_reference(q.double(), k.double(), v.double(),
+                                          causal, return_lse=True)
+    errs["lse"] = float((lse.double() - ref).abs().max())
+    assert errs["lse"] <= 1e-5 * max(1.0, float(ref.abs().max())), \
+        f"lse {what}: {errs['lse']}"
+    return errs
+
+
+def phase_flash_backward_checks(np, torch, fa, fab) -> dict:
+    """dq, dk, dv and the log-sum-exp against the plain autograd on the
+    card: (B, H) as in :func:`phase_flash_checks`; Sq and Sk in {1, 63, 64,
+    65, 200, 2048}, equal and not; head dims 8, 16, 32, 64, 128 and 40
+    (8 and 16 padded to 32 in shared memory); causal and not; f32, bf16 and
+    f16; then the ``train_lm_demo`` phase's own shape, [16, 32, 8, 8]
+    causal, in each dtype."""
+    rng = np.random.default_rng(14)
+    bhs = ((1, 1), (2, 3), (1, 4), (3, 2))
+    lengths = [(s, s) for s in (1, 63, 64, 65, 200, 2048)]
+    lengths += [(63, 65), (65, 63), (1, 200), (200, 1), (64, 2048),
+                (2048, 200)]
+    worst, cases = {}, 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dtype).replace("torch.", "")
+        w = worst.setdefault(name, {})
+        for causal in (False, True):
+            for i, (sq, sk) in enumerate(lengths):
+                for j, d in enumerate((8, 16, 32, 64, 128, 40)):
+                    b, h = bhs[(i + j) % len(bhs)]
+                    if max(sq, sk) == 2048:
+                        b, h = 1, 2
+                    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+                        (b, s, h, d))).to("cuda", dtype)
+                        for s in (sq, sk, sk, sq))
+                    errs = flash_backward_check(torch, fa, fab, q, k, v, g,
+                                                causal)
+                    for c, e in errs.items():
+                        w[c] = max(w.get(c, 0.0), e)
+                    cases += 1
+        # the demo's attention: d_model 64 over 8 heads
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(
+            (16, 32, 8, 8))).to("cuda", dtype) for _ in range(4))
+        demo = flash_backward_check(torch, fa, fab, q, k, v, g, True)
+        for c, e in demo.items():
+            w[c] = max(w.get(c, 0.0), e)
+        cases += 1
+        worst.setdefault("train_lm_demo_shape", {})[name] = {
+            c: demo[c] for c in ("dq", "dk", "dv", "lse")}
+    return {"cases": cases, "max_err_over_scale": worst,
+            "tolerance": FLASH_BWD_TOL}
+
+
+def time_flash_backward(np, torch, fa, fab, dtype, flush, b=8, s=2048, h=8,
+                        d=64, reps=10) -> dict:
+    """The backward kernels, the plain backward (autograd of the plain
+    version) and ``scaled_dot_product_attention``'s backward by autograd,
+    at the transformer's shape, causal: each the backward alone, its
+    forward's graph built once. The kernels are first held against the f64
+    plain backward on these inputs (:func:`flash_backward_check`). The
+    bound: the five products of the gradients, 2 * d flops per kept
+    (query, key) pair each, at the tensor cores' peak for the type (f32 as
+    3xTF32), against reading q, k, v, o, dO and the log-sum-exp once and
+    writing dq, dk, dv once."""
+    import torch.nn.functional as F
+
+    name = str(dtype).replace("torch.", "")
+    rng = np.random.default_rng(15)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d), dtype=np.float32)).to("cuda", dtype) for _ in range(4))
+    errs = flash_backward_check(torch, fa, fab, q, k, v, g, True)
+    out, lse = fa.flash_attention_cuda(q, k, v, True, return_lse=True)
+    ms = time_ms(torch, lambda: fab.flash_attention_backward_cuda(
+        q, k, v, out, lse, g, True), reps, flush)
+
+    def backward_of(forward, leaves, cot):
+        o = forward(*leaves)
+        return lambda: torch.autograd.grad(o, leaves, cot, retain_graph=True)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_ms = time_ms(torch, backward_of(
+        lambda *a: fa.flash_attention_reference(*a, True), leaves, g),
+        reps, flush)
+    del leaves
+    views = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+    library_ms = time_ms(torch, backward_of(
+        lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+        views, g.transpose(1, 2)), reps, flush)
+    pairs = s * (s + 1) // 2  # top-left causal, Sq == Sk
+    flops = 5 * 2 * d * pairs * b * h
+    item = q.element_size()
+    nbytes = 8 * b * s * h * d * item + b * h * s * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / HBM_BYTES_PER_S
+    return {"shape": {"B": b, "S": s, "H": h, "D": d, "dtype": name,
+                      "causal": True},
+            "max_abs_err": max(errs[c + "_abs"] for c in ("dq", "dk", "dv")),
+            "errors_over_scale": errs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "library_ms": library_ms,
+            "library": "autograd backward of torch.nn.functional."
+                       "scaled_dot_product_attention(is_causal=True) on "
+                       "[B, H, S, D] tensors"}
+
+
 def time_flash(np, torch, fa, dtype, flush, b=8, s=2048, h=8, d=64,
                reps=20) -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
@@ -4272,7 +4679,7 @@ def time_flash(np, torch, fa, dtype, flush, b=8, s=2048, h=8, d=64,
                        "is_causal=True) on [B, H, S, D] views"}
 
 
-def phase_timings(np, torch, segment_reduce, fa) -> tuple:
+def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
     """Each kernel timed at its main paths' shapes: segment_sum on one
     block of phase 2 (f64, S = 100,000), of phase 3 (f32 x 64,
     S = 1,024), of phase 3b (a 1M-row row group, f64, S = 100,000) and of
@@ -4291,8 +4698,9 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
     frame of parts (b) and (d) (50,000 f64 rows, S = its distinct keys)
     and of phase 3m's chaos drill (its aggregate's 1,024 f64 rows a block,
     S = 64; 3m's other shapes are 3l's);
-    flash_attention at the transformer's [8, 2048, 8, 64] causal in f32
-    (the model's) and bf16."""
+    flash_attention and its backward at the transformer's [8, 2048, 8,
+    64] causal in f32 (the model's) and bf16 (the backward when ``fab``,
+    its module, is given: an earlier checkout has none)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     # phase 3l's 200,000-row frame: the first rows of phase 2's keys
     small_s = int(np.unique(np.random.default_rng(2).integers(
@@ -4332,7 +4740,13 @@ def phase_timings(np, torch, segment_reduce, fa) -> tuple:
                     for dt in (torch.float32, torch.bfloat16)]
     emit({"phase": "flash_attention_timing", "ok": True,
           "shapes": flash_shapes})
-    return shapes, flash_shapes
+    backward_shapes = [] if fab is None else [
+        time_flash_backward(np, torch, fa, fab, dt, flush)
+        for dt in (torch.float32, torch.bfloat16)]
+    if backward_shapes:
+        emit({"phase": "flash_attention_backward_timing", "ok": True,
+              "shapes": backward_shapes})
+    return shapes, flash_shapes, backward_shapes
 
 
 def static_plan(phase, *args, **kwargs) -> dict:
@@ -4401,6 +4815,13 @@ def main(argv=None) -> int:
     from tensorframes_tpu_torch import models
     from tensorframes_tpu_torch.ops import _build, segment_reduce
     fa = importlib.import_module("tensorframes_tpu_torch.ops.flash_attention")
+    try:  # an earlier checkout timed with --timings has no backward
+        fab = importlib.import_module(
+            "tensorframes_tpu_torch.ops.flash_attention_backward")
+    except ImportError:
+        if not args.timings:
+            raise
+        fab = None
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4409,18 +4830,20 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda}", file=sys.stderr)
 
     t0 = time.perf_counter()
-    kernels = ("segment_sum", "flash_attention")
+    kernels = ("segment_sum", "flash_attention") + \
+        (("flash_attention_backward",) if fab is not None else ())
     _build.build(*kernels)
     emit({"phase": "build", "ok": True, "kernels": list(kernels),
           "port": os.path.dirname(os.path.abspath(ttf.__file__)),
           "wall_s": time.perf_counter() - t0})
     if args.timings:
-        phase_timings(np, torch, segment_reduce, fa)
+        phase_timings(np, torch, segment_reduce, fa, fab)
         print_card()
         return 0
 
     # the main paths: each kernel's launches are counted from 0 around each
-    counters = {"segment_sum": segment_reduce, "flash_attention": fa}
+    counters = {"segment_sum": segment_reduce, "flash_attention": fa,
+                "flash_attention_backward": fab}
     per_phase = {}
     shipped = {}  # the child process's launches (phase 3h)
     served = {}  # the child process's launches (phase 3l)
@@ -4482,7 +4905,25 @@ def main(argv=None) -> int:
         counters)
     assert lm_path["flash_attention"] > 0, \
         "the transformer never launched flash_attention"
+    assert lm_path["flash_attention_backward"] == 0, \
+        "scoring and decoding launched the backward"
     del state
+
+    from tensorframes_tpu_torch.utils import checkpoint as ckpt
+    per_phase = {}
+    train_path = run_path(torch, (
+        ("transformer_train_8x2048",
+         lambda: phase_transformer_train(np, torch, fa, fab, models, ckpt)),
+        ("train_lm_demo", lambda: phase_train_lm_demo(np, torch)),
+        ("resnet50_infer_b32",
+         lambda: phase_resnet50_infer(ttf, np, torch, models)),
+        ("logreg_262kx64", lambda: phase_logreg(ttf, np, torch, models))),
+        counters, per_phase)
+    for name in ("transformer_train_8x2048", "train_lm_demo"):
+        got = per_phase[name]
+        assert got["flash_attention"] > 0 and \
+            got["flash_attention_backward"] > 0, \
+            f"{name} did not launch the flash forward and backward: {got}"
 
     t0 = time.perf_counter()
     info = phase_kernel_checks(np, torch, segment_reduce)
@@ -4492,8 +4933,13 @@ def main(argv=None) -> int:
     info = phase_flash_checks(np, torch, fa)
     emit({"phase": "flash_attention_vs_plain", "ok": True,
           "wall_s": time.perf_counter() - t0, **info})
+    t0 = time.perf_counter()
+    info = phase_flash_backward_checks(np, torch, fa, fab)
+    emit({"phase": "flash_backward_vs_plain", "ok": True,
+          "wall_s": time.perf_counter() - t0, **info})
 
-    shapes, flash_shapes = phase_timings(np, torch, segment_reduce, fa)
+    shapes, flash_shapes, backward_shapes = phase_timings(
+        np, torch, segment_reduce, fa, fab)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [
@@ -4507,9 +4953,20 @@ def main(argv=None) -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "tensorframes_tpu_torch/csrc/flash_attention.cu",
          "replaces": "tensorframes_tpu/ops/flash_attention.py:122",
-         "launches": lm_path["flash_attention"],
+         "launches": lm_path["flash_attention"]
+         + train_path["flash_attention"],
          **{k: flash_shapes[0][k] for k in keys},
-         "at": flash_shapes[0]["shape"], "by_shape": flash_shapes}]})
+         "at": flash_shapes[0]["shape"], "by_shape": flash_shapes},
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": "tensorframes_tpu_torch/csrc/flash_attention_backward.cu",
+         "replaces": None,
+         "note": "the JAX package has no backward kernel: it differentiates "
+                 "its plain attention (tensorframes_tpu/ops/"
+                 "flash_attention.py:148-157, _xla_attention) with XLA's "
+                 "autodiff",
+         "launches": train_path["flash_attention_backward"],
+         **{k: backward_shapes[0][k] for k in keys},
+         "at": backward_shapes[0]["shape"], "by_shape": backward_shapes}]})
 
     print_card()
 

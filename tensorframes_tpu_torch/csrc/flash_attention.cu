@@ -11,7 +11,10 @@
 // The scale is applied in f32 after the dot; masked scores are -1e30 and
 // their probabilities exactly 0; key rows past Sk are masked by position;
 // causal is q_pos >= k_pos (top-left, also when Sq != Sk); key tiles wholly
-// above the diagonal are skipped; l == 0 is taken as 1.
+// above the diagonal are skipped; l == 0 is taken as 1. When a backward will
+// follow, the kernel also writes each row's log-sum-exp (flash_attention_
+// backward.cu recomputes the probabilities from it); otherwise it writes
+// nothing more than o.
 //
 // Layout: q [B, Sq, H, D], k and v [B, Sk, H, D], o like q, contiguous, read
 // in place (no transposes to [B*H, S, D]). Types f32, bf16 and f16; output
@@ -199,8 +202,9 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Sq,
-                 int Sk, int D, float scale, int causal, int vec) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int Sq, int Sk, int D,
+                 float scale, int causal, int vec) {
   using L = Layout<T, DMAX>;
   constexpr int LD = L::kLD;
   constexpr int NT = DMAX / 8;  // 8-column n-tiles of the output
@@ -418,6 +422,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = m0 + g + 8 * r;
     if (q0 + row >= Sq) continue;
     const float li = lr == 0.f ? 1.f : lr;
+    // the natural log-sum-exp of the row's scaled scores, for the backward;
+    // -inf for a row with no key (Sk = 0), which no backward reads
+    if (lse != nullptr && t4 == 0)
+      lse[(long long)bh * Sq + q0 + row] =
+          lr == 0.f ? __int_as_float(0xff800000)
+                  : (m[r] + log2f(lr)) * 0.6931471805599453f;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -429,9 +439,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Sq, int Sk, int D, float scale, int causal, int smem, int vec,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Sq, int Sk, int D, float scale, int causal,
+           int smem, int vec, cudaStream_t stream) {
   if (smem != Layout<T, DMAX>::kBytes) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -440,26 +450,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + kBQ - 1) / kBQ));
   flash_fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Sq, Sk, D, scale,
-      causal, vec);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, D,
+      scale, causal, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Sq, int Sk, int D, float scale, int causal, int dmax,
-             int smem, int vec, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int H, int Sq, int Sk, int D, float scale, int causal,
+             int dmax, int smem, int vec, cudaStream_t stream) {
   if (D > dmax) return (int)cudaErrorInvalidValue;
   switch (dmax) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, smem,
-                           vec, stream);
+      return launch<T, 32>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal,
+                            smem, vec, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, smem,
-                           vec, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal,
+                            smem, vec, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, smem,
-                            vec, stream);
+      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal,
+                            smem, vec, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -468,15 +478,17 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype_kind: 0 f32, 1 bf16, 2 f16. q [B, Sq, H, D], k and v [B, Sk, H, D],
-// o [B, Sq, H, D], all contiguous; 1 <= D <= dmax, Sq >= 1. dmax (32, 64
+// o [B, Sq, H, D], all contiguous; 1 <= D <= dmax, Sq >= 1. lse: NULL, or
+// [B*H, Sq] f32 that receives each row's natural log-sum-exp of its scaled
+// scores (written only when asked for: the backward reads it). dmax (32, 64
 // or 128) and smem (its dynamic shared memory in bytes) come from the
 // wrapper's plan (flash_attention.plan_launch) and are checked here. vec:
 // D * itemsize is a multiple of 16 and every pointer 16-byte aligned, so
 // tiles may be copied with cp.async. Returns 0 or the cudaError_t of the
 // failed launch.
 extern "C" int tft_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
-                                   int Sq, int Sk, int D, float scale,
+                                   const void* v, void* o, float* lse, int B,
+                                   int H, int Sq, int Sk, int D, float scale,
                                    int causal, int dtype_kind, int dmax,
                                    int smem, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -484,13 +496,13 @@ extern "C" int tft_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   switch (dtype_kind) {
     case 0:
-      return launch_d<float>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, dmax,
-                             smem, vec, st);
+      return launch_d<float>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal,
+                             dmax, smem, vec, st);
     case 1:
-      return launch_d<__nv_bfloat16>(q, k, v, o, B, H, Sq, Sk, D, scale,
+      return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, scale,
                                      causal, dmax, smem, vec, st);
     case 2:
-      return launch_d<__half>(q, k, v, o, B, H, Sq, Sk, D, scale, causal,
+      return launch_d<__half>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal,
                               dmax, smem, vec, st);
     default:
       return (int)cudaErrorInvalidValue;

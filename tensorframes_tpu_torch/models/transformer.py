@@ -8,10 +8,14 @@ causal attention and a tanh-GELU FFN, weights in the JAX package's layouts
 :meth:`TransformerLM.loss`) runs attention through
 :func:`~tensorframes_tpu_torch.ops.flash_attention` (the CUDA kernel on the
 card); the KV-cache forward of decoding keeps plain softmax attention, as
-the JAX package does.
+the JAX package does. The single-device training step
+(:meth:`TransformerLM.make_sharded_train_step`, adam with optax's
+defaults) differentiates the same forward: on the card, attention's
+gradients come from the backward kernel.
 
-Not here yet: the training step, mixture-of-experts layers and the mesh
-paths (ring, tensor, sequence and pipeline parallelism); ROADMAP A10/A12.
+Not here yet: mixture-of-experts layers and the mesh paths (ring, tensor,
+sequence and pipeline parallelism, and the pipelined train step); ROADMAP
+A10/A12.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from torch._subclasses.fake_tensor import is_fake
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
 
-__all__ = ["TransformerConfig", "TransformerLM", "params_from_jax"]
+__all__ = ["TransformerConfig", "TransformerLM", "params_from_jax",
+           "adam_init", "adam_update", "mesh_size"]
 
 
 @dataclass(frozen=True)
@@ -77,6 +82,51 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def mesh_size(mesh) -> int:
+    """The number of devices of ``mesh``: 1 for ``None``, else the length
+    of a list or tuple of devices. The port has no mesh type yet: anything
+    else raises ``NotImplementedError`` (ROADMAP A10)."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, (list, tuple)):
+        return len(mesh)
+    raise NotImplementedError(
+        f"a mesh of type {type(mesh).__name__}: the port takes None or a "
+        f"list of devices until ROADMAP A10 (parallel) defines its mesh")
+
+
+# optax.adam's defaults; torch.optim.Adam's update rule
+ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
+
+
+def adam_init(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Adam's state for ``params``: the step count (an int64 scalar on the
+    parameters' device) and zero first and second moments."""
+    first = next(iter(params.values()))
+    return {"count": torch.zeros((), dtype=torch.int64, device=first.device),
+            "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+            "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+
+@torch.no_grad()
+def adam_update(params: Dict[str, torch.Tensor], grads: Mapping[str, Any],
+                opt: Dict[str, Any], learning_rate: float) -> None:
+    """One adam step, as ``optax.adam(learning_rate)`` computes it:
+    ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``, bias-corrected
+    by ``1 - b^t``, ``p -= lr * mu_hat / (sqrt(nu_hat + eps_root) + eps)``.
+    Updates ``params`` and ``opt`` in place (the JAX step donates them)."""
+    opt["count"] += 1
+    t = int(opt["count"])
+    c1, c2 = 1.0 - ADAM_B1 ** t, 1.0 - ADAM_B2 ** t
+    for k, p in params.items():
+        g = grads[k]
+        mu, nu = opt["mu"][k], opt["nu"][k]
+        mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+        nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+        denom = (nu / c2).add_(ADAM_EPS_ROOT).sqrt_().add_(ADAM_EPS)
+        p.sub_(learning_rate * (mu / c1) / denom)
 
 
 def _named_args_fn(kw_fn, names):
@@ -147,9 +197,9 @@ class TransformerLM(nn.Module):
     do not equal ``jax.random``'s; carry JAX weights over with
     :func:`params_from_jax` and ``load_state_dict``.
 
-    Inference only until the training step is ported (ROADMAP A12): the
-    parameters do not require grad, and the attention kernel has no
-    backward.
+    The module's parameters do not require grad: scoring and decoding
+    build no graph. Training runs on a state of its own
+    (:meth:`make_sharded_train_step`), through :meth:`loss_and_grads`.
     """
 
     def __init__(self, config: TransformerConfig = TransformerConfig(),
@@ -249,6 +299,85 @@ class TransformerLM(nn.Module):
         targets = torch.as_tensor(targets).to(self.device)
         return self._xent(logits, targets) \
             + self.config.aux_loss_weight * aux
+
+    # -- training (single device) ---------------------------------------------
+    def loss_and_grads(self, params: Mapping[str, torch.Tensor],
+                       tokens: torch.Tensor, targets: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``(loss, grads)`` of :meth:`loss` at the state dict ``params``
+        (this module's names and layouts), by autograd: on the card,
+        attention's gradients come from the backward kernel. ``params``
+        are read, never changed; the module's own weights are not used."""
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        with torch.enable_grad():
+            logits = torch.func.functional_call(self, leaves, (tokens,))
+            targets = torch.as_tensor(targets).to(logits.device)
+            loss = self._xent(logits, targets)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def make_sharded_train_step(self, mesh=None, data_axis: str = "data",
+                                model_axis: Optional[str] = None,
+                                seq_axis: Optional[str] = None,
+                                expert_axis: Optional[str] = None,
+                                learning_rate: float = 1e-3):
+        """One training step (adam) -> ``(step, init_state)``:
+        ``state = init_state(rng)`` then ``state, loss = step(state,
+        tokens, targets)``; ``state`` is ``{"params": <state dict>, "opt":
+        <adam state>}`` on this model's device.
+
+        Single device only: ``mesh`` is ``None`` or holds one device, and
+        ``data_axis`` is then the whole batch. A mesh of more devices, or a
+        ``model_axis``, ``seq_axis`` or ``expert_axis`` (tensor, sequence
+        and expert parallelism), raises ``NotImplementedError``: ROADMAP
+        A10. (The JAX package's ``model_axis="model"`` acts only when its
+        mesh has that axis; here the default is ``None``.)
+
+        ``init_state(rng)`` draws the parameters as the constructor does
+        from ``rng``, a CPU ``torch.Generator`` (seed 0 if ``None``), or
+        takes a state dict (``params_from_jax(jax_params)``, say) and
+        copies it to the device in the config's dtype. ``step`` updates
+        the state it is given in place and returns it with the loss (a
+        0-d tensor) of the parameters it was given.
+        """
+        self._no_mesh(model_axis=model_axis, seq_axis=seq_axis,
+                      expert_axis=expert_axis)
+        if mesh_size(mesh) != 1:
+            raise NotImplementedError(
+                f"a mesh of {mesh_size(mesh)} devices: the data-parallel "
+                f"train step over a mesh is not ported yet: ROADMAP A10 "
+                f"(parallel)")
+        device, dtype = self.device, self.config.dtype
+
+        def init_state(rng=None):
+            if isinstance(rng, Mapping):
+                params = {k: torch.as_tensor(v).to(device, dtype).clone()
+                          for k, v in rng.items()}
+                missing = set(self.state_dict()) ^ set(params)
+                if missing:
+                    raise KeyError(f"init_state: parameters do not match "
+                                   f"the model's: {sorted(missing)}")
+            else:
+                params = {k: p.detach() for k, p in TransformerLM(
+                    self.config, device=device,
+                    generator=rng).state_dict().items()}
+            return {"params": params, "opt": adam_init(params)}
+
+        def step(state, tokens, targets):
+            tokens = torch.as_tensor(tokens).to(device)
+            loss, grads = self.loss_and_grads(state["params"], tokens,
+                                              targets)
+            adam_update(state["params"], grads, state["opt"], learning_rate)
+            return state, loss
+
+        return step, init_state
+
+    def make_pipelined_train_step(self, *args, **kwargs):
+        """The GPipe-pipelined train step runs over a ``pipe`` mesh axis:
+        not ported yet (ROADMAP A10)."""
+        raise NotImplementedError(
+            "make_pipelined_train_step: the pipelined train step over a "
+            "mesh is not ported yet: ROADMAP A10 (parallel)")
 
     # -- autoregressive decoding (KV cache) ---------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:

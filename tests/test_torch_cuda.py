@@ -25,6 +25,8 @@ from tensorframes_tpu_torch.ops import segment_reduce
 from torch_parity import assert_frames_match, to_port
 
 fa = importlib.import_module("tensorframes_tpu_torch.ops.flash_attention")
+fab = importlib.import_module(
+    "tensorframes_tpu_torch.ops.flash_attention_backward")
 
 pytestmark = pytest.mark.cuda
 
@@ -172,6 +174,92 @@ def test_flash_kernel_matches_plain_and_is_deterministic(cuda, dtype, causal,
     torch.testing.assert_close(got.double(), ref, rtol=tol, atol=tol)
 
 
+# the backward kernels against autograd of the plain version on the same
+# inputs widened to f64, each cotangent's worst error over its reference's
+# max-abs: f32 to 1e-4 (f32 products summed in another order, and the
+# forward's 3xTF32 log-sum-exp); bf16 and f16 to 2e-2 (delta from the
+# output rounded to 8 or 11 bits, and one rounding of each gradient). With
+# Sk = 0 every reference is zero (dq) or empty (dk, dv), and so is the
+# kernel's.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def flash_grads(q, k, v, g, causal):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal)
+    return torch.autograd.grad(out, leaves, g)
+
+
+@pytest.mark.parametrize("dtype", list(BWD_TOL), ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 1, 1, 1, 32), (1, 63, 65, 2, 40),
+                                         (2, 64, 64, 3, 64),
+                                         (1, 65, 63, 2, 128),
+                                         (1, 200, 200, 1, 64),
+                                         (2, 200, 63, 2, 32),
+                                         (1, 63, 200, 2, 64),
+                                         (1, 3, 0, 2, 16),
+                                         (2, 37, 37, 2, 8),
+                                         (1, 65, 33, 3, 16)])
+def test_flash_backward_matches_plain_autograd_and_is_deterministic(
+        cuda, dtype, causal, b, sq, sk, h, d):
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h, d))).to(
+        cuda, dtype) for s in (sq, sk, sk, sq))
+    before = (fa.launches, fab.launches)
+    got = flash_grads(q, k, v, g, causal)
+    again = flash_grads(q, k, v, g, causal)
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fab.launches - before[1]) == (2, 2)
+    want = fab.flash_attention_backward_reference(
+        q.double(), k.double(), v.double(), g.double(), causal)
+    tops = [float(w.abs().max()) if w.numel() else 0.0 for w in want]
+    for name, x, y, w, top in zip("qkv", got, again, want, tops):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), name
+        assert bool(torch.isfinite(x).all()), name
+        err = float((x.double() - w).abs().max()) if w.numel() else 0.0
+        # with one key the softmax is constant and dq = dk = 0 up to
+        # rounding: such a cotangent is held against the largest of three
+        scale = top if top > 1e-6 * max(tops) else max(tops)
+        assert err <= BWD_TOL[dtype] * scale, (name, err, top)
+    _, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(
+        lse.double(), fa.flash_attention_reference(
+            q.double(), k.double(), v.double(), causal, return_lse=True)[1],
+        rtol=1e-5, atol=1e-5)
+
+
+def test_flash_grad_on_the_card_never_takes_the_plain_version(cuda,
+                                                              monkeypatch):
+    def plain(*a, **kw):
+        raise AssertionError("the plain attention ran on the card")
+
+    monkeypatch.setattr(fa, "flash_attention_reference", plain)
+    monkeypatch.setattr(fab, "flash_attention_backward_reference", plain)
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 70, 2, 64))).to(
+        cuda, torch.float32).requires_grad_() for _ in range(3))
+    fa.flash_attention(q, k, v, causal=True).square().sum().backward()
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+def test_a_shipped_program_calling_attention_launches_the_kernel(cuda):
+    comp = ttf.Computation.trace(
+        lambda x: {"z": fa.flash_attention(x, x, x, causal=True)},
+        [ttf.TensorSpec("x", ttf.dtypes.float32, ttf.Shape(-1, 70, 2, 64))])
+    back = ttf.Computation.deserialize(comp.serialize())
+    x = np.random.default_rng(5).standard_normal((3, 70, 2, 64)).astype(
+        np.float32)
+    before = fa.launches
+    rows = ttf.map_blocks(back, ttf.frame({"x": x})).collect()
+    assert fa.launches - before == 1
+    got = np.stack([np.asarray(r["z"]) for r in rows])
+    t = torch.from_numpy(x).double()
+    want = fa.flash_attention_reference(t, t, t, causal=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.ones((1, 4, 2, 8), device=cuda)
     with pytest.raises(TypeError, match="f32, bf16 or f16"):
@@ -190,8 +278,20 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_cuda(q, q.cpu(), q)
     with pytest.raises(ValueError, match="Unknown flash_attention impl"):
         fa.flash_attention(q, q, q, impl="xla")
-    with pytest.raises(NotImplementedError, match="forward only"):
-        fa.flash_attention(q.requires_grad_(), q, q)
+    # an input that requires grad goes through the op and its backward
+    # kernel; the backward wrapper refuses what its kernels do not take
+    before = (fa.launches, fab.launches)
+    x = q.clone().requires_grad_()
+    fa.flash_attention(x, q, q).sum().backward()
+    assert (fa.launches - before[0], fab.launches - before[1]) == (1, 1)
+    out, lse = fa.flash_attention_cuda(q, q, q, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        fab.flash_attention_backward_cuda(q, q, q, out, lse[:1], out)
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        fab.flash_attention_backward_cuda(q, q, q, out.half(), lse, out)
+    with pytest.raises(ValueError, match="head dim"):
+        fab.flash_attention_backward_cuda(wide, wide, wide, wide,
+                                          lse, wide)
     # the public entry point makes strided inputs contiguous for the kernel
     s = torch.randn((1, 2, 5, 8), device=cuda).transpose(1, 2)
     torch.testing.assert_close(fa.flash_attention(s, s, s, causal=True),

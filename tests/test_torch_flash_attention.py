@@ -117,6 +117,8 @@ def test_impl_errors(rng):
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         flash_attention(q, k, v, impl="cuda")
     with pytest.raises(ValueError, match="takes CUDA tensors"):
+        flash_attention(q.requires_grad_(), k, v, impl="cuda")
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         fa.flash_attention_cuda(q, k, v)
 
 
@@ -207,3 +209,29 @@ def test_split_products_hold_the_tolerance(rng, dtype, tol, causal, shape):
     assert got.dtype == dtype
     np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=tol,
                                atol=tol)
+
+
+def test_a_program_calling_attention_serializes_through_the_op(rng):
+    """Capture traces the op ``tft::flash_attention`` (its fake kernel), so
+    a shipped program that calls attention keeps it: deserialized, it runs
+    the plain version on the CPU (the kernel on the card)."""
+    import tensorframes_tpu_torch as ttf
+
+    prev = ttf.default_device()
+    ttf.set_default_device("cpu")
+    try:
+        comp = ttf.Computation.trace(
+            lambda x: {"z": flash_attention(x, x, x, causal=True)},
+            [ttf.TensorSpec("x", ttf.dtypes.float32, ttf.Shape(-1, 6, 2, 8))])
+        back = ttf.Computation.deserialize(comp.serialize())
+        called = [n.target for n in back.fn.exported.graph.nodes
+                  if n.op == "call_function"]
+        assert torch.ops.tft.flash_attention.default in called
+        x = rng.standard_normal((3, 6, 2, 8)).astype(np.float32)
+        rows = ttf.map_blocks(back, ttf.frame({"x": x})).collect()
+    finally:
+        ttf.set_default_device(prev)
+    got = np.stack([np.asarray(r["z"]) for r in rows])
+    t = torch.from_numpy(x)
+    np.testing.assert_array_equal(
+        got, flash_attention_reference(t, t, t, causal=True).numpy())
