@@ -4059,8 +4059,9 @@ FLASH_BACKWARD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 def device_breakdown(torch, fn, top=6) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity):
     its wall time up to a synchronize, the device's busy time (the kernels'
-    and copies' summed time on the one stream), the idle share, and the
-    device time of the ``top`` kernels by name."""
+    and copies' summed time on the one stream), the idle share, the device
+    time of the ``top`` kernels by name, and the backward kernels' time
+    and count."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -4090,7 +4091,50 @@ def device_breakdown(torch, fn, top=6) -> dict:
                 if "flash_fwd_kernel" in e.key) * 1e-3,
             "flash_backward_ms": sum(
                 e.self_device_time_total for e in kernels
-                if any(n in e.key for n in FLASH_BACKWARD_KERNELS)) * 1e-3}
+                if any(n in e.key for n in FLASH_BACKWARD_KERNELS)) * 1e-3,
+            "flash_backward_kernels_ms": {
+                n: sum(e.self_device_time_total for e in kernels
+                       if n in e.key) * 1e-3
+                for n in FLASH_BACKWARD_KERNELS},
+            "flash_backward_kernel_counts": {
+                n: sum(e.count for e in kernels if n in e.key)
+                for n in FLASH_BACKWARD_KERNELS}}
+
+
+def ptxas_report(log: str, names) -> dict:
+    """Registers and spilled bytes of each instantiation of the kernels
+    ``names`` in ``log``, the output of an ``nvcc -Xptxas -v`` build:
+    ``{"dkdv_kernel<float32,64>": {"registers": r, "spill_stores": s,
+    "spill_loads": l}}``, read from the mangled names' template arguments
+    (the type, then the head dim padded up)."""
+    import re
+
+    types = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+             "6__half": "float16"}
+    pattern = re.compile(r"\d(%s)I(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?"
+                         % "|".join(names))
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = pattern.search(m.group(1))
+            entry = None if k is None else "%s<%s%s>" % (
+                k.group(1), types[k.group(2)],
+                "," + k.group(3) if k.group(3) else "")
+            if entry:
+                out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_transformer_score(np, torch, fa, models, state, batch=8, seq=2048,
@@ -4519,7 +4563,8 @@ def flash_backward_check(torch, fa, fab, q, k, v, g, causal) -> dict:
     each cotangent's error over its scale, and the log-sum-exp's."""
     b, sq, h, d = q.shape
     name = str(q.dtype).replace("torch.", "")
-    what = f"{name} causal={causal} B={b} Sq={sq} Sk={k.shape[1]} H={h} D={d}"
+    what = (f"{name} causal={causal} B={b} Sq={sq} Sk={k.shape[1]} H={h} "
+            f"D={d} offset={q.storage_offset()}")
 
     def grads():
         out, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
@@ -4548,36 +4593,56 @@ def flash_backward_check(torch, fa, fab, q, k, v, g, causal) -> dict:
     return errs
 
 
+def misaligned(torch, x):
+    """A contiguous copy of ``x`` whose data starts one element past the
+    start of its storage, so not on a 16-byte boundary."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    y = y.view(x.shape).copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
 def phase_flash_backward_checks(np, torch, fa, fab) -> dict:
     """dq, dk, dv and the log-sum-exp against the plain autograd on the
     card: (B, H) as in :func:`phase_flash_checks`; Sq and Sk in {1, 63, 64,
     65, 200, 2048}, equal and not; head dims 8, 16, 32, 64, 128 and 40
     (8 and 16 padded to 32 in shared memory); causal and not; f32, bf16 and
     f16; then the ``train_lm_demo`` phase's own shape, [16, 32, 8, 8]
-    causal, in each dtype."""
+    causal, in each dtype (435 cases). Then ``own_loader``: the cases whose
+    tiles ``cp.async`` cannot take and the kernels' own loader copies, over
+    the same lengths, causal and not, and dtypes: head dims 33 and 100
+    (rows not a multiple of 16 bytes) and head dim 64 with every input
+    :func:`misaligned` (216 cases)."""
     rng = np.random.default_rng(14)
     bhs = ((1, 1), (2, 3), (1, 4), (3, 2))
     lengths = [(s, s) for s in (1, 63, 64, 65, 200, 2048)]
     lengths += [(63, 65), (65, 63), (1, 200), (200, 1), (64, 2048),
                 (2048, 200)]
-    worst, cases = {}, 0
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        name = str(dtype).replace("torch.", "")
-        w = worst.setdefault(name, {})
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+
+    def sweep(rng, dtype, dims, w, shift=lambda x: x):
+        cases = 0
         for causal in (False, True):
             for i, (sq, sk) in enumerate(lengths):
-                for j, d in enumerate((8, 16, 32, 64, 128, 40)):
+                for j, d in enumerate(dims):
                     b, h = bhs[(i + j) % len(bhs)]
                     if max(sq, sk) == 2048:
                         b, h = 1, 2
-                    q, k, v, g = (torch.from_numpy(rng.standard_normal(
-                        (b, s, h, d))).to("cuda", dtype)
+                    q, k, v, g = (shift(torch.from_numpy(rng.standard_normal(
+                        (b, s, h, d))).to("cuda", dtype))
                         for s in (sq, sk, sk, sq))
                     errs = flash_backward_check(torch, fa, fab, q, k, v, g,
                                                 causal)
                     for c, e in errs.items():
                         w[c] = max(w.get(c, 0.0), e)
                     cases += 1
+        return cases
+
+    worst, cases = {}, 0
+    for dtype in dtypes:
+        name = str(dtype).replace("torch.", "")
+        w = worst.setdefault(name, {})
+        cases += sweep(rng, dtype, (8, 16, 32, 64, 128, 40), w)
         # the demo's attention: d_model 64 over 8 heads
         q, k, v, g = (torch.from_numpy(rng.standard_normal(
             (16, 32, 8, 8))).to("cuda", dtype) for _ in range(4))
@@ -4587,12 +4652,20 @@ def phase_flash_backward_checks(np, torch, fa, fab) -> dict:
         cases += 1
         worst.setdefault("train_lm_demo_shape", {})[name] = {
             c: demo[c] for c in ("dq", "dk", "dv", "lse")}
+    rng = np.random.default_rng(15)
+    own, own_cases = {}, 0
+    for dtype in dtypes:
+        w = own.setdefault(str(dtype).replace("torch.", ""), {})
+        own_cases += sweep(rng, dtype, (33, 100), w)
+        own_cases += sweep(rng, dtype, (64,), w,
+                           lambda x: misaligned(torch, x))
     return {"cases": cases, "max_err_over_scale": worst,
+            "own_loader": {"cases": own_cases, "max_err_over_scale": own},
             "tolerance": FLASH_BWD_TOL}
 
 
 def time_flash_backward(np, torch, fa, fab, dtype, flush, b=8, s=2048, h=8,
-                        d=64, reps=10) -> dict:
+                        d=64, reps=10, profiled_calls=20) -> dict:
     """The backward kernels, the plain backward (autograd of the plain
     version) and ``scaled_dot_product_attention``'s backward by autograd,
     at the transformer's shape, causal: each the backward alone, its
@@ -4601,7 +4674,11 @@ def time_flash_backward(np, torch, fa, fab, dtype, flush, b=8, s=2048, h=8,
     bound: the five products of the gradients, 2 * d flops per kept
     (query, key) pair each, at the tensor cores' peak for the type (f32 as
     3xTF32), against reading q, k, v, o, dO and the log-sum-exp once and
-    writing dq, dk, dv once."""
+    writing dq, dk, dv once. ``kernel_ms``: each of the three kernels'
+    mean device time over ``profiled_calls`` more calls in one profile
+    (:func:`device_breakdown`), and ``kernel_launches_recorded`` how many
+    of each the profile saw: late in this script a profile can miss the
+    first of its calls (PERF.md §7), and the mean is over those it saw."""
     import torch.nn.functional as F
 
     name = str(dtype).replace("torch.", "")
@@ -4612,6 +4689,16 @@ def time_flash_backward(np, torch, fa, fab, dtype, flush, b=8, s=2048, h=8,
     out, lse = fa.flash_attention_cuda(q, k, v, True, return_lse=True)
     ms = time_ms(torch, lambda: fab.flash_attention_backward_cuda(
         q, k, v, out, lse, g, True), reps, flush)
+    flush.zero_()
+
+    def profiled():
+        for _ in range(profiled_calls):
+            fab.flash_attention_backward_cuda(q, k, v, out, lse, g, True)
+
+    split = device_breakdown(torch, profiled)
+    recorded = split["flash_backward_kernel_counts"]
+    kernel_ms = {n: t / recorded[n] if recorded[n] else None
+                 for n, t in split["flash_backward_kernels_ms"].items()}
 
     def backward_of(forward, leaves, cot):
         o = forward(*leaves)
@@ -4634,8 +4721,10 @@ def time_flash_backward(np, torch, fa, fab, dtype, flush, b=8, s=2048, h=8,
     return {"shape": {"B": b, "S": s, "H": h, "D": d, "dtype": name,
                       "causal": True},
             "max_abs_err": max(errs[c + "_abs"] for c in ("dq", "dk", "dv")),
-            "errors_over_scale": errs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "errors_over_scale": errs, "ms": ms, "kernel_ms": kernel_ms,
+            "profiled_calls": profiled_calls,
+            "kernel_launches_recorded": recorded,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes, "library_ms": library_ms,
             "library": "autograd backward of torch.nn.functional."
@@ -4835,7 +4924,15 @@ def main(argv=None) -> int:
     _build.build(*kernels)
     emit({"phase": "build", "ok": True, "kernels": list(kernels),
           "port": os.path.dirname(os.path.abspath(ttf.__file__)),
-          "wall_s": time.perf_counter() - t0})
+          "wall_s": time.perf_counter() - t0,
+          "ptxas": {  # an earlier checkout (--timings) keeps no logs
+              "flash_attention": ptxas_report(
+                  getattr(_build, "logs", {}).get("flash_attention", ""),
+                  ("flash_fwd_kernel",)),
+              "flash_attention_backward": ptxas_report(
+                  getattr(_build, "logs", {}).get(
+                      "flash_attention_backward", ""),
+                  FLASH_BACKWARD_KERNELS)}})
     if args.timings:
         phase_timings(np, torch, segment_reduce, fa, fab)
         print_card()

@@ -10,6 +10,8 @@ kernel's first use together (the serving scheduler's workers) run one
 ``nvcc`` per source and share one handle; each build writes a temporary
 file named for its process and thread, moved into place atomically, so
 two processes building the same source cannot tear each other's library.
+``-Xptxas -v`` makes ``ptxas`` report each kernel's registers, shared
+memory and spills; a build's compiler output is kept in :data:`logs`.
 A failed or impossible build raises
 :class:`~..resilience.classify.KernelError`, which the resilience layer
 treats as permanent: it is not retried and nothing falls back to a plain
@@ -34,9 +36,11 @@ __all__ = ["build", "load"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each source this process built, by name
+logs: Dict[str, str] = {}
 _lock = threading.RLock()
 
 
@@ -87,6 +91,7 @@ def _build_locked(names) -> Dict[str, ctypes.CDLL]:
             failed.append(f"nvcc failed to build {name}.cu (exit "
                           f"{proc.returncode}):\n{log}")
         else:
+            logs[name] = log
             os.replace(tmp, out)
     if failed:
         raise KernelError("\n".join(failed))

@@ -5,9 +5,12 @@ Hopper and its plain PyTorch version.
 returns ``(dq, dk, dv)`` for the forward of
 :mod:`~tensorframes_tpu_torch.ops.flash_attention`, from that forward's
 output and per-row log-sum-exp; ``csrc/flash_attention_backward.cu`` holds
-the kernels (see the note at the top of that file). The JAX package has no
-backward kernel: it differentiates its plain attention (``_xla_attention``)
-with XLA's autodiff, so the plain version here,
+the kernels (see the note at the top of that file): a delta pre-pass, a
+dk/dv sweep over key tiles and a dq sweep over query tiles, their five
+products on the tensor cores with ``mma.sync`` (3xTF32 for f32), P and dS
+kept in registers, tiles streamed through a ``cp.async`` ring. The JAX
+package has no backward kernel: it differentiates its plain attention
+(``_xla_attention``) with XLA's autodiff, so the plain version here,
 :func:`flash_attention_backward_reference`, is autograd of
 ``flash_attention_reference``.
 
@@ -37,7 +40,7 @@ __all__ = ["flash_attention_backward_cuda",
 launches = 0
 
 _TILE = 64     # query rows per query tile and keys per key tile (the .cu)
-_SCORE_LD = _TILE + 4
+_STAGES = 2    # streamed tiles in flight (kStages)
 
 
 class BackwardPlan(NamedTuple):
@@ -46,19 +49,23 @@ class BackwardPlan(NamedTuple):
     smem_dq: int     # of the dq kernel
 
 
-def plan_backward(d: int) -> BackwardPlan:
-    """Shared memory of the two tile kernels for head dim ``d``: four f32
-    tiles of 64 rows (q, dO, k, v; rows padded by 4 floats), the 64 x 64
-    score tiles (P and dS for dk/dv, dS transposed for dq) and the query
-    tile's log-sum-exp and delta; the kernel checks the sizes it is given
-    against its own."""
+def plan_backward(d: int, dtype: torch.dtype = torch.float32
+                  ) -> BackwardPlan:
+    """Shared memory of the two tile kernels for head dim ``d`` in
+    ``dtype``: six tiles of 64 rows in the input type, rows padded by 4
+    words (f32) or 16 bytes (bf16, f16) so that the tensor cores' fragment
+    loads meet no bank conflicts. The dk/dv kernel keeps K and V and streams
+    Q and dO through ``_STAGES`` stages, each with its tile's log-sum-exp
+    and delta (64 f32 each); the dq kernel keeps Q and dO and streams K and
+    V. The kernel checks the sizes it is given against its own."""
     if not 1 <= d <= _MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_backward_cuda takes a head dim of "
                          f"1 to {_MAX_HEAD_DIM}, got {d}")
     dmax = next(m for m in _HEAD_DIMS if d <= m)
-    tiles = 4 * _TILE * (dmax + 4) + 2 * _TILE
-    return BackwardPlan(dmax, 4 * (tiles + 2 * _TILE * _SCORE_LD),
-                        4 * (tiles + _TILE * _SCORE_LD))
+    size = torch.empty((), dtype=dtype).element_size()
+    tiles = (2 + 2 * _STAGES) * _TILE * (dmax + (4 if size == 4 else 8)) \
+        * size
+    return BackwardPlan(dmax, tiles + 2 * _STAGES * _TILE * 4, tiles)
 
 
 def flash_attention_backward_reference(
@@ -122,7 +129,7 @@ def flash_attention_backward_cuda(
         raise ValueError(f"flash_attention_backward_cuda takes the forward's "
                          f"[B*H, Sq] = [{b * h}, {sq}] f32 lse, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    plan = plan_backward(d)
+    plan = plan_backward(d, q.dtype)
     if not all(t.is_contiguous() for t in ts + (lse,)):
         raise ValueError("flash_attention_backward_cuda takes contiguous "
                          "tensors")

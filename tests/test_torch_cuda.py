@@ -190,6 +190,21 @@ def flash_grads(q, k, v, g, causal):
     return torch.autograd.grad(out, leaves, g)
 
 
+def assert_grads_match(got, again, want, dtype):
+    """Each cotangent bit-identical over two runs and within ``BWD_TOL``
+    of its f64 reference's max-abs."""
+    tops = [float(w.abs().max()) if w.numel() else 0.0 for w in want]
+    for name, x, y, w, top in zip("qkv", got, again, want, tops):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), name
+        assert bool(torch.isfinite(x).all()), name
+        err = float((x.double() - w).abs().max()) if w.numel() else 0.0
+        # with one key the softmax is constant and dq = dk = 0 up to
+        # rounding: such a cotangent is held against the largest of three
+        scale = top if top > 1e-6 * max(tops) else max(tops)
+        assert err <= BWD_TOL[dtype] * scale, (name, err, top)
+
+
 @pytest.mark.parametrize("dtype", list(BWD_TOL), ids=str)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b,sq,sk,h,d", [(1, 1, 1, 1, 32), (1, 63, 65, 2, 40),
@@ -200,7 +215,9 @@ def flash_grads(q, k, v, g, causal):
                                          (1, 63, 200, 2, 64),
                                          (1, 3, 0, 2, 16),
                                          (2, 37, 37, 2, 8),
-                                         (1, 65, 33, 3, 16)])
+                                         (1, 65, 33, 3, 16),
+                                         (1, 65, 63, 2, 33),
+                                         (2, 63, 200, 1, 100)])
 def test_flash_backward_matches_plain_autograd_and_is_deterministic(
         cuda, dtype, causal, b, sq, sk, h, d):
     rng = np.random.default_rng(sq * 7 + sk + d)
@@ -213,21 +230,37 @@ def test_flash_backward_matches_plain_autograd_and_is_deterministic(
     assert (fa.launches - before[0], fab.launches - before[1]) == (2, 2)
     want = fab.flash_attention_backward_reference(
         q.double(), k.double(), v.double(), g.double(), causal)
-    tops = [float(w.abs().max()) if w.numel() else 0.0 for w in want]
-    for name, x, y, w, top in zip("qkv", got, again, want, tops):
-        assert x.dtype == dtype and x.shape == w.shape, name
-        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), name
-        assert bool(torch.isfinite(x).all()), name
-        err = float((x.double() - w).abs().max()) if w.numel() else 0.0
-        # with one key the softmax is constant and dq = dk = 0 up to
-        # rounding: such a cotangent is held against the largest of three
-        scale = top if top > 1e-6 * max(tops) else max(tops)
-        assert err <= BWD_TOL[dtype] * scale, (name, err, top)
+    assert_grads_match(got, again, want, dtype)
     _, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
     torch.testing.assert_close(
         lse.double(), fa.flash_attention_reference(
             q.double(), k.double(), v.double(), causal, return_lse=True)[1],
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(BWD_TOL), ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [36, 64])
+def test_flash_backward_takes_misaligned_inputs(cuda, dtype, causal, d):
+    """Inputs whose data start off a 16-byte boundary, which ``cp.async``
+    cannot copy: the kernels' own loader takes every tile."""
+    from chip_smoke import misaligned
+
+    rng = np.random.default_rng(d + causal)
+    q, k, v, g = (misaligned(torch, torch.from_numpy(rng.standard_normal(
+        (2, s, 2, d))).to(cuda, dtype)) for s in (65, 63, 63, 65))
+
+    def grads():
+        out, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+        return fab.flash_attention_backward_cuda(q, k, v, out, lse, g, causal)
+
+    before = fab.launches
+    got, again = grads(), grads()
+    torch.cuda.synchronize()
+    assert fab.launches - before == 2
+    want = fab.flash_attention_backward_reference(
+        q.double(), k.double(), v.double(), g.double(), causal)
+    assert_grads_match(got, again, want, dtype)
 
 
 def test_flash_grad_on_the_card_never_takes_the_plain_version(cuda,

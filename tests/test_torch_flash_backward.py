@@ -16,6 +16,7 @@ plain version there.
 
 import importlib
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -164,12 +165,25 @@ def test_every_call_goes_through_the_op(monkeypatch):
 
 
 def test_backward_plan_fits_the_card():
-    for d in (1, 8, 32, 33, 40, 64, 65, 100, 128):
-        plan = fab.plan_backward(d)
-        assert plan.dmax >= d and plan.dmax in (32, 64, 128)
-        assert plan.smem_dq < plan.smem_dkdv <= 232_448
-    assert fab.plan_backward(64) == (64, 4 * (4 * 64 * 68 + 128 + 2 * 64 * 68),
-                                     4 * (4 * 64 * 68 + 128 + 64 * 68))
+    """Six 64-row tiles in the input type (rows padded by 4 words for f32,
+    16 bytes for bf16 and f16), the dk/dv kernel's two stages of lse and
+    delta besides; within a block's 232,448 bytes, and two blocks an SM
+    (228 KB, 1 KB of it reserved a block) at head dims up to 64."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (1, 8, 32, 33, 40, 64, 65, 100, 128):
+            plan = fab.plan_backward(d, dtype)
+            assert plan.dmax >= d and plan.dmax in (32, 64, 128)
+            assert plan.smem_dq < plan.smem_dkdv <= 232_448
+            if plan.dmax <= 64:
+                assert 2 * (plan.smem_dkdv + 1024) <= 233_472
+    assert fab.plan_backward(64) == (64, 4 * 6 * 64 * 68 + 2 * 2 * 64 * 4,
+                                     4 * 6 * 64 * 68)
+    assert fab.plan_backward(64, torch.bfloat16) == (
+        64, 2 * 6 * 64 * 72 + 2 * 2 * 64 * 4, 2 * 6 * 64 * 72)
+    assert fab.plan_backward(8, torch.float16) == (
+        32, 2 * 6 * 64 * 40 + 2 * 2 * 64 * 4, 2 * 6 * 64 * 40)
+    assert fab.plan_backward(128) == (128, 4 * 6 * 64 * 132 + 2 * 2 * 64 * 4,
+                                      4 * 6 * 64 * 132)
     with pytest.raises(ValueError, match="head dim"):
         fab.plan_backward(129)
 
@@ -179,3 +193,138 @@ def test_backward_wrapper_takes_cuda_tensors_only():
     lse = torch.zeros((2, 4))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fab.flash_attention_backward_cuda(q, q, q, q, lse, q)
+
+
+# The kernels' operand rounding, emulated: the five products computed in
+# f64 from the operands as the tensor cores read them, against the f64
+# plain backward, to chip_smoke.py's tolerances (each cotangent's max-abs).
+# f32: every product 3xTF32, a = hi + lo, a.b ~ lo.b_hi + hi.b_lo +
+# hi.b_hi, by one of the _SPLITS rules: "rna", the kernel's (hi rounded
+# to TF32 to nearest, ties away; lo = a - hi, which the tensor cores read
+# truncated to TF32: its low 13 bits cleared), "trunc", the forward's (hi
+# truncated too), "cvt_rna" (lo rounded to nearest as well); P and dS
+# formed in f32 from f32 scores. bf16 and f16: S and dP exact (f32
+# accumulation of exact products), P and dS rounded once to the input
+# type. The gradients are
+# rounded to the input type. Not emulated: the order and rounding of the
+# tensor cores' own f32 sums, which the card's checks see.
+FLASH_BWD_TOL = chip_smoke.FLASH_BWD_TOL
+_SPLITS = ("rna", "trunc", "cvt_rna")
+_LOG2E = np.float32(1.4426950408889634)
+
+
+def _tf32(x, nearest):
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if nearest:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _split(x, rule):
+    x = np.asarray(x, np.float32)
+    hi = _tf32(x, rule != "trunc")
+    return (hi.astype(np.float64),
+            _tf32(x - hi, rule == "cvt_rna").astype(np.float64))
+
+
+def _mm3(a, b, rule):
+    """``a @ b`` as 3xTF32 on the tensor cores, in f64."""
+    (ah, al), (bh, bl) = _split(a, rule), _split(b, rule)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _as(x, dtype):
+    """``x`` rounded to ``dtype`` (to nearest even), as f64."""
+    return torch.from_numpy(np.asarray(x, np.float64)).to(
+        dtype).double().numpy()
+
+
+def emulated_backward(arrays, causal, dtype, rule="rna"):
+    """dq, dk, dv of the kernels on ``arrays`` (q, k, v, dO in ``dtype``,
+    held as f64), from the forward's output in ``dtype`` and its f32
+    log-sum-exp."""
+    q, k, v, g = arrays
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep = np.arange(sq)[:, None] >= np.arange(sk)[None]
+    s = np.where(keep, s, -1e30)
+    lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    out = np.einsum("bhqk,bkhd->bqhd", np.exp(s - lse[..., None]), v)
+    delta = (_as(out, dtype) * g).sum(-1).astype(np.float32)  # [b, sq, h]
+    lse2 = np.float32(lse) * _LOG2E
+    grads = [np.zeros_like(t) for t in (q, k, v)]
+    for i in range(b):
+        for j in range(h):
+            qh, kh, vh, gh = (t[i, :, j] for t in arrays)
+            if dtype == torch.float32:
+                st, dpt = _mm3(qh, kh.T, rule), _mm3(gh, vh.T, rule)
+            else:
+                st, dpt = qh @ kh.T, gh @ vh.T
+            x = np.float32(st) * np.float32(scale * _LOG2E) \
+                - lse2[i, j][:, None]
+            p = np.where(keep, np.exp2(x), np.float32(0))
+            ds = p * (np.float32(dpt) - delta[i, :, j][:, None])
+            if dtype == torch.float32:
+                dq = _mm3(ds, kh, rule) * scale
+                dk = _mm3(ds.T, qh, rule) * scale
+                dv = _mm3(p.T, gh, rule)
+            else:
+                pr, dsr = _as(p, dtype), _as(ds, dtype)
+                dq, dk, dv = dsr @ kh * scale, dsr.T @ qh * scale, pr.T @ gh
+            for t, x in zip(grads, (dq, dk, dv)):
+                t[i, :, j] = x
+    return [_as(t, dtype) for t in grads]
+
+
+def emulated_errors(arrays, causal, dtype, rule="rna"):
+    """Each cotangent's worst error over its reference's max-abs (a
+    cotangent zero by symmetry against the largest of the three), as
+    ``chip_smoke.flash_backward_check`` measures the kernels."""
+    want = _numpy_grads(arrays, causal)
+    got = emulated_backward(arrays, causal, dtype, rule)
+    tops = [float(np.abs(w).max()) for w in want]
+    return {c: float(np.abs(x - w).max()) / (
+        top if top > 1e-6 * max(tops) else max(tops))
+        for c, x, w, top in zip(("dq", "dk", "dv"), got, want, tops)}
+
+
+EMULATED = [(64, 64, 8, False), (64, 64, 8, True), (63, 65, 64, False),
+            (63, 65, 64, True), (65, 40, 64, True), (33, 100, 8, True),
+            (200, 200, 64, False), (200, 200, 64, True), (512, 512, 64, True)]
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _emulated_inputs(sq, sk, d, dtype):
+    return [_as(a, dtype) for a in _arrays(sq + 7 * sk + d, sq, sk, h=2, d=d,
+                                           b=1)]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("sq,sk,d,causal", EMULATED)
+def test_emulated_operand_rounding_meets_the_tolerance(dtype, sq, sk, d,
+                                                       causal):
+    arrays = _emulated_inputs(sq, sk, d, dtype)
+    name = str(dtype).replace("torch.", "")
+    errs = emulated_errors(arrays, causal, dtype)
+    assert max(errs.values()) <= FLASH_BWD_TOL[name], errs
+    assert max(errs.values()) > 0  # the rounding is really emulated
+
+
+if __name__ == "__main__":
+    # the emulated worst error of each cotangent over the cases above, by
+    # type and, for f32, by the TF32 split rule:
+    # PYTHONPATH=. python tests/test_torch_flash_backward.py
+    for dtype in _DTYPES:
+        for rule in _SPLITS if dtype == torch.float32 else ("rna",):
+            worst = {}
+            for sq, sk, d, causal in EMULATED:
+                errs = emulated_errors(_emulated_inputs(sq, sk, d, dtype),
+                                       causal, dtype, rule)
+                for c, e in errs.items():
+                    worst[c] = max(worst.get(c, 0.0), e)
+            print(str(dtype).replace("torch.", ""), rule, worst)
