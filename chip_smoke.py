@@ -12,6 +12,27 @@ paths through its public entry points and checks every result:
    20M-row double frame in 8 partitions, then the sum of ``z`` through
    ``reduce_blocks`` and through ``aggregate({"z": "sum"})`` grouped by an
    int64 key with 100,000 distinct values, against numpy f64 to rtol 1e-12;
+2b. the host runtime (``native_host_20M``): ``native.available()`` (the
+   library built by ``g++`` from ``csrc/host_runtime.cpp`` at first use),
+   then phase 2's 20M rows: ``convert`` f64 -> f32 and int64 -> int32,
+   ``gather_rows`` by a permutation, ``pad_ragged`` of 100,000 ragged
+   cells (about 10M values) and ``pad_column`` of 10,000 of them, and
+   phase 2's keyed ``aggregate`` in its computation form over 2M rows
+   (its gather by key), each with the library and under
+   ``TFT_DISABLE_NATIVE=1``, bit-equal, both walls printed;
+2c. the parallel layer (``mesh_reference_workload_20M``): phase 2's rows
+   on ``local_mesh()`` (the card: 1 shard) and on a mesh of 8 shards of
+   the one card: ``distribute`` -> ``dmap_blocks(z = x + x)`` ->
+   ``dfilter(x < 0.75)`` -> ``dreduce_blocks`` sum and min (collective)
+   and min (generic) -> ``daggregate({"z": "sum"})`` by ``key`` with host
+   keys, with device keys (``max_groups=131072``) and through the generic
+   fold; a two-key device-key aggregate (``key % 200``, ``key // 1000``,
+   ``max_groups=32768``) and a 4M-row frame where key 0 holds 80% of the
+   rows (salted across the 8 shards); every result against numpy (f64
+   sums rtol 1e-12, min exact), each route bit-identical across two runs,
+   host keys bit-equal to device keys, segment_sum launched once per shard and
+   sum column, the ``aggregate.factorize_keys`` span against the device-key
+   id build (``daggregate.device_key_ids``);
 3. the k-means centre update: ``aggregate({"f": "sum"})`` over a 2M x 64
    f32 vector column grouped by 1,024 keys, against numpy f64 to rtol 1e-5;
 3b. the lazy query path from a file: the 20M-row workload written with
@@ -121,10 +142,13 @@ paths through its public entry points and checks every result:
    x 64 f64 features, k = 256, 8 partitions, from ``make_data``'s
    generator (seed 1): 3 steps of variant A (``map_blocks`` assignment ->
    computation-form ``aggregate``) and 3 of variant B (segment_sum twice
-   a block inside the program, 16 launches a step), each step's centers
-   and total distance against a numpy step by the matrix form of the
-   distances to rtol 1e-9; then ``geom_mean`` and ``groupby_scratch`` at
-   their demo sizes against numpy;
+   a block inside the program, 16 launches a step), then, over the frame
+   distributed on ``local_mesh()``, 3 of variant C (variant B's program
+   over the gathered array, 2 launches a step) and 3 of variant D
+   (``daggregate(max_groups=k)``, a launch per sum column and shard a
+   step), each step's centers and total distance against a numpy step by
+   the matrix form of the distances to rtol 1e-9; then ``geom_mean`` and
+   ``groupby_scratch`` at their demo sizes against numpy;
 3k. adaptive execution (``adaptive_20M``): a row-local chain
    (``map_rows`` -> ``filter`` -> ``select``) over 20M rows in 200
    blocks of 100,000, the first forcing static, then static (``=0``) and
@@ -233,8 +257,8 @@ paths through its public entry points and checks every result:
    bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3m for
-segment_sum, the child processes of phases 3h and 3l included, phases 4-5e
+with each kernel's launches during its main path (phases 1-3m, 2b and
+2c included, for segment_sum, the child processes of phases 3h and 3l included, phases 4-5e
 for flash_attention, 5b-5e for its backward), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
@@ -353,6 +377,229 @@ def phase_kmeans(ttf, np, n=2_000_000, d=64, parts=8, keys=1024) -> dict:
     return {"rows": n, "width": d, "partitions": parts, "keys": keys,
             "aggregate_wall_s": t_agg,
             "max_rel_err": float(np.max(np.abs(cols["f"] - want) / want))}
+
+
+# ---------------------------------------------------------------------------
+# phases 2b-2c: the host runtime and the mesh
+# ---------------------------------------------------------------------------
+
+def native_both_ways(np, native, fn):
+    """``fn()`` with the host runtime and under ``TFT_DISABLE_NATIVE=1``
+    (numpy), in turns (library, numpy, numpy, library): ``(library
+    result, numpy result, library walls, numpy walls)``; each side's two
+    results are bit-equal."""
+    out = {False: [], True: []}
+    walls = {False: [], True: []}
+    for disabled in (False, True, True, False):
+        knobs = {"TFT_DISABLE_NATIVE": "1"} if disabled else {}
+        with env_scope(**knobs):
+            native._load_attempted, native._lib = False, None
+            assert native.available() != disabled
+            t0 = time.perf_counter()
+            out[disabled].append(fn())
+            walls[disabled].append(time.perf_counter() - t0)
+    native._load_attempted, native._lib = False, None
+    for side in out.values():
+        assert np.array_equal(side[0], side[1])
+    return out[False][0], out[True][0], walls[False], walls[True]
+
+
+def phase_native_host(ttf, np, torch, n=20_000_000, parts=8,
+                      keys=100_000, cells=100_000) -> dict:
+    """The host runtime (``native.py`` over ``csrc/host_runtime.cpp``, built
+    by ``g++`` at first use) at the reference workload's size, each
+    function with the library and with numpy, bit-equal (phase 2b)."""
+    from tensorframes_tpu_torch import native
+    from tensorframes_tpu_torch.ops import _build
+
+    native._load_attempted, native._lib = False, None
+    t0 = time.perf_counter()
+    assert native.available(), "the host runtime did not build or load"
+    out = {"rows": n, "build_s": time.perf_counter() - t0,
+           "library": os.path.basename(_build._library_path("host_runtime")),
+           "version": native.lib_version()}
+    rng = np.random.default_rng(2)
+    key = rng.integers(0, keys, n)
+    x = rng.random(n)
+    perm = rng.permutation(n)
+    lens = rng.integers(1, n // cells, cells)
+    ragged = np.split(x[:int(lens.sum())], np.cumsum(lens)[:-1])
+    jobs = {
+        "convert_f64_to_f32": lambda: native.convert(x, np.float32),
+        "convert_i64_to_i32": lambda: native.convert(key, np.int32),
+        "gather_rows_f64": lambda: native.gather_rows(x, perm),
+        "pad_ragged_f64": lambda: native.pad_ragged(
+            ragged, max_len=int(lens.max()))[0],
+    }
+    for name, fn in jobs.items():
+        lib, ref, t_lib, t_np = native_both_ways(np, native, fn)
+        assert lib.dtype == ref.dtype and np.array_equal(lib, ref), name
+        out[name] = {"native_walls_s": t_lib, "numpy_walls_s": t_np,
+                     "bytes": int(lib.nbytes)}
+    frame = ttf.frame([(c,) for c in ragged[:cells // 10]], columns=["v"],
+                      num_partitions=parts)
+    lib, ref, t_lib, t_np = native_both_ways(np, native, lambda: np.concatenate(
+        [b.columns["v"] for b in frame.pad_column("v").blocks()]))
+    assert np.array_equal(lib, ref), "pad_column"
+    out["pad_column_10k_cells"] = {"native_walls_s": t_lib,
+                                   "numpy_walls_s": t_np}
+
+    # phase 2's keyed aggregate in its computation form, which gathers each
+    # block by key through gather_rows (the monoid form calls no native
+    # function: the port's device dtype is the storage dtype)
+    small = ttf.frame({"key": key[:2_000_000], "z": 2 * x[:2_000_000]},
+                      num_partitions=parts).group_by("key")
+    lib, ref, t_lib, t_np = native_both_ways(np, native, lambda: ttf.aggregate(
+        lambda z_input: {"z": z_input.sum(0)}, small).blocks()[0]
+        .columns["z"])
+    assert np.array_equal(lib, ref), "the fold differs without the library"
+    np.testing.assert_allclose(lib, np.bincount(
+        key[:2_000_000], weights=2 * x[:2_000_000])[np.unique(
+            key[:2_000_000])], rtol=1e-12)
+    out["aggregate_fold_2M"] = {"native_walls_s": t_lib,
+                                "numpy_walls_s": t_np}
+    return out
+
+
+def mesh_route(np, segment_reduce, run, expect_launches: int) -> tuple:
+    """One mesh aggregate route run twice: its result (bit-identical across
+    the runs), each run's wall and B1 launches (``expect_launches``)."""
+    results, walls = [], []
+    for _ in range(2):
+        l0 = segment_reduce.launches
+        t0 = time.perf_counter()
+        cols = run().blocks()[0].columns
+        walls.append(time.perf_counter() - t0)
+        got = segment_reduce.launches - l0
+        assert got == expect_launches, (got, expect_launches)
+        results.append(cols)
+    for k in results[0]:
+        assert np.array_equal(results[0][k], results[1][k]), \
+            f"{k} differs between two runs"
+    return results[0], walls
+
+
+def phase_mesh_reference_workload(ttf, np, torch, segment_reduce,
+                                  n=20_000_000, keys=100_000, parts=8,
+                                  shards=8, hot_rows=4_000_000,
+                                  max_groups=131_072, device="cuda") -> dict:
+    """The reference workload through the parallel layer (phase 2c) on
+    ``local_mesh()`` and on a mesh of ``shards`` logical shards of the one
+    card: ``distribute`` -> ``dmap_blocks(z = x + x)`` -> ``dfilter(x <
+    0.75)`` -> ``dreduce_blocks`` sum and min (collective) and min
+    (generic) -> ``daggregate({"z": "sum"})`` by ``key`` with host keys and
+    with device keys; a two-key device-key aggregate, a frame where key 0
+    holds 80% of the rows (salted on more than one shard) and a generic
+    ``daggregate``; every result against numpy, each route bit-identical
+    across two runs, B1 launched once per shard and sum column."""
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(2)
+    key = rng.integers(0, keys, n)
+    x = rng.random(n)
+    keep = x < 0.75
+    zk, kk = 2 * x[keep], key[keep]
+    want = np.bincount(kk, weights=zk, minlength=keys)
+    present = np.flatnonzero(np.bincount(kk, minlength=keys))
+    k1, k2 = key % 200, key // 1000
+    pair = k1 * 100 + k2  # the groups in (k1, k2) order
+    pairs = np.unique(pair)
+    want_pair = np.bincount(pair, weights=2 * x, minlength=200 * 100)[pairs]
+    hot_key = np.where(np.arange(hot_rows) % 5 == 0, key[:hot_rows], 0)
+    want_hot = np.bincount(hot_key, weights=2 * x[:hot_rows],
+                           minlength=keys)
+    hot_present = np.flatnonzero(np.bincount(hot_key, minlength=keys))
+    df = ttf.frame({"key": key, "x": x}, num_partitions=parts)
+    hot_df = ttf.frame({"key": hot_key, "z": 2 * x[:hot_rows]},
+                       num_partitions=parts)
+    pair_df = ttf.frame({"k1": k1, "k2": k2, "z": 2 * x},
+                        num_partitions=parts)
+    dev = torch.device(device)
+    meshes = {"local_mesh": parallel.local_mesh(),
+              f"{shards}_shards_of_one_card": parallel.DeviceMesh(
+                  np.array([dev] * shards, dtype=object))}
+    out = {"rows": n, "keys": keys, "kept_rows": int(keep.sum()),
+           "max_groups": max_groups}
+    for name, mesh in meshes.items():
+        S = mesh.num_data_shards
+        res = {"shards": S}
+        tracing.timings.reset()
+        t0 = time.perf_counter()
+        dist = parallel.distribute(df, mesh)
+        torch.cuda.synchronize()
+        res["distribute_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        z = parallel.dmap_blocks(lambda x: {"z": x + x}, dist)
+        flt = parallel.dfilter(lambda x: x < 0.75, z)
+        assert flt.count() == int(keep.sum())
+        sel = flt.select(["z"])
+        total = parallel.dreduce_blocks({"z": "sum"}, sel)["z"]
+        low = parallel.dreduce_blocks({"z": "min"}, sel)["z"]
+        low_gen = parallel.dreduce_blocks(
+            lambda z_input: {"z": torch.amin(z_input, 0)}, sel)["z"]
+        res["map_filter_reduce_s"] = time.perf_counter() - t0
+        np.testing.assert_allclose(float(total), zk.sum(), rtol=1e-12)
+        assert float(low) == float(low_gen) == zk.min(), (low, low_gen)
+        agg = flt.select(["key", "z"])
+        routes = {
+            "host_keys": (lambda: parallel.daggregate({"z": "sum"}, agg,
+                                                      "key"), S),
+            "device_keys": (lambda: parallel.daggregate(
+                {"z": "sum"}, agg, "key", max_groups=max_groups), S),
+            "generic": (lambda: parallel.daggregate(
+                lambda z_input: {"z": z_input.sum(0)}, agg, "key"), 0),
+        }
+        got = {}
+        for route, (run, launches) in routes.items():
+            cols, walls = mesh_route(np, segment_reduce, run, launches)
+            np.testing.assert_array_equal(cols["key"], present)
+            np.testing.assert_allclose(cols["z"], want[present], rtol=1e-12)
+            got[route] = cols["z"]
+            res[route] = {"walls_s": walls, "launches_per_run": launches}
+        assert np.array_equal(got["device_keys"], got["host_keys"]), \
+            "device keys and host keys give different sums"
+        spans = tracing.timings.snapshot()
+        fact = spans.get("aggregate.factorize_keys", {}).get("total_s", 0.0)
+        ids = spans.get("daggregate.device_key_ids", {}).get("total_s", 0.0)
+        res["factorize_keys_s"] = fact
+        res["device_key_ids_s"] = ids
+        res["factorize_share_of_host_route_first_run"] = (
+            fact / res["host_keys"]["walls_s"][0])
+        res["id_build_share_of_device_route_first_run"] = (
+            ids / res["device_keys"]["walls_s"][0])
+
+        pdist = parallel.distribute(pair_df, mesh)
+        cols, walls = mesh_route(np, segment_reduce, lambda: parallel
+                                 .daggregate({"z": "sum"}, pdist,
+                                             ["k1", "k2"], max_groups=32_768),
+                                 S)
+        np.testing.assert_array_equal(cols["k1"] * 100 + cols["k2"], pairs)
+        np.testing.assert_allclose(cols["z"], want_pair, rtol=1e-12)
+        res["two_keys_device"] = {"groups": int(pairs.size),
+                                  "walls_s": walls}
+
+        hdist = parallel.distribute(hot_df, mesh)
+        frame_holder = {}
+
+        def hot():
+            frame_holder["out"] = parallel.daggregate({"z": "sum"}, hdist,
+                                                      "key")
+            return frame_holder["out"]
+
+        cols, walls = mesh_route(np, segment_reduce, hot, S)
+        np.testing.assert_array_equal(cols["key"], hot_present)
+        np.testing.assert_allclose(cols["z"], want_hot[hot_present],
+                                   rtol=1e-12)
+        hot_keys = frame_holder["out"].hot_keys()
+        frac = np.count_nonzero(hot_key == 0) / hot_rows
+        assert hot_keys == ([{"keys": {"key": 0}, "fraction": frac,
+                              "salt_slots": S}] if S > 1 else []), hot_keys
+        res["hot_key_80pct"] = {"rows": hot_rows, "walls_s": walls,
+                                "hot_keys": hot_keys}
+        out[name] = res
+        del dist, z, flt, sel, agg, pdist, hdist
+    return out
 
 
 def scan_file(np, n, groups, keys, seed) -> tuple:
@@ -2527,32 +2774,48 @@ def phase_kmeans_demo(ttf, np, torch, segment_reduce, n=2_000_000, m=64,
     pts = np.concatenate([b.dense("features") for b in df.blocks()])
     out = {"rows": n, "features": m, "k": k, "partitions": parts,
            "steps": steps, "data_s": time.perf_counter() - t0}
-    for variant in ("aggregate", "preaggregate"):
+    # numpy's trajectory from the initial centers: every variant's step i
+    # takes its input centers and is held to its next centers and distance
+    inputs, wants, ref_walls = [], [], []
+    c = np.asarray(init, np.float64)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        want = kmeans_numpy_step(np, pts, c)
+        ref_walls.append(time.perf_counter() - t0)
+        inputs.append(c)
+        wants.append(want)
+        c = want[0]
+    out["numpy_step_walls_s"] = ref_walls
+    del pts
+
+    from tensorframes_tpu_torch import parallel
+    t0 = time.perf_counter()
+    dist = parallel.distribute(df, parallel.local_mesh())
+    out["distribute_s"] = time.perf_counter() - t0
+    shards = dist.mesh.num_data_shards
+    # launches a step: variant B two segment_sum calls a block, C two on
+    # the gathered array, D one a sum column (3) and shard; A none
+    for variant, frame, per_step in (
+            ("aggregate", df, 0), ("preaggregate", df, 2 * parts),
+            ("device_resident", dist, 2), ("daggregate", dist, 3 * shards)):
         step = getattr(kmeans, f"step_{variant}")
-        c = np.asarray(init, np.float64)
-        walls, ref_walls, errs = [], [], []
+        walls, errs = [], []
         l0 = segment_reduce.launches
-        for _ in range(steps):
+        for c, (want_c, want_d) in zip(inputs, wants):
             t0 = time.perf_counter()
-            got_c, got_d = step(df, c)
+            got_c, got_d = step(frame, c)
             walls.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            want_c, want_d = kmeans_numpy_step(np, pts, c)
-            ref_walls.append(time.perf_counter() - t0)
             # f64 sums in other orders, the distances from another GEMM
             np.testing.assert_allclose(got_c, want_c, rtol=1e-9, atol=1e-9)
             assert abs(got_d - want_d) <= 1e-9 * abs(want_d), (got_d, want_d)
             errs.append(float(np.max(np.abs(got_c - want_c))))
-            c = got_c
         launches = segment_reduce.launches - l0
-        # variant B: two segment_sum calls a block and step
-        assert launches == (2 * parts * steps if variant == "preaggregate"
-                            else 0), (variant, launches)
-        out[variant] = {"step_walls_s": walls, "numpy_step_walls_s":
-                        ref_walls, "launches": launches,
+        assert launches == per_step * steps, (variant, launches)
+        out[variant] = {"step_walls_s": walls, "launches": launches,
                         "max_abs_center_err": max(errs),
                         "final_distance": got_d}
-    del df, pts
+    out["mesh_shards"] = shards
+    del df, dist
 
     # geom_mean and groupby_scratch at their demo sizes, held to the
     # numpy checks of the JAX package's demo tests
@@ -4786,7 +5049,12 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
     part (d)'s whale (1M f32 rows, S = 100,000) and of the 200,000-row
     frame of parts (b) and (d) (50,000 f64 rows, S = its distinct keys)
     and of phase 3m's chaos drill (its aggregate's 1,024 f64 rows a block,
-    S = 64; 3m's other shapes are 3l's);
+    S = 64; 3m's other shapes are 3l's) and of phase 2c (the 1-shard
+    mesh's 20M f64 rows into 100,000 and 131,073 groups, the 8-shard
+    mesh's 2.5M into 131,073 and into the two-key table's 32,769, the
+    salted frame's 500,000 into 100,007; the 8-shard host route is phase
+    2's shape) and of phase 3j's variant C (the gathered 2M x 64 and 2M x
+    1 f64, S = 256);
     flash_attention and its backward at the transformer's [8, 2048, 8,
     64] causal in f32 (the model's) and bf16 (the backward when ``fab``,
     its module, is given: an earlier checkout has none)."""
@@ -4823,6 +5091,24 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 200_000 // 4, 1,
                                small_s, torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 4_096 // 4, 1, 64,
+                               torch.float64, flush),
+              # phase 2c: the 1-shard mesh's shard (host and device keys),
+              # the 8-shard mesh's with device keys and two keys, and a
+              # shard of the salted frame (100,000 keys + 7 salt slots)
+              time_segment_sum(np, torch, segment_reduce, 20_000_000, 1,
+                               100_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000, 1,
+                               131_073, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               131_073, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               32_769, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 4_000_000 // 8, 1,
+                               100_007, torch.float64, flush),
+              # phase 3j's variant C: the whole 2M-point array on one shard
+              time_segment_sum(np, torch, segment_reduce, 2_000_000, 64, 256,
+                               torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_000_000, 1, 256,
                                torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
@@ -4921,8 +5207,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = ("segment_sum", "flash_attention") + \
         (("flash_attention_backward",) if fab is not None else ())
-    _build.build(*kernels)
+    # the host runtime (g++) builds beside the kernels; an earlier
+    # checkout timed with --timings has none
+    host = () if args.timings else ("host_runtime",)
+    _build.build(*kernels, *host)
     emit({"phase": "build", "ok": True, "kernels": list(kernels),
+          "host": list(host),
           "port": os.path.dirname(os.path.abspath(ttf.__file__)),
           "wall_s": time.perf_counter() - t0,
           "ptxas": {  # an earlier checkout (--timings) keeps no logs
@@ -4948,6 +5238,10 @@ def main(argv=None) -> int:
         ("readme_x_plus_3", lambda: phase_readme(ttf, np)),
         ("reference_workload_20M",
          lambda: phase_reference_workload(ttf, np, torch)),
+        ("native_host_20M", lambda: phase_native_host(ttf, np, torch)),
+        ("mesh_reference_workload_20M",
+         lambda: phase_mesh_reference_workload(ttf, np, torch,
+                                               segment_reduce)),
         ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np)),
         ("plan_parquet_20M",
          lambda: static_plan(phase_plan_parquet, ttf, np, torch,
@@ -4986,8 +5280,10 @@ def main(argv=None) -> int:
     for name in ("stream_ysb_20M", "stream_windows_parquet_20M"):
         assert per_phase[name]["segment_sum"] > 0, \
             f"the stream's fold never launched segment_sum in {name}"
-    assert per_phase["kmeans_demo_2M"]["segment_sum"] == 48, \
-        "k-means variant B did not launch segment_sum twice a block"
+    assert per_phase["kmeans_demo_2M"]["segment_sum"] == 48 + 6 + 9, \
+        "k-means variants B-D did not launch segment_sum as modelled"
+    assert per_phase["mesh_reference_workload_20M"]["segment_sum"] == \
+        2 * (1 + 8) * 4, "the mesh did not launch segment_sum on every shard"
     assert per_phase["serve_three_tenants_20M"]["segment_sum"] > 0 and \
         served["child_launches"] > 0, \
         "the served aggregates never launched segment_sum"

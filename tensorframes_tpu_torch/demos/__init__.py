@@ -1,9 +1,8 @@
 """The portable demos of the JAX package's ``demos/``, in PyTorch.
 
-``kmeans`` (variants A and B), ``geom_mean``, ``groupby_scratch`` and
+``kmeans`` (variants A to D), ``geom_mean``, ``groupby_scratch`` and
 ``train_lm`` (single device) keep their functions' names, arguments and
-seeds. Variants C and D of k-means (``distribute``, ``daggregate``) wait
-for the parallel layer and variant E (the native core) for the native
-execution core (``ROADMAP.md`` A items 7 and 8); ``analytics.py`` waits
-for the same layers, and ``train_lm``'s mesh for the parallel layer.
+seeds. Variant E of k-means waits for the native execution core
+(``ROADMAP.md`` A item 8); ``analytics.py`` and ``train_lm``'s mesh wait
+for the rest of the parallel layer (A item 7b).
 """

@@ -10,13 +10,20 @@ Two of the JAX package's coordination patterns over the same math:
 - variant B (``step_preaggregate``): each block's centroid update is
   pre-aggregated inside the program by two calls of the port's
   ``segment_sum`` (the CUDA kernel on the card), with ``trim=True``
-  emitting one row per block, then a small ``reduce_blocks`` combine.
+  emitting one row per block, then a small ``reduce_blocks`` combine;
+- variant C (``step_device_resident``): variant B's program over a
+  ``distribute``d frame that stays on the mesh's devices, through
+  ``dmap_blocks(trim=True, row_aligned=False)``: per step only the
+  centroids go out and the k x (m + 2) partials come back;
+- variant D (``step_daggregate``): ``dmap_blocks`` appends each point's
+  assignment and distance, then ``daggregate(max_groups=k)`` folds them
+  into the k-row table with device-side keys (``segment_sum`` on every
+  shard).
 
-Variants C and D (``distribute``, ``daggregate``) and E (the native
-core's resident loop) wait for the layers they need (``ROADMAP.md`` A
-items 7 and 8). The driver loop (``kmeans``) is the JAX package's:
-centroids live on the host and each round's program closes over them,
-placed on the package's default device.
+Variant E (the native core's resident loop) waits for the native
+execution core (``ROADMAP.md`` A item 8). The driver loop (``kmeans``) is
+the JAX package's: centroids live on the host and each round's program
+closes over them, placed on the package's default device.
 """
 
 from __future__ import annotations
@@ -78,7 +85,10 @@ def step_aggregate(df: tft.TensorFrame,
 
 # -- variant B: segment-sum pre-aggregation inside the program ---------------
 
-def _preagg_computation(centers: np.ndarray) -> Callable:
+def _preagg_computation(centers: np.ndarray,
+                        n_valid: int = None) -> Callable:
+    """``n_valid`` masks pad rows on the device-resident path: their segment
+    id becomes -1 (dropped by segment_sum) and their distance 0."""
     k = centers.shape[0]
     c = _on_device(centers)
 
@@ -86,6 +96,11 @@ def _preagg_computation(centers: np.ndarray) -> Callable:
         d = _distances(features, c)
         idx = torch.argmin(d, dim=1).to(torch.int32)
         mind = torch.amin(d, dim=1)
+        if n_valid is not None:
+            valid = torch.arange(features.shape[0],
+                                 device=features.device) < n_valid
+            idx = torch.where(valid, idx, -1)
+            mind = torch.where(valid, mind, 0.0)
         ones = torch.ones((features.shape[0], 1), dtype=features.dtype,
                           device=features.device)
         # one row per BLOCK: [1, k, m] sums, [1, k] counts, [1] distance
@@ -122,6 +137,73 @@ def step_preaggregate(df: tft.TensorFrame,
     return _combine_partials(red["agg_points"][None],
                              red["agg_counts"][None],
                              np.asarray([red["agg_distances"]]), centers)
+
+
+# -- variant C: device-resident frame, centroids-only traffic ---------------
+
+def step_device_resident(dist, centers: np.ndarray) -> Tuple[np.ndarray, float]:
+    """One step on a ``distribute``d frame (``parallel.distributed``).
+
+    ``dist`` stays on the devices; per-step host traffic is just the
+    k x m centroid matrix out and k x (m+2) partials back.
+    """
+    from tensorframes_tpu_torch import dtypes as _dt
+    from tensorframes_tpu_torch.computation import Computation, TensorSpec
+    from tensorframes_tpu_torch.parallel.distributed import dmap_blocks
+    from tensorframes_tpu_torch.shape import Shape, Unknown
+
+    m = centers.shape[1]
+    comp = Computation.trace(
+        _preagg_computation(centers, n_valid=dist.num_rows),
+        [TensorSpec("features", _dt.double, Shape(Unknown, m))])
+    out = dmap_blocks(comp, dist, trim=True, row_aligned=False)
+    return _combine_partials(np.asarray(out.columns["agg_points"]),
+                             np.asarray(out.columns["agg_counts"]),
+                             np.asarray(out.columns["agg_distances"]),
+                             centers)
+
+
+# -- variant D: the keyed aggregate at mesh scale, device-side keys ----------
+
+def step_daggregate(dist, centers: np.ndarray) -> Tuple[np.ndarray, float]:
+    """One step as a mesh-level keyed aggregate (variant A at mesh scale).
+
+    ``dmap_blocks`` appends the assignment + per-point partials and
+    ``daggregate(max_groups=k)`` folds them into the k-row table with
+    DEVICE-side keys: per-step host traffic is the k x (m+2) table, and
+    the key column never visits the host.
+    """
+    from tensorframes_tpu_torch.parallel.distributed import (daggregate,
+                                                             dmap_blocks)
+
+    k, m = centers.shape
+    c = _on_device(centers)
+
+    def assign_fn(features):
+        d = _distances(features, c)
+        return {"assign": torch.argmin(d, dim=1).to(torch.int32),
+                "mind": torch.amin(d, dim=1),
+                "ones": torch.ones((features.shape[0],),
+                                   dtype=features.dtype,
+                                   device=features.device)}
+
+    scored = dmap_blocks(assign_fn, dist)
+    # pad rows never reach the aggregate: daggregate marks them out in
+    # its validity-aware group ids
+    table = daggregate({"features": "sum", "mind": "sum", "ones": "sum"},
+                       scored, "assign", max_groups=k)
+    rows = table.collect()
+    sums = np.zeros_like(centers)
+    counts = np.zeros((k,))
+    dist_total = 0.0
+    for r in rows:
+        i = int(r["assign"])
+        sums[i] = np.asarray(r["features"])
+        counts[i] = r["ones"]
+        dist_total += float(r["mind"])
+    safe = np.maximum(counts, 1.0)[:, None]
+    new_centers = np.where(counts[:, None] > 0, sums / safe, centers)
+    return new_centers, float(dist_total)
 
 
 # -- driver loop --------------------------------------------------------------
@@ -167,6 +249,19 @@ def main():
         print(f"[{name}] converged after {len(history)} steps; "
               f"final distance {history[-1]:.3f}")
     print("centers:\n", centers)
+
+    # mesh variants (C: device-resident frame, D: mesh keyed aggregate)
+    from tensorframes_tpu_torch.parallel.distributed import distribute
+    from tensorframes_tpu_torch.parallel.mesh import local_mesh
+
+    dist = distribute(df, local_mesh())
+    for name, step in [("device_resident", step_device_resident),
+                       ("daggregate", step_daggregate)]:
+        centers, history = kmeans(dist, init, step=step)
+        print(f"[{name}] converged after {len(history)} steps; "
+              f"final distance {history[-1]:.3f}")
+    print("[native_resident] skipped (the native execution core is "
+          "ROADMAP.md A item 8)")
 
 
 if __name__ == "__main__":

@@ -51,6 +51,7 @@ import torch
 
 from .. import dtypes as _dt
 from .. import memory as _memory
+from .. import native as _native
 from ..computation import Computation, TensorSpec
 from ..memory.estimate import propagate_hints
 from ..frame import Block, GroupedFrame, TensorFrame
@@ -529,8 +530,13 @@ def map_rows(fetches: Fetches, df: TensorFrame,
         per_row: Dict[str, List[Optional[np.ndarray]]] = {
             f: [None] * b.num_rows for f in fetch_names}
         for idxs in groups.values():
-            arrays = {n: np.stack([cells[n][i] for i in idxs])
-                      for n in in_names}
+            arrays = {}
+            for n in in_names:
+                # a signature group's cells share one shape: one threaded
+                # native copy packs them into the stacked block
+                grp = [cells[n][i] for i in idxs]
+                values, _ = _native.pack_ragged(grp, dtype=grp[0].dtype)
+                arrays[n] = values.reshape((len(idxs),) + grp[0].shape)
             out = ex.run(vcomp, arrays, row_local=True)
             for f in fetch_names:
                 for j, i in enumerate(idxs):
@@ -1097,6 +1103,42 @@ def _segmented_scan(op, sid: torch.Tensor, vals: Dict[str, torch.Tensor]):
             {f: interleave(vals[f], e_v[f], o_v[f]) for f in vals})
 
 
+def _fold_functions(comp: Computation, names):
+    """The segmented fold's pieces for a computation-form reduce over the
+    fetches ``names``: ``pair_v`` (the program on stacked two-row blocks,
+    batched with ``torch.func.vmap``), ``single_v`` (on one-row blocks)
+    and ``op``, the segmented scan's operator, which combines two
+    elements where their group ids agree. The mesh fold
+    (``parallel/distributed.py``) shares them."""
+
+    def pair(av, bv):
+        out = comp.fn({f + "_input": torch.stack([av[f], bv[f]])
+                       for f in names})
+        return {f: out[f] for f in names}
+
+    def single(av):
+        out = comp.fn({f + "_input": av[f][None] for f in names})
+        return {f: out[f] for f in names}
+
+    pair_v = torch.func.vmap(pair)
+    single_v = torch.func.vmap(single)
+
+    def op(a, b):
+        a_id, a_v = a
+        b_id, b_v = b
+        if b_id.shape[0] == 0:
+            return b_id, b_v
+        same = a_id == b_id
+        comb = _fold_call(pair_v, comp, a_v, b_v)
+        out_v = {}
+        for f in names:
+            m = same.reshape((-1,) + (1,) * (comb[f].ndim - 1))
+            out_v[f] = torch.where(m, comb[f], b_v[f])
+        return b_id, out_v
+
+    return pair_v, single_v, op
+
+
 def _aggregate_segmented_fold(comp: Computation, fetch_names, fetch_blocks,
                               fact: KeyFactorization, schema: Schema,
                               executor: BlockExecutor
@@ -1125,31 +1167,7 @@ def _aggregate_segmented_fold(comp: Computation, fetch_names, fetch_blocks,
     if comp._tft_programs:
         executor._prepare(comp, {f + "_input": v for f, v in dev.items()})
 
-    def pair(av, bv):
-        out = comp.fn({f + "_input": torch.stack([av[f], bv[f]])
-                       for f in names})
-        return {f: out[f] for f in names}
-
-    def single(av):
-        out = comp.fn({f + "_input": av[f][None] for f in names})
-        return {f: out[f] for f in names}
-
-    pair_v = torch.func.vmap(pair)
-    single_v = torch.func.vmap(single)
-
-    def op(a, b):
-        a_id, a_v = a
-        b_id, b_v = b
-        if b_id.shape[0] == 0:
-            return b_id, b_v
-        same = a_id == b_id
-        comb = _fold_call(pair_v, comp, a_v, b_v)
-        out_v = {}
-        for f in names:
-            m = same.reshape((-1,) + (1,) * (comb[f].ndim - 1))
-            out_v[f] = torch.where(m, comb[f], b_v[f])
-        return b_id, out_v
-
+    _, single_v, op = _fold_functions(comp, names)
     mem_mgr = _memory.active()
     mem_tok = (mem_mgr.reserve(
         2 * sum(int(v.numel() * v.element_size()) for v in dev.values())
@@ -1284,7 +1302,8 @@ def aggregate(fetches: Fetches, grouped: GroupedFrame,
             continue
         with span("aggregate.sort_block"):
             fact_b = _fact_from_global_ids(ids)
-            fetch_b = {f: b.dense(f)[fact_b.order] for f in fetch_names}
+            fetch_b = {f: _native.gather_rows(b.dense(f), fact_b.order)
+                       for f in fetch_names}
         cols_b = block_partials(fetch_b, fact_b)
         partial_gids.append(fact_b.uniques[0])
         for f in fetch_names:

@@ -482,20 +482,20 @@ class TensorFrame:
             L = p
         storage = field.dtype.np_storage
 
+        from . import native as _native
+
         def pad_block(b: Block) -> Block:
             cols = dict(b.columns)
             cells = cell_list(b)
-            dense = np.zeros((b.num_rows, L), storage)
-            mask = np.zeros((b.num_rows, L), np.int32)
-            for i, c in enumerate(cells):
+            for c in cells:
                 if c.size > L:
                     raise ValueError(
                         f"pad_column: a cell of {name!r} holds {c.size} "
                         f"values, more than max_len={L}")
-                dense[i, :c.size] = c
-                mask[i, :c.size] = 1
+            # one threaded native copy pads the block (numpy fallback)
+            dense, mask = _native.pad_ragged(cells, max_len=L, dtype=storage)
             cols[name] = dense
-            cols[mask_col] = mask
+            cols[mask_col] = mask.astype(np.int32)
             cols[len_col] = np.array([c.size for c in cells], np.int64)
             return Block(cols, b.num_rows)
 
@@ -528,11 +528,12 @@ class TensorFrame:
                      mesh=mesh, indicator=indicator)
 
     def hot_keys(self) -> List[Dict]:
-        """The hot-key observations of a salted ``daggregate``: one dict
-        per hot group, ``{"keys": {col: value}, "fraction": ...,
-        "salt_slots": K}``. This package has no salted ``daggregate`` yet,
-        so no frame carries any and the list is empty."""
-        return []
+        """The hot-key observations recorded when this frame was produced
+        by a salted ``daggregate``: one dict per hot group, ``{"keys":
+        {col: value}, "fraction": observed-row-fraction, "salt_slots":
+        K}``. Empty for frames no salting touched; ``explain()`` renders
+        them as ``hot key`` lines."""
+        return list(getattr(self, "_hot_keys", ()) or ())
 
     def submit(self, fetches=None, *, tenant: str = "default",
                deadline: Optional[float] = None, **kwargs):

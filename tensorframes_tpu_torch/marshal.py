@@ -23,6 +23,7 @@ __all__ = [
     "rows_to_columns",
     "columns_to_rows",
     "infer_physical_shape",
+    "validate_block_column",
 ]
 
 Column = Union[np.ndarray, List[np.ndarray]]  # dense | ragged
@@ -151,3 +152,20 @@ def columns_to_rows(columns: Dict[str, Column], schema: Schema,
             row.append(v)
         rows.append(tuple(row))
     return rows
+
+
+def validate_block_column(name: str, col: Column, field: Field) -> None:
+    """Check a materialized column against its declared field info."""
+    if isinstance(col, np.ndarray):
+        declared = field.block_shape
+        if declared is not None and not declared.matches_concrete(col.shape):
+            raise ValueError(
+                f"Column {name!r}: block of shape {tuple(col.shape)} does "
+                f"not conform to declared shape {declared}")
+    else:
+        for i, cell in enumerate(col):
+            if field.cell_shape is not None and \
+                    field.cell_shape.ndim != cell.ndim:
+                raise ValueError(
+                    f"Column {name!r} row {i}: cell rank {cell.ndim} does "
+                    f"not match declared cell shape {field.cell_shape}")

@@ -8,7 +8,7 @@ demo drives them: the model rides into the computation as constants,
 
 Parameters are ``{"w": [d], "b": []}`` tensors on the model's device
 (``None``: the package default). The mesh-parallel step runs on one device
-only until the mesh layer is ported (ROADMAP A10).
+only until the mesh layer is ported (ROADMAP A item 7b).
 """
 
 from __future__ import annotations
@@ -151,12 +151,12 @@ class LogisticRegression:
 
         One device only: a mesh of more devices (the data-parallel step,
         its gradient all-reduced over the mesh's data axis) raises
-        ``NotImplementedError``: ROADMAP A10."""
+        ``NotImplementedError``: ROADMAP A item 7b."""
         if mesh_size(mesh) != 1:
             raise NotImplementedError(
                 f"a mesh of {mesh_size(mesh)} devices: the data-parallel "
                 f"logistic-regression step over a mesh is not ported yet: "
-                f"ROADMAP A10 (parallel)")
+                f"ROADMAP A item 7b (parallel)")
 
         def step(params, x, y):
             x = torch.as_tensor(x).to(self.device)

@@ -15,7 +15,7 @@ gradients come from the backward kernel.
 
 Not here yet: mixture-of-experts layers and the mesh paths (ring, tensor,
 sequence and pipeline parallelism, and the pipelined train step); ROADMAP
-A10/A12.
+A item 7b and A12.
 """
 
 from __future__ import annotations
@@ -87,14 +87,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 def mesh_size(mesh) -> int:
     """The number of devices of ``mesh``: 1 for ``None``, else the length
     of a list or tuple of devices. The port has no mesh type yet: anything
-    else raises ``NotImplementedError`` (ROADMAP A10)."""
+    else raises ``NotImplementedError`` (ROADMAP A item 7b)."""
     if mesh is None:
         return 1
     if isinstance(mesh, (list, tuple)):
         return len(mesh)
     raise NotImplementedError(
         f"a mesh of type {type(mesh).__name__}: the port takes None or a "
-        f"list of devices until ROADMAP A10 (parallel) defines its mesh")
+        f"list of devices until ROADMAP A item 7b (parallel) defines its mesh")
 
 
 # optax.adam's defaults; torch.optim.Adam's update rule
@@ -210,7 +210,7 @@ class TransformerLM(nn.Module):
         if c.num_experts > 0:
             raise NotImplementedError(
                 "num_experts > 0 (mixture-of-experts FFN) is not ported yet: "
-                "ROADMAP A12 (models) with A10 (parallel/moe.py)")
+                "ROADMAP A12 (models) with A item 7b (parallel/moe.py)")
         device = resolve_device(device)
         kw = {"device": device, "dtype": c.dtype}
         D, V = c.d_model, c.vocab_size
@@ -253,7 +253,7 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"{', '.join(given)}: the mesh paths (ring attention, tensor, "
                 f"sequence and expert parallelism) are not ported yet: "
-                f"ROADMAP A10 (parallel) and A12 (models)")
+                f"ROADMAP A item 7b (parallel) and A12 (models)")
 
     def apply_with_aux(self, tokens: torch.Tensor, mesh=None,
                        seq_axis: Optional[str] = None,
@@ -330,7 +330,7 @@ class TransformerLM(nn.Module):
         ``data_axis`` is then the whole batch. A mesh of more devices, or a
         ``model_axis``, ``seq_axis`` or ``expert_axis`` (tensor, sequence
         and expert parallelism), raises ``NotImplementedError``: ROADMAP
-        A10. (The JAX package's ``model_axis="model"`` acts only when its
+        A item 7b. (The JAX package's ``model_axis="model"`` acts only when its
         mesh has that axis; here the default is ``None``.)
 
         ``init_state(rng)`` draws the parameters as the constructor does
@@ -345,7 +345,7 @@ class TransformerLM(nn.Module):
         if mesh_size(mesh) != 1:
             raise NotImplementedError(
                 f"a mesh of {mesh_size(mesh)} devices: the data-parallel "
-                f"train step over a mesh is not ported yet: ROADMAP A10 "
+                f"train step over a mesh is not ported yet: ROADMAP A item 7b "
                 f"(parallel)")
         device, dtype = self.device, self.config.dtype
 
@@ -374,10 +374,10 @@ class TransformerLM(nn.Module):
 
     def make_pipelined_train_step(self, *args, **kwargs):
         """The GPipe-pipelined train step runs over a ``pipe`` mesh axis:
-        not ported yet (ROADMAP A10)."""
+        not ported yet (ROADMAP A item 7b)."""
         raise NotImplementedError(
             "make_pipelined_train_step: the pipelined train step over a "
-            "mesh is not ported yet: ROADMAP A10 (parallel)")
+            "mesh is not ported yet: ROADMAP A item 7b (parallel)")
 
     # -- autoregressive decoding (KV cache) ---------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:

@@ -134,10 +134,17 @@ def render(trace: "_events.QueryTrace") -> str:
 def _with_plan(df, report: str) -> str:
     """The frame's own sections after the trace's: the optimized plan of
     its forcing (absent under ``TFT_FUSE=0`` or when the chain ran per
-    op) and a join's routing decision."""
+    op), the hot keys a salted ``daggregate`` observed and a join's
+    routing decision."""
     info = getattr(df, "_plan_info", None)
     if info:
         report = report + "\n" + "\n".join(info)
+    for h in getattr(df, "_hot_keys", None) or ():
+        kv = ", ".join(f"{k}={v!r}" for k, v in h["keys"].items())
+        frac = (f"{h['fraction']:.0%} of rows"
+                if h.get("fraction") is not None else "hot")
+        report += (f"\n  hot key  : {{{kv}}} — {frac}, salted across "
+                   f"{h['salt_slots']} slot(s) (frame.hot_keys())")
     route = getattr(df, "_join_route", None)
     if route:
         est = route.get("est_build_bytes")

@@ -1,15 +1,17 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels and its host runtime.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` at
-the root of the checkout, and loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited source builds anew. Building happens at
-first use, never at import; :func:`build` compiles several sources at once.
-One process-wide lock serializes builds and loads, so threads that reach a
-kernel's first use together (the serving scheduler's workers) run one
-``nvcc`` per source and share one handle; each build writes a temporary
-file named for its process and thread, moved into place atomically, so
-two processes building the same source cannot tear each other's library.
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``, and each
+``csrc/<name>.cpp`` (the host runtime of ``native.py``) by ``g++``, into a
+shared library with a plain C interface,
+``build/kernels/lib<name>-<hash>.so`` at the root of the checkout, and
+loaded with ``ctypes``. The hash covers the source and the flags, so an
+edited source builds anew. Building happens at first use, never at import;
+:func:`build` compiles several sources at once. One process-wide lock
+serializes builds and loads, so threads that reach a kernel's first use
+together (the serving scheduler's workers) run one compiler per source and
+share one handle; each build writes a temporary file named for its process
+and thread, moved into place atomically, so two processes building the
+same source (the test runner's workers) cannot tear each other's library.
 ``-Xptxas -v`` makes ``ptxas`` report each kernel's registers, shared
 memory and spills; a build's compiler output is kept in :data:`logs`.
 A failed or impossible build raises
@@ -37,6 +39,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # the compiler's output of each source this process built, by name
@@ -56,17 +59,36 @@ def _nvcc() -> str:
         "package's CUDA kernels are built from source at first use")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise KernelError(
+        "g++ not found on PATH; the package's host runtime is built from "
+        "source at first use")
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu`` (a CUDA kernel) or else ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(src: Path):
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src = _source(name)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        src.read_bytes() + " ".join(_flags(src)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
 def build(*names: str) -> Dict[str, ctypes.CDLL]:
-    """The kernel libraries ``names``, each built first if need be: one
-    ``nvcc`` per source, all started together. Raises with the compiler's
-    output if one fails (after every ``nvcc`` has ended)."""
+    """The libraries ``names``, each built first if need be: one compiler
+    per source, all started together. Raises with the compiler's output if
+    one fails (after every compiler has ended)."""
     with _lock:
         return _build_locked(names)
 
@@ -80,18 +102,23 @@ def _build_locked(names) -> Dict[str, ctypes.CDLL]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(
             f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, tmp, out, subprocess.Popen(
+        src = _source(name)
+        tool = _nvcc() if src.suffix == ".cu" else _gxx()
+        cmd = [tool, *_flags(src), "-o", str(tmp), str(src)]
+        jobs.append((src, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for name, tmp, out, proc in jobs:
+    for src, tmp, out, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed to build {name}.cu (exit "
+            tool = "nvcc" if src.suffix == ".cu" else "g++"
+            failed.append(f"{tool} failed to build {src.name} (exit "
                           f"{proc.returncode}):\n{log}")
+            if tmp.exists():
+                tmp.unlink()
         else:
-            logs[name] = log
+            logs[src.stem] = log
             os.replace(tmp, out)
     if failed:
         raise KernelError("\n".join(failed))
@@ -102,6 +129,6 @@ def _build_locked(names) -> Dict[str, ctypes.CDLL]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if need be."""
+    """The library ``name``, built first if need be."""
     lib = _loaded.get(name)
     return lib if lib is not None else build(name)[name]

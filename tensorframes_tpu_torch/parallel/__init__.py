@@ -1,0 +1,59 @@
+"""Distribution layer: device meshes, sharded frames, mesh collectives.
+
+The port's counterpart of ``tensorframes_tpu/parallel/``, single-controller
+as the JAX package is: one process drives every device of a
+:class:`DeviceMesh` (an array of ``torch.device`` objects with named
+axes). Partitions become shards of every column, one per device of the
+data axis; a mesh reduce's combine becomes the combiner's collective over
+the shards' partials (``collectives.py``).
+
+Ported: the mesh, its collectives and the distributed frame's ops
+``distribute``, ``dmap_blocks``, ``dfilter``, ``dreduce_blocks`` and
+``daggregate`` (host and device keys, hot-key salting). The other public
+names of the JAX package's layer stay in this namespace and raise
+``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when called:
+``dsort``, the elastic mesh's growth, the shuffle exchange, ring
+attention and the multi-process cluster (``torch.distributed`` with NCCL,
+the counterpart of the JAX package's multi-host ``initialize``).
+"""
+
+from .collectives import COMBINERS
+from .distributed import (DistributedFrame, daggregate, dfilter, distribute,
+                          dmap_blocks, dreduce_blocks, dsort)
+from .mesh import DeviceMesh, local_mesh
+
+__all__ = [
+    "DeviceMesh", "local_mesh",
+    "DistributedFrame", "daggregate", "dfilter", "distribute",
+    "dmap_blocks", "dreduce_blocks", "dsort",
+    "COMBINERS",
+    "admit_devices", "grow_mesh", "probe_device",
+    "dexchange", "shuffle_daggregate", "shuffle_enabled",
+    "ring_attention", "ring_allreduce",
+    "cluster_mesh", "distribute_local", "initialize",
+]
+
+
+def _not_yet(name: str, module: str):
+    def missing(*args, **kwargs):
+        raise NotImplementedError(
+            f"parallel.{name} ({module}) is not ported to "
+            f"tensorframes_tpu_torch yet: ROADMAP.md A item 7b")
+
+    missing.__name__ = missing.__qualname__ = name
+    missing.__doc__ = (f"The JAX package's ``parallel.{name}`` "
+                       f"({module}); raises until ROADMAP.md A item 7b.")
+    return missing
+
+
+admit_devices = _not_yet("admit_devices", "elastic.py")
+grow_mesh = _not_yet("grow_mesh", "elastic.py")
+probe_device = _not_yet("probe_device", "elastic.py")
+dexchange = _not_yet("dexchange", "exchange.py")
+shuffle_daggregate = _not_yet("shuffle_daggregate", "exchange.py")
+shuffle_enabled = _not_yet("shuffle_enabled", "exchange.py")
+ring_attention = _not_yet("ring_attention", "ring.py")
+ring_allreduce = _not_yet("ring_allreduce", "ring.py")
+cluster_mesh = _not_yet("cluster_mesh", "cluster.py")
+distribute_local = _not_yet("distribute_local", "cluster.py")
+initialize = _not_yet("initialize", "cluster.py")

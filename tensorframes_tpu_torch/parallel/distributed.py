@@ -1,0 +1,1292 @@
+"""Distributed frames: mesh-sharded columns and mesh-level map/reduce.
+
+The port's counterpart of ``tensorframes_tpu/parallel/distributed.py``,
+single-controller as the JAX package is: one process drives every device
+of a :class:`~.mesh.DeviceMesh`. A :class:`DistributedFrame` holds each
+device column as a :class:`ShardedArray`, one tensor per data shard on
+that shard's device, all shards of equal length (pad rows make up the
+remainder; ``num_rows`` remembers the truth). Then:
+
+- :func:`dmap_blocks` runs the program on every shard with no
+  cross-device traffic; with ``trim=True`` it sees the global padded
+  array, one concatenation on the first shard's device;
+- :func:`dfilter` compacts each shard's kept rows to its front and
+  records per-shard survivor counts;
+- :func:`dreduce_blocks` reduces each shard locally, pad rows masked to
+  the combiner's neutral element, and folds the partials with the
+  combiner's collective (``collectives.py``); an arbitrary reduce
+  computation combines the per-shard partials with one more call;
+- :func:`daggregate` reduces each shard's rows into a dense
+  ``[groups, ...]`` table — a float sum through the hand-written
+  ``segment_sum`` kernel (B1) on every shard — and folds the tables
+  across the data axis. Group ids come from a host factorization of the
+  key columns (cached per frame) or, with ``max_groups=``, from a
+  sort-unique and a ``searchsorted`` of the keys on the devices, so the
+  keys never visit the host. A computation-form aggregate folds each
+  shard's groups by a segmented scan of the program and folds the
+  shards' tables with the same program.
+
+Every op runs through the dispatch boundary of ``elastic.py``. Not here
+yet (``ROADMAP.md`` A item 7b, each raising ``NotImplementedError``):
+``dsort``, :meth:`DistributedFrame.lazy`, sketch combiners in
+``daggregate`` and its shuffle route; ``TFT_EXECUTOR=pjrt`` waits for the
+native execution core (A item 8).
+"""
+
+from __future__ import annotations
+
+import os
+from collections import OrderedDict
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import dtypes as _dt
+from .. import memory as _memory
+from ..engine import ops as _ops
+from ..engine.executor import (BlockExecutor, to_device, to_host,
+                               to_storage_dtype)
+from ..frame import Block, TensorFrame
+from ..observability.events import (DEVICE_TRACK_BASE, current_trace,
+                                    traced_query)
+from ..resilience import default_policy as _default_policy
+from ..schema import Field, Schema
+from ..shape import Unknown
+from ..utils.env import env_bool, env_int
+from ..utils.tracing import counters, span
+from . import elastic as _elastic
+from .collectives import COMBINERS
+from .mesh import DeviceMesh
+
+__all__ = ["DistributedFrame", "ShardedArray", "distribute", "dmap_blocks",
+           "dfilter", "dsort", "dreduce_blocks", "daggregate"]
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to tensorframes_tpu_torch yet: ROADMAP.md "
+        f"A item 7b (the rest of the parallel layer)")
+
+
+def _check_executor() -> None:
+    """``TFT_EXECUTOR=pjrt`` routes the JAX package's mesh ops through its
+    native execution core; the port has none yet and never carries on
+    down another route."""
+    if os.environ.get("TFT_EXECUTOR") == "pjrt":
+        raise NotImplementedError(
+            "TFT_EXECUTOR=pjrt (the native execution core) is not ported "
+            "to tensorframes_tpu_torch yet: ROADMAP.md A item 8; unset "
+            "TFT_EXECUTOR")
+
+
+# ---------------------------------------------------------------------------
+# sharded columns
+# ---------------------------------------------------------------------------
+
+class ShardedArray:
+    """One device column of a :class:`DistributedFrame`: a tensor per
+    data shard, each on its shard's device, in shard order. Its global
+    view is the shards' rows concatenated (``shape``, ``numpy()``)."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards: Sequence[torch.Tensor]):
+        self.shards = list(shards)
+
+    @property
+    def shape(self):
+        first = self.shards[0]
+        return (sum(int(s.shape[0]) for s in self.shards),) + \
+            tuple(first.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [s.device for s in self.shards]
+
+    def gather(self, device: torch.device) -> torch.Tensor:
+        """The global array, concatenated on ``device``."""
+        return torch.cat([s.to(device) for s in self.shards])
+
+    def numpy(self) -> np.ndarray:
+        """The global array on the host (one copy per shard)."""
+        return np.concatenate([to_host(s) for s in self.shards])
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def __repr__(self):
+        return (f"ShardedArray(shape={self.shape}, dtype={self.dtype}, "
+                f"shards={len(self.shards)})")
+
+
+def _place(mesh: DeviceMesh, a: np.ndarray, rows: Sequence[int],
+           dtype: torch.dtype) -> ShardedArray:
+    """Place a host array on the mesh: ``rows[i]`` rows, in order, on
+    data shard ``i``'s device, as ``dtype``."""
+    out, lo = [], 0
+    for r, d in zip(rows, mesh.shard_devices()):
+        out.append(to_device(a[lo:lo + r], dtype, d))
+        lo += r
+    return ShardedArray(out)
+
+
+def _shard_rows(dist) -> List[int]:
+    """The row count of each data shard of ``dist``."""
+    for c in dist.columns.values():
+        if isinstance(c, ShardedArray):
+            return [int(s.shape[0]) for s in c.shards]
+    S = dist.mesh.num_data_shards
+    return [dist.padded_rows // S] * S
+
+
+def _split_global(mesh: DeviceMesh, t: torch.Tensor) -> ShardedArray:
+    """A trim program's global result back onto the mesh, in the ceil-div
+    chunks of :meth:`DistributedFrame.per_shard_valid` (equal shards when
+    it tiles the data axis; some chunks may be empty otherwise)."""
+    devices = mesh.shard_devices()
+    S = len(devices)
+    n = int(t.shape[0])
+    chunk = -(-n // S)
+    return ShardedArray([t[min(i * chunk, n):min((i + 1) * chunk, n)]
+                         .to(d) for i, d in enumerate(devices)])
+
+
+def _read_global(a) -> np.ndarray:
+    """A column (sharded or host-side) as one host array."""
+    return a if isinstance(a, np.ndarray) else a.numpy()
+
+
+_PREP = BlockExecutor(device="cpu")
+
+
+def _call(comp, inputs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Run ``comp`` on one shard's (or the gathered global) tensors, on
+    their device: deserialized programs are placed there first."""
+    if comp._tft_programs:
+        _PREP._prepare(comp, inputs)
+    with torch.no_grad():
+        out = comp.fn(dict(inputs))
+    for spec in comp.outputs:
+        if not isinstance(out.get(spec.name), torch.Tensor):
+            raise TypeError(
+                f"Computation output {spec.name!r} is "
+                f"{type(out.get(spec.name)).__name__}, not a torch.Tensor")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# trace instrumentation (only behind a `trace is not None` check)
+# ---------------------------------------------------------------------------
+
+def _mesh_meta(dist) -> Dict:
+    m = dist.mesh
+    return {"mesh_shape": m.shape, "shards": m.num_data_shards,
+            "devices": m.num_devices, "rows": dist.num_rows,
+            "padded_rows": dist.padded_rows}
+
+
+def _meta_with_fetches(fetches=None, dist=None, *a, **k):
+    dist = k.get("dist", dist)
+    fetches = k.get("fetches", fetches)
+    if dist is None:
+        return {}
+    meta = _mesh_meta(dist)
+    names = getattr(fetches, "output_names", None)
+    if names:
+        meta["fetches"] = sorted(names)
+    elif isinstance(fetches, Mapping):
+        meta["fetches"] = sorted(str(n) for n in fetches)
+    return meta
+
+
+def _meta_dfilter(predicate=None, dist=None, *a, **k):
+    dist = k.get("dist", dist)
+    return _mesh_meta(dist) if dist is not None else {}
+
+
+def _meta_daggregate(fetches=None, dist=None, keys=None, *a, **k):
+    meta = _meta_with_fetches(fetches, dist, **k)
+    keys = k.get("keys", keys)
+    if meta and keys is not None:
+        meta["keys"] = [keys] if isinstance(keys, str) else list(keys)
+    return meta
+
+
+def _meta_distribute(df=None, mesh=None, *a, **k):
+    mesh = k.get("mesh", mesh)
+    if mesh is None:
+        return {}
+    return {"mesh_shape": mesh.shape, "shards": mesh.num_data_shards,
+            "devices": mesh.num_devices}
+
+
+def _trace_shards(trace, op: str, dist) -> float:
+    """One ``shard`` event per data shard (its valid rows) on the device
+    tracks; returns the dispatch's start for :func:`_trace_done`."""
+    rows = dist.per_shard_valid()
+    for i, dev in enumerate(dist.mesh.shard_devices()):
+        trace.add("shard", name=f"{op} shard {i}", device=str(dev),
+                  rows=int(rows[i]), track=DEVICE_TRACK_BASE + i)
+    return trace.clock()
+
+
+def _trace_done(trace, op: str, t0: float) -> None:
+    trace.add("mesh_dispatch", name=op, ts=t0,
+              dur=max(trace.clock() - t0, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# the frame
+# ---------------------------------------------------------------------------
+
+class DistributedFrame:
+    """Columns sharded over the mesh's data axis + the true row count.
+
+    ``num_rows`` is the un-padded row count; rows are padded up to a
+    multiple of the data-axis size so every shard is equal, and consumers
+    mask or slice the pad away.
+
+    ``shard_valid``: per-data-shard valid-row counts, for frames whose
+    pad rows are NOT a global suffix (``dfilter``'s result). ``None``
+    means prefix semantics (``distribute``): the first ``num_rows`` rows
+    are the real ones.
+    """
+
+    def __init__(self, mesh: DeviceMesh, schema: Schema,
+                 columns: Dict[str, object], num_rows: int,
+                 shard_valid: Optional[np.ndarray] = None):
+        self.mesh = mesh
+        self.schema = schema
+        self.columns = columns
+        self.num_rows = num_rows
+        self.shard_valid = shard_valid
+        # group-id factorizations memoized per key tuple: frames are
+        # immutable (every op returns a new frame), so repeated
+        # aggregations over the same keys skip the host transfer and
+        # lexsort (host keys) or the sort-unique (device keys). LRU-capped:
+        # entries hold device arrays sized like the frame
+        self._group_ids_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+    @property
+    def padded_rows(self) -> int:
+        first = next(iter(self.columns.values()))
+        return first.shape[0]
+
+    def per_shard_valid(self) -> np.ndarray:
+        """Valid-row count of every data shard, [num_data_shards]."""
+        S = self.mesh.num_data_shards
+        if self.shard_valid is not None:
+            return np.asarray(self.shard_valid, np.int64)
+        rows_per = self.padded_rows // S
+        if rows_per * S != self.padded_rows:
+            # a global (row_aligned=False) result need not tile the data
+            # axis (e.g. ONE summary row on an 8-shard mesh); such frames
+            # carry no pad rows and lie in ceil-div chunks
+            if self.num_rows != self.padded_rows:
+                raise ValueError(
+                    f"frame rows ({self.padded_rows}) do not tile the "
+                    f"{S}-shard data axis yet only {self.num_rows} are "
+                    f"valid — pad to a multiple of the shard count")
+            chunk = -(-self.padded_rows // S)
+            starts = np.minimum(np.arange(S) * chunk, self.padded_rows)
+            ends = np.minimum(starts + chunk, self.padded_rows)
+            return (ends - starts).astype(np.int64)
+        out = np.full(S, rows_per, np.int64)
+        full, tail = divmod(self.num_rows, rows_per)
+        out[full:] = 0
+        if full < S:
+            out[full] = tail
+        return out
+
+    def valid_row_mask(self) -> np.ndarray:
+        """Host bool mask [padded_rows]: True where the row is real."""
+        S = self.mesh.num_data_shards
+        rows_per = self.padded_rows // S
+        if rows_per * S != self.padded_rows:
+            self.per_shard_valid()  # validates num_rows == padded_rows
+            return np.ones(self.padded_rows, bool)
+        idx = np.arange(self.padded_rows) % rows_per
+        return idx < np.repeat(self.per_shard_valid(), rows_per)
+
+    def host_read_padded(self, name: str) -> np.ndarray:
+        """The full padded global column on the host."""
+        return _read_global(self.columns[name])
+
+    def collect_frame(self, num_partitions: Optional[int] = None
+                      ) -> TensorFrame:
+        """Bring the data back to the host as a TensorFrame (pad dropped)."""
+        mask = self.valid_row_mask()
+        host_cols = {}
+        for f in self.schema:
+            a = self.host_read_padded(f.name)
+            a = a[mask] if self.shard_valid is not None \
+                else a[: self.num_rows]
+            host_cols[f.name] = (to_storage_dtype(a, f.dtype)
+                                 if f.dtype.tensor else a)
+        return TensorFrame.from_columns(
+            host_cols, schema=self.schema,
+            num_partitions=num_partitions or self.mesh.num_data_shards)
+
+    def select(self, names) -> "DistributedFrame":
+        """A view with only ``names`` (no data movement — the reduce ops
+        require every column to back a fetch, so dropping ride-along
+        columns first is the normal prelude)."""
+        if isinstance(names, str):
+            names = [names]
+        names = list(names)
+        missing = [n for n in names if n not in self.schema]
+        if missing:
+            raise KeyError(
+                f"No column(s) {missing}; columns: {self.schema.names}")
+        return DistributedFrame(self.mesh, self.schema.select(names),
+                                {n: self.columns[n] for n in names},
+                                self.num_rows, shard_valid=self.shard_valid)
+
+    def count(self) -> int:
+        """True (un-padded) global row count."""
+        return self.num_rows
+
+    def lazy(self):
+        """The JAX package's recording view (fused distributed plans,
+        ``plan/dist.py``): not ported yet."""
+        raise _later("DistributedFrame.lazy() (plan/dist.py)")
+
+    def explain(self) -> str:
+        """Schema + placement report: per-column dtype, declared shape,
+        placement, plus the mesh and pad layout."""
+        lines = [f"DistributedFrame: {self.num_rows} rows "
+                 f"(padded {self.padded_rows}) on {self.mesh!r}",
+                 "  validity: "
+                 + ("prefix" if self.shard_valid is None
+                    else f"per-shard {list(map(int, self.shard_valid))}")]
+        for f in self.schema:
+            col = self.columns[f.name]
+            if isinstance(col, np.ndarray):
+                place = "host (ride-along)"
+            else:
+                devs = sorted({str(d) for d in col.devices})
+                place = (f"row-sharded over {self.mesh.data_axis!r} "
+                         f"({len(col.shards)} shards on "
+                         f"{', '.join(devs)})")
+            lines.append(f"  {f.describe()} sharding={place}")
+        return "\n".join(lines)
+
+    def __repr__(self):
+        return (f"DistributedFrame[{', '.join(self.schema.names)}] "
+                f"rows={self.num_rows} mesh={self.mesh!r}")
+
+
+def _host_side_column(a: np.ndarray, field, padded_rows: int) -> np.ndarray:
+    """Pad a non-tensor (string) column for the host-side ride-along:
+    such columns cannot live on a device, so they travel in the same
+    padded global layout as the device columns — pass-through and group
+    keys only, the host engine's contract for them."""
+    a = np.asarray(a, field.dtype.np_storage)
+    if a.shape[0] != padded_rows:
+        a = np.concatenate(
+            [a, np.full(padded_rows - a.shape[0], None, a.dtype)])
+    return a
+
+
+@traced_query("distribute", _meta_distribute)
+def distribute(df: TensorFrame, mesh: DeviceMesh) -> DistributedFrame:
+    """Shard a host frame over the mesh's data axis: equal shards of one
+    global array, one per data-shard device (pad rows, zero filled, make
+    up the remainder; ``num_rows`` remembers the truth)."""
+    _check_executor()
+    with span("distribute.concat"):
+        merged = Block.concat(df.blocks(), df.schema)
+    n = merged.num_rows
+    shards = mesh.num_data_shards
+    padded = ((n + shards - 1) // shards) * shards if n else shards
+    mem_mgr = _memory.active()
+    cols: Dict[str, object] = {}
+    for f in df.schema:
+        a = merged.dense(f.name)
+        if not f.dtype.tensor:
+            cols[f.name] = _host_side_column(a, f, padded)
+            continue
+        dd = _dt.device_dtype(f.dtype)
+        if padded != n:
+            # empty + explicit tail zeros writes each byte once
+            with span("distribute.convert_pad"):
+                out = np.empty((padded,) + a.shape[1:], a.dtype)
+                out[:n] = a
+                out[n:] = 0
+            a = out
+        if mem_mgr is not None:
+            # spill colder residents before placing this column
+            mem_mgr.make_room(int(a.nbytes))
+        with span("distribute.device_put"):
+            cols[f.name] = _place(mesh, a, [padded // shards] * shards, dd)
+    result = DistributedFrame(mesh, df.schema, cols, n)
+    trace = current_trace()
+    if trace is not None:
+        _trace_done(trace, "distribute", _trace_shards(trace, "distribute",
+                                                       result))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# dmap_blocks
+# ---------------------------------------------------------------------------
+
+def dmap_blocks(fetches, dist: DistributedFrame, trim: bool = False,
+                row_aligned: Optional[bool] = None) -> DistributedFrame:
+    """Mesh-parallel map: the program runs on every shard.
+
+    Without ``trim``, outputs ride alongside the inputs and must be
+    row-local (each output row depends on its input row and constants);
+    pad rows flow through and are dropped at collect. With ``trim=True``
+    the computation sees the GLOBAL padded array (one concatenation on the
+    first shard's device) and may change the row count (e.g. an in-program
+    pre-aggregation emitting one global row); it must mask pad rows itself
+    (``dist.num_rows`` is the true count, ``padded_rows`` what it sees).
+
+    ``row_aligned`` declares how a trim output relates to the input rows:
+    ``True`` — output rows correspond 1:1 to input rows (pad structure
+    survives, dropped at collect); ``False`` — the output is a fresh global
+    result (every emitted row is real). Default ``None`` infers from the
+    row count (equal to ``padded_rows`` -> aligned).
+    """
+    _check_executor()
+    return _dmap_blocks_eager(fetches, dist, trim, row_aligned)
+
+
+@traced_query("dmap_blocks", _meta_with_fetches)
+def _dmap_blocks_eager(fetches, dist: DistributedFrame, trim: bool = False,
+                       row_aligned: Optional[bool] = None
+                       ) -> DistributedFrame:
+    return _dmap_blocks(fetches, dist, trim, row_aligned)
+
+
+def _dmap_blocks(fetches, dist: DistributedFrame, trim: bool,
+                 row_aligned: Optional[bool]) -> DistributedFrame:
+    schema = dist.schema
+    if row_aligned is False and not trim:
+        raise ValueError(
+            "row_aligned=False only makes sense for trim=True outputs: "
+            "without trim the untrimmed input columns ride along and still "
+            "contain pad rows, which declaring every output row real would "
+            "surface as data")
+    comp = _ops.cached_map_computation(fetches, schema, block_level=True)
+    out_schema = _ops._validate_map(comp, schema, block_level=True, trim=trim)
+    mesh = dist.mesh
+    names = [s.name for s in comp.outputs]
+    policy = _default_policy()
+
+    def _dispatch():
+        with span("dmap_blocks.dispatch"):
+            if trim:
+                dev0 = mesh.shard_devices()[0]
+                return [_call(comp, {n: dist.columns[n].gather(dev0)
+                                     for n in comp.input_names})]
+            return [_call(comp, {n: dist.columns[n].shards[s]
+                                 for n in comp.input_names})
+                    for s in range(mesh.num_data_shards)]
+
+    trace = current_trace()
+    t0 = (_trace_shards(trace, "dmap_blocks", dist)
+          if trace is not None else 0.0)
+    parts = policy.call(_dispatch, op="dmap_blocks.dispatch")
+    counters.inc("mesh.dispatches")
+    if trace is not None:
+        _trace_done(trace, "dmap_blocks", t0)
+    rows = {f: sum(int(p[f].shape[0]) for p in parts) for f in names}
+    if len(set(rows.values())) > 1:
+        raise ValueError(
+            f"Distributed map fetches disagree on output row count: "
+            f"{rows}")
+    n_out = rows[names[0]] if names else dist.padded_rows
+    if not trim and any(int(p[f].shape[0]) != r for p, r in zip(
+            parts, _shard_rows(dist)) for f in names):
+        raise ValueError(
+            f"Distributed map output changed the row count ({n_out} vs "
+            f"{dist.padded_rows}); use trim=True for row-count-changing "
+            f"(global) computations")
+    if row_aligned is None:
+        row_aligned = n_out == dist.padded_rows
+    elif row_aligned and n_out != dist.padded_rows:
+        raise ValueError(
+            f"row_aligned=True but the output has {n_out} rows and the "
+            f"input {dist.padded_rows}")
+    cols = {} if trim else {n: dist.columns[n] for n in dist.columns}
+    for f in names:
+        cols[f] = (_split_global(mesh, parts[0][f]) if trim
+                   else ShardedArray([p[f] for p in parts]))
+    num_rows = dist.num_rows if row_aligned else n_out
+    # row-aligned outputs keep the input's pad layout; a fresh global
+    # result (row_aligned=False) has no pad rows at all
+    return DistributedFrame(mesh, out_schema, cols, num_rows,
+                            shard_valid=(dist.shard_valid if row_aligned
+                                         else None))
+
+
+# ---------------------------------------------------------------------------
+# dfilter
+# ---------------------------------------------------------------------------
+
+def dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
+    """Mesh filter: keep the rows where ``predicate`` holds (nonzero).
+
+    Each shard computes its mask, stably compacts its kept rows to its
+    front (argsort on the negated mask + gather) and reports its survivor
+    count — the padded layout is untouched and the result's validity
+    becomes per-shard (``shard_valid``). Host-side ride-along columns
+    (strings) replay the same per-shard permutation on the host.
+
+    ``predicate`` follows :func:`tensorframes_tpu_torch.filter_rows`'s
+    contract: named args select columns, one rank-1 boolean/integer
+    fetch.
+    """
+    _check_executor()
+    return _dfilter_eager(predicate, dist)
+
+
+@traced_query("dfilter", _meta_dfilter)
+def _dfilter_eager(predicate, dist: DistributedFrame) -> DistributedFrame:
+    return _dfilter(predicate, dist)
+
+
+def _dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
+    schema = dist.schema
+    comp = _ops._filter_computation(predicate, schema)
+    bad = [n for n in comp.input_names
+           if (f := schema.get(n)) is not None and not f.dtype.tensor]
+    if bad:
+        raise _ops.InvalidTypeError(
+            f"dfilter predicate reads host-side (non-tensor) column(s) "
+            f"{bad}: string columns ride along on the mesh but cannot "
+            f"enter the sharded program. Filter on the host instead "
+            f"(tensorframes_tpu_torch.filter_rows / TensorFrame.filter) "
+            f"before distribute().")
+    pname = comp.output_names[0]
+    mesh = dist.mesh
+    S = mesh.num_data_shards
+    tensor_names = [f.name for f in schema if f.dtype.tensor]
+    host_names = [f.name for f in schema if not f.dtype.tensor]
+    counts_in = dist.per_shard_valid()
+
+    trace = current_trace()
+    t0 = _trace_shards(trace, "dfilter", dist) if trace is not None else 0.0
+    new_shards: Dict[str, list] = {n: [] for n in tensor_names}
+    counts, keeps = [], []
+    with span("dfilter.dispatch"):
+        for s in range(S):
+            local = {n: dist.columns[n].shards[s] for n in tensor_names}
+            m = _call(comp, {n: local[n] for n in comp.input_names})[pname]
+            rowid = torch.arange(m.shape[0], device=m.device)
+            keep = (m != 0) & (rowid < int(counts_in[s]))
+            order = torch.argsort((~keep).to(torch.int8), stable=True)
+            for n in tensor_names:
+                new_shards[n].append(local[n].index_select(
+                    0, order.to(local[n].device)))
+            counts.append(keep.sum())
+            keeps.append(keep)
+    if trace is not None:
+        _trace_done(trace, "dfilter", t0)
+    counters.inc("mesh.dispatches")
+    dev0 = mesh.shard_devices()[0]
+    counts_host = to_host(torch.stack([c.to(dev0) for c in counts])
+                          ).astype(np.int64)
+    # the survivor counts (and, with host ride-alongs, the keep mask)
+    # cross to the host between this op and the next
+    counters.inc("mesh.interstage_host_bytes", 4 * S)
+    from ..plan.nodes import record_selectivity
+    record_selectivity(comp, dist.num_rows, int(counts_host.sum()))
+    new_cols: Dict[str, object] = {n: ShardedArray(new_shards[n])
+                                   for n in tensor_names}
+    if host_names:
+        counters.inc("mesh.interstage_host_bytes", dist.padded_rows)
+        bounds = np.concatenate([[0], np.cumsum(
+            [int(k.shape[0]) for k in keeps])])
+        for n in host_names:
+            a = dist.columns[n]
+            out_a = np.empty_like(a)
+            for s, k in enumerate(keeps):
+                sl = slice(bounds[s], bounds[s + 1])
+                order = np.argsort(~to_host(k), kind="stable")
+                out_a[sl] = a[sl][order]
+            new_cols[n] = out_a
+    return DistributedFrame(mesh, schema, new_cols, int(counts_host.sum()),
+                            shard_valid=counts_host)
+
+
+def dsort(keys, dist: DistributedFrame, descending: bool = False
+          ) -> DistributedFrame:
+    """Rows globally sorted by scalar key column(s) on the mesh (the JAX
+    package's columnsort, with ``memory/external_sort.py``): not ported
+    yet."""
+    raise _later("dsort")
+
+
+# ---------------------------------------------------------------------------
+# dreduce_blocks
+# ---------------------------------------------------------------------------
+
+def dreduce_blocks(fetches, dist: DistributedFrame):
+    """Mesh-parallel reduce to one row.
+
+    - ``fetches`` is a mapping ``{column: combiner-name}`` (sum/min/max/
+      prod): each shard reduces its rows, pad rows masked to the
+      combiner's neutral element, and the partials meet in the combiner's
+      collective;
+    - ``fetches`` is a computation (z/z_input contract): the program
+      reduces each shard's rows and once more their stacked partials.
+    """
+    _check_executor()
+    return _dreduce_blocks_eager(fetches, dist)
+
+
+@traced_query("dreduce_blocks", _meta_with_fetches)
+def _dreduce_blocks_eager(fetches, dist: DistributedFrame):
+    if isinstance(fetches, Mapping) and all(
+            isinstance(v, str) for v in fetches.values()):
+        return _collective_reduce(fetches, dist)
+    return _generic_reduce(fetches, dist)
+
+
+def _host_result(v: torch.Tensor, field) -> np.ndarray:
+    a = to_host(v)
+    return to_storage_dtype(a, field.dtype) if field is not None else a
+
+
+def _collective_partials(c, shards: Sequence[torch.Tensor],
+                         valid: np.ndarray) -> List[torch.Tensor]:
+    """Each shard's local reduce with its rows past ``valid`` masked to
+    the combiner's neutral element (shards with no rows give none)."""
+    parts = []
+    for s, v in zip(shards, valid):
+        rows = int(s.shape[0])
+        if rows == 0:
+            continue
+        keep = torch.arange(rows, device=s.device) < int(v)
+        neutral = torch.tensor(c.neutral(s.dtype), dtype=s.dtype,
+                               device=s.device)
+        masked = torch.where(keep.reshape((rows,) + (1,) * (s.dim() - 1)),
+                             s, neutral)
+        parts.append(c.local(masked, 0))
+    return parts
+
+
+def _collective_reduce(col_combiners: Mapping[str, str],
+                       dist: DistributedFrame) -> Dict[str, np.ndarray]:
+    if dist.num_rows == 0:
+        raise ValueError("reduce on an empty distributed frame")
+    combs = {}
+    for name, cname in col_combiners.items():
+        if name not in dist.schema:
+            raise KeyError(f"No column {name!r}")
+        if cname not in COMBINERS:
+            raise KeyError(
+                f"Unknown combiner {cname!r}; known: {sorted(COMBINERS)}")
+        combs[name] = COMBINERS[cname]
+    names = sorted(col_combiners)
+    valid = dist.per_shard_valid()
+    trace = current_trace()
+    t0 = 0.0
+    if trace is not None:
+        t0 = _trace_shards(trace, "dreduce_blocks", dist)
+        for name in names:
+            trace.add("collective", name=combs[name].ici, ts=t0,
+                      column=name, op="dreduce_blocks")
+    result = {}
+    with span("dreduce_blocks.collective_dispatch"):
+        for name in names:
+            c = combs[name]
+            out = c.collective(_collective_partials(
+                c, dist.columns[name].shards, valid))
+            result[name] = _host_result(out, dist.schema[name])
+    if trace is not None:
+        _trace_done(trace, "dreduce_blocks", t0)
+    counters.inc("mesh.dispatches")
+    return result
+
+
+def _generic_reduce(fetches, dist: DistributedFrame) -> Dict[str, np.ndarray]:
+    """Generic (arbitrary-computation) mesh reduce: the program reduces
+    every shard whose rows are all valid, the boundary shard's valid
+    prefix on its own, and then the stacked partials on the first shard's
+    device. Frames whose pad rows are not a global suffix (after
+    ``dfilter``) fold every valid row into one group through the
+    segmented fold instead."""
+    schema = dist.schema
+    comp = _ops.cached_reduce_computation(fetches, schema, ("_input",),
+                                          block_level=True)
+    _ops._validate_reduce(comp, schema, ("_input",), rank_delta=1)
+    fetch_names = comp.output_names
+    mesh = dist.mesh
+    S = mesh.num_data_shards
+    n = dist.num_rows
+    if n == 0:
+        raise ValueError("reduce on an empty distributed frame")
+    names = sorted(fetch_names)
+    arrays = {f: dist.columns[f] for f in names}
+    if dist.shard_valid is not None or dist.padded_rows % S:
+        ids_host = np.where(dist.valid_row_mask(), 0, -1).astype(np.int32)
+        ids = _place(mesh, ids_host, _shard_rows(dist), torch.int32)
+        final_t = _segmented_fold(comp, names, mesh, arrays, ids, 1)
+        return {f: _host_result(final_t[f][0], schema.get(f))
+                for f in fetch_names}
+    rows_per = dist.padded_rows // S
+    full = n // rows_per          # shards whose rows are all valid
+    tail = n - full * rows_per    # valid rows in the boundary shard
+    dev0 = mesh.shard_devices()[0]
+    trace = current_trace()
+    t0 = (_trace_shards(trace, "dreduce_blocks", dist)
+          if trace is not None else 0.0)
+    with span("dreduce_blocks.generic_dispatch"):
+        parts = [_call(comp, {f + "_input": arrays[f].shards[s]
+                              for f in names}) for s in range(full)]
+        if tail:
+            parts.append(_call(comp, {f + "_input":
+                                      arrays[f].shards[full][:tail]
+                                      for f in names}))
+        final = _call(comp, {f + "_input": torch.stack(
+            [p[f].to(dev0) for p in parts]) for f in names})
+    counters.inc("mesh.dispatches")
+    if trace is not None:
+        _trace_done(trace, "dreduce_blocks", t0)
+    return {f: _host_result(final[f], schema.get(f)) for f in fetch_names}
+
+
+# ---------------------------------------------------------------------------
+# daggregate: group ids
+# ---------------------------------------------------------------------------
+
+_GROUP_IDS_CACHE_CAP = 8
+
+
+def _group_ids_cache_get(dist: DistributedFrame, ckey: tuple):
+    hit = dist._group_ids_cache.get(ckey)
+    if hit is not None:
+        dist._group_ids_cache.move_to_end(ckey)
+    return hit
+
+
+def _group_ids_cache_put(dist: DistributedFrame, ckey: tuple, hit: tuple):
+    dist._group_ids_cache[ckey] = hit
+    while len(dist._group_ids_cache) > _GROUP_IDS_CACHE_CAP:
+        dist._group_ids_cache.popitem(last=False)
+
+
+def _cached_group_ids(dist: DistributedFrame, keys, max_groups):
+    """Memoized key factorization (see ``DistributedFrame._group_ids_cache``).
+
+    Returns ``(ids, uniques, key_table, count_dev, num_groups)`` —
+    ``uniques`` is None on the device path, ``key_table``/``count_dev``
+    are None on the host path.
+    """
+    if max_groups is not None:
+        ckey = ("device", tuple(keys), max_groups)
+        hit = _group_ids_cache_get(dist, ckey)
+        if hit is None:
+            with span("daggregate.device_key_ids"):
+                hit = _device_key_ids(dist, keys, max_groups)
+            _group_ids_cache_put(dist, ckey, hit)
+        ids, key_table, count_dev, num_groups = hit
+        return ids, None, key_table, count_dev, num_groups
+    ckey = ("host", tuple(keys))
+    hit = _group_ids_cache_get(dist, ckey)
+    if hit is None:
+        hit = _host_group_ids(dist, keys)
+        _group_ids_cache_put(dist, ckey, hit)
+    ids, uniques, num_groups = hit
+    return ids, uniques, None, None, num_groups
+
+
+def _monoid_group_plan(dist: DistributedFrame, keys):
+    """Host-key group ids + the hot-key salt plan for a monoid
+    aggregation. Returns ``(ids, uniques, num_groups, salt_plan)``;
+    salting is cached per (frame, keys, threshold) like the ids."""
+    ids, uniques, _, _, num_groups = _cached_group_ids(dist, keys, None)
+    salt_plan = None
+    if dist.mesh.num_data_shards > 1:
+        frac = _elastic.salt_fraction()
+        if frac is not None:
+            skey = ("salt", tuple(keys), frac)
+            cached = _group_ids_cache_get(dist, skey)
+            if cached is None:
+                plan = _elastic.plan_key_salt(
+                    dist, ids.numpy(), num_groups,
+                    dist.mesh.num_data_shards)
+                if plan is not None:
+                    plan = (_place(dist.mesh, plan[0], _shard_rows(dist),
+                                   torch.int32),) + tuple(plan[1:])
+                cached = (plan,)
+                _group_ids_cache_put(dist, skey, cached)
+            salt_plan = cached[0]
+    return ids, uniques, num_groups, salt_plan
+
+
+def _host_group_ids(dist: DistributedFrame, keys):
+    """Key columns → dense group ids on the mesh (host factorization).
+
+    Only the scalar KEY columns visit the host; ids come back sharded with
+    pad rows marked ``-1`` (dropped by every consumer). Returns
+    ``(ids, uniques, num_groups)``.
+    """
+    schema = dist.schema
+    mask = dist.valid_row_mask()
+    key_host = []
+    for k in keys:
+        fld = schema[k]
+        a = dist.host_read_padded(k)
+        a = a[mask] if dist.shard_valid is not None else a[: dist.num_rows]
+        if a.ndim != 1:
+            raise _ops.InvalidTypeError(
+                f"Key column {k!r} must be scalar-typed")
+        if fld.dtype.tensor:
+            a = to_storage_dtype(a, fld.dtype)
+        key_host.append(a)
+    with span("aggregate.factorize_keys"):
+        fact = _ops._factorize_keys(key_host)
+    ids_padded = np.full(dist.padded_rows, -1, np.int32)  # -1: pad, dropped
+    if dist.shard_valid is not None:
+        ids_padded[mask] = fact.ids
+    else:
+        ids_padded[: dist.num_rows] = fact.ids
+    ids = _place(dist.mesh, ids_padded, _shard_rows(dist), torch.int32)
+    return ids, fact.uniques, fact.num_groups
+
+
+def _valid_dev(dist: DistributedFrame) -> ShardedArray:
+    """The valid-row mask, made on each shard's device: a shard's valid
+    rows are its first ``per_shard_valid()`` rows (a prefix frame's and a
+    ``dfilter`` result's alike), so no mask crosses from the host."""
+    counts = dist.per_shard_valid()
+    return ShardedArray([torch.arange(r, device=d) < int(c) for r, d, c in
+                         zip(_shard_rows(dist), dist.mesh.shard_devices(),
+                             counts)])
+
+
+def _device_group_ids(dist: DistributedFrame, key: str, max_groups: int,
+                      valid=None):
+    """Dense group ids computed ON THE DEVICES for one integer key column:
+    a sort-unique (``torch.unique`` with a static size cap) builds the
+    group table and a ``searchsorted`` maps rows to ids; the key column
+    never visits the host. Returns the raw ``(ids, uniques, count,
+    sentinel_hit)`` of :func:`_build_device_ids` — ids are ``-1`` for pad
+    rows; cap overflow and the sentinel flag are the CALLER's to read
+    back and raise on."""
+    kcol = dist.columns[key]
+    dtype = kcol.dtype if isinstance(kcol, ShardedArray) else None
+    if dtype is None or dtype.is_floating_point or dtype == torch.bool \
+            or dtype.is_complex:
+        shown = (str(dtype).replace("torch.", "") if dtype is not None
+                 else "a host-side (string) column")
+        raise _ops.InvalidTypeError(
+            f"device-side aggregation needs an integer key column; {key!r} "
+            f"is {shown} (use the host path)")
+    if valid is None:
+        valid = _valid_dev(dist)
+    return _build_device_ids(kcol, valid, max_groups)
+
+
+def _sentinel_check(sentinel_hit, key: str) -> None:
+    if bool(sentinel_hit):
+        raise _ops.InvalidTypeError(
+            f"key column {key!r} contains the dtype's max value, which the "
+            f"device path reserves as its pad sentinel; use the host path "
+            f"(max_groups=None) for such keys")
+
+
+def _build_device_ids(kc: ShardedArray, vm: ShardedArray, max_groups: int):
+    """Sort-unique group table + per-row dense ids. Each shard's masked
+    keys are uniqued where they lie; the shards' uniques meet on the first
+    shard's device, where one more unique makes the sorted table of
+    ``max_groups + 1`` slots (the sentinel, the key dtype's max, fills the
+    rest); every shard then ``searchsorted``s its keys into it."""
+    sentinel = torch.iinfo(kc.dtype).max
+    dev0 = kc.shards[0].device
+    masked = [torch.where(v, k, sentinel) for k, v in zip(kc.shards,
+                                                          vm.shards)]
+    sentinel_hit = torch.stack([(v & (k == sentinel)).any().to(dev0)
+                                for k, v in zip(kc.shards, vm.shards)]).any()
+    uniq_all = torch.unique(torch.cat([torch.unique(m).to(dev0)
+                                       for m in masked]))
+    uniq = torch.full((max_groups + 1,), sentinel, dtype=kc.dtype,
+                      device=dev0)
+    take = min(max_groups + 1, int(uniq_all.shape[0]))
+    uniq[:take] = uniq_all[:take]
+    count = (uniq != sentinel).sum()
+    ids = []
+    for m, v in zip(masked, vm.shards):
+        pos = torch.searchsorted(uniq.to(m.device), m).to(torch.int32)
+        ids.append(torch.where(v, pos, -1))
+    return ShardedArray(ids), uniq, count, sentinel_hit
+
+
+def _combine_ids(acc: ShardedArray, ids_k: ShardedArray,
+                 radix: int) -> ShardedArray:
+    """Mixed-radix combination of dense per-key ids (int32 throughout, as
+    the JAX package keeps it)."""
+    return ShardedArray([a * radix + b for a, b in zip(acc.shards,
+                                                       ids_k.shards)])
+
+
+def _device_key_ids(dist: DistributedFrame, keys, max_groups: int):
+    """Shared entry to the device-keys path (monoid + generic daggregate).
+
+    One key: sort-unique + searchsorted on the mesh (the key never visits
+    the host). Composite keys: each key column factorizes to dense ids the
+    same way, the ids combine into one mixed-radix int32 id space
+    (``radix = max_groups + 1`` per position), and one more sort-unique
+    over the combined ids yields the dense group table. ``(cap+1)^k`` must
+    stay below 2^31 (checked loudly; the host path has no cap).
+
+    Returns ``(ids, key_table, count_dev, table_groups)`` where
+    ``key_table`` carries what :func:`_device_key_columns` needs to
+    rebuild the key columns and ``table_groups`` is the static table size
+    (cap + sentinel slot)."""
+    if len(keys) == 1:
+        ids, uniq, count, sent = _device_group_ids(dist, keys[0],
+                                                   max_groups)
+        _sentinel_check(sent, keys[0])
+        return ids, ("single", uniq), count, max_groups + 1
+
+    radix = max_groups + 1
+    if radix ** len(keys) >= 2 ** 31 - 1:
+        raise ValueError(
+            f"max_groups={max_groups} with {len(keys)} key columns "
+            f"overflows the int32 combined-id space ((cap+1)^k must stay "
+            f"below 2^31); lower the cap or use the host path "
+            f"(max_groups=None)")
+    # one valid-mask upload serves every per-key program and the combine
+    valid = _valid_dev(dist)
+    per = [_device_group_ids(dist, k, max_groups, valid=valid)
+           for k in keys]
+    combined = None
+    for ids_k, _, _, _ in per:
+        combined = (ids_k if combined is None
+                    else _combine_ids(combined, ids_k, radix))
+    ids, uniq_c, count, _ = _build_device_ids(combined, valid, max_groups)
+    for k, (_, _, count_k, sent_k) in zip(keys, per):
+        _sentinel_check(sent_k, k)
+        if int(count_k) > max_groups:
+            # a truncated per-key table would silently merge distinct
+            # keys before the final overflow check could see them
+            raise ValueError(
+                f"more than max_groups={max_groups} distinct values in "
+                f"key column {k!r}; raise max_groups (the static table "
+                f"cap)")
+    per_uniq = [u for _, u, _, _ in per]
+    return ids, ("multi", uniq_c, per_uniq, radix), count, max_groups + 1
+
+
+def _device_key_columns(dist: DistributedFrame, keys, key_table,
+                        count_dev, max_groups: int):
+    """Overflow check + host materialization of the device group table(s).
+    Returns ``({key name: values}, num_groups)``."""
+    count = int(count_dev)
+    if count > max_groups:
+        raise ValueError(
+            f"more than max_groups={max_groups} distinct keys in "
+            f"{keys}; raise max_groups (the static table cap)")
+
+    def cast(vals, key):
+        return to_storage_dtype(vals, dist.schema[key].dtype)
+
+    if key_table[0] == "single":
+        return {keys[0]: cast(to_host(key_table[1])[:count], keys[0])}, count
+    _, uniq_c, per_uniq, radix = key_table
+    comb = to_host(uniq_c)[:count].astype(np.int64)
+    digits = []
+    for _ in keys:                       # least-significant digit first
+        digits.append(comb % radix)
+        comb = comb // radix
+    return {k: cast(to_host(per_uniq[i])[digits[len(keys) - 1 - i]], k)
+            for i, k in enumerate(keys)}, count
+
+
+# ---------------------------------------------------------------------------
+# daggregate
+# ---------------------------------------------------------------------------
+
+def daggregate(fetches, dist: DistributedFrame, keys,
+               max_groups: Optional[int] = None) -> TensorFrame:
+    """Mesh-distributed keyed aggregation.
+
+    Instead of moving rows between devices by key, each shard reduces its
+    LOCAL rows into a dense ``[groups, ...]`` table and the tables are
+    combined across the data axis. Only the scalar KEY columns visit the
+    host (to build dense group ids); the values never leave their shards.
+
+    - ``fetches`` is a mapping ``{column: combiner-name}`` (sum/min/max/
+      prod): one segment reduce per shard and column (float sums through
+      the ``segment_sum`` kernel on a card) + the combiner's collective;
+    - ``fetches`` is a computation (block-level ``<col>_input`` reduce):
+      per shard, a sort by group id and a segmented scan whose pair
+      combiner IS the user computation on two-row blocks, segment tails
+      scattered into a ``[groups, ...]`` table, then a fold of the shards'
+      tables with the same combiner, masked by presence. Combine order is
+      unspecified (the computation must tolerate arbitrary regrouping).
+
+    ``keys``: key column name or list of names. Returns a host
+    :class:`TensorFrame` of one row per group (keys + fetches, fetches
+    sorted by name), groups in key order.
+
+    ``max_groups``: DEVICE-side group ids for integer key(s): the key
+    columns never visit the host. The value caps the static group table;
+    exceeding it raises. Composite keys combine per-key dense ids in a
+    mixed-radix int32 space, which bounds the cap at ``(cap+1)^k < 2^31``.
+
+    Skew: on the monoid host-key path, a key group holding more than
+    ``TFT_HOT_KEY_FRACTION`` of the rows is **salted** across the data
+    shards (``elastic.py``); per-salt partials fold back on the host, so
+    results keep the same groups and order (float sums may reassociate).
+    """
+    if isinstance(keys, str):
+        keys = [keys]
+    keys = list(keys)
+    if not keys:
+        raise ValueError("daggregate needs at least one key column")
+    _check_executor()
+    return _daggregate_eager(fetches, dist, keys, max_groups)
+
+
+@traced_query("daggregate", _meta_daggregate)
+def _daggregate_eager(fetches, dist: DistributedFrame, keys,
+                      max_groups: Optional[int] = None) -> TensorFrame:
+    return _daggregate(fetches, dist, keys, max_groups)
+
+
+def _shuffle_route(num_groups: int, mesh: DeviceMesh) -> bool:
+    """The JAX package's high-cardinality auto-route
+    (``TFT_SHUFFLE_AGG_GROUPS``, default 131072; ``TFT_SHUFFLE``)."""
+    thr = env_int("TFT_SHUFFLE_AGG_GROUPS", 1 << 17)
+    return (bool(thr) and thr > 0 and env_bool("TFT_SHUFFLE", True)
+            and num_groups > thr and mesh.num_data_shards > 1)
+
+
+def _shard_table(cname: str, v: torch.Tensor, ids: torch.Tensor,
+                 groups: int) -> torch.Tensor:
+    """One shard's ``[groups, ...]`` table: ``segment_sum`` for a sum (rows
+    whose id is outside ``[0, groups)`` dropped), else a segment min/max/
+    prod with those rows masked to the combiner's neutral element."""
+    ids = ids.to(v.device)
+    if cname != "sum":
+        valid = (ids >= 0) & (ids < groups)
+        neutral = torch.tensor(COMBINERS[cname].neutral(v.dtype),
+                               dtype=v.dtype, device=v.device)
+        v = torch.where(valid.reshape((-1,) + (1,) * (v.dim() - 1)),
+                        v, neutral)
+        ids = torch.where(valid, ids, 0)
+    return _ops._segment_reduce(cname, v, ids, groups)
+
+
+def _monoid_agg_result(schema: Schema, keys, fetch_names, tables,
+                       key_cols, num_out: int) -> TensorFrame:
+    """Host assembly of a monoid aggregation's result frame (key
+    columns + sliced/cast fetch tables)."""
+    cols = dict(key_cols)
+    for f, t in zip(fetch_names, tables):
+        cols[f] = to_storage_dtype(np.asarray(t)[:num_out], schema[f].dtype)
+    out_fields = [schema[k] for k in keys] + [
+        Field(f, schema[f].dtype,
+              block_shape=(schema[f].block_shape.with_lead(Unknown)
+                           if schema[f].block_shape is not None else None),
+              sql_rank=schema[f].sql_rank)
+        for f in fetch_names]
+    return TensorFrame.from_blocks([Block(cols, num_out)],
+                                   Schema(out_fields))
+
+
+def _daggregate(fetches, dist: DistributedFrame, keys,
+                max_groups: Optional[int]) -> TensorFrame:
+    schema = dist.schema
+    for k in keys:
+        if k not in schema:
+            raise KeyError(f"No key column {k!r}; columns: {schema.names}")
+    if not _ops._monoid_mapping(fetches):
+        return _generic_daggregate(fetches, dist, keys,
+                                   max_groups=max_groups)
+    if any(_ops._is_sketch(v) for v in fetches.values()):
+        raise _later("sketch combiners in daggregate (_daggregate_sketch)")
+    col_combiners = fetches
+    mesh = dist.mesh
+    value_names = [n for n in schema.names if n not in keys]
+    _ops._validate_monoid_fetches(col_combiners, value_names,
+                                  "before distribute()")
+    if dist.num_rows == 0:
+        raise ValueError("aggregate on an empty distributed frame")
+
+    device_keys = max_groups is not None
+    if device_keys:
+        ids, uniques, key_table, count_dev, num_groups = \
+            _cached_group_ids(dist, keys, max_groups)
+        salt_plan = None
+    else:
+        ids, uniques, num_groups, salt_plan = _monoid_group_plan(dist, keys)
+        # high-cardinality keys: the JAX package hash-repartitions so that
+        # each device aggregates only its own key range
+        if _shuffle_route(num_groups, mesh):
+            raise _later(
+                f"daggregate's shuffle route ({num_groups} groups over "
+                f"TFT_SHUFFLE_AGG_GROUPS; parallel/exchange.py)")
+    if salt_plan is not None:
+        prog_ids, prog_groups = salt_plan[0], salt_plan[1]
+    else:
+        prog_ids, prog_groups = ids, num_groups
+
+    fetch_names = sorted(col_combiners)
+    trace = current_trace()
+    t0 = 0.0
+    if trace is not None:
+        t0 = _trace_shards(trace, "daggregate", dist)
+        for f in fetch_names:
+            trace.add("collective", name=COMBINERS[col_combiners[f]].ici,
+                      ts=t0, column=f, op="daggregate")
+    tables = []
+    with span("daggregate.dispatch"):
+        for f in fetch_names:
+            cname = col_combiners[f]
+            parts = [_shard_table(cname, v, i, prog_groups)
+                     for v, i in zip(dist.columns[f].shards,
+                                     prog_ids.shards)]
+            tables.append(to_host(COMBINERS[cname].collective(parts)))
+    if trace is not None:
+        _trace_done(trace, "daggregate", t0)
+    counters.inc("mesh.dispatches")
+
+    if salt_plan is not None:
+        tables = [_elastic.fold_salted(t, salt_plan[2], col_combiners[f])
+                  for f, t in zip(fetch_names, tables)]
+    if device_keys:
+        key_cols, num_out = _device_key_columns(dist, keys, key_table,
+                                                count_dev, max_groups)
+    else:
+        key_cols = {k: u for k, u in zip(keys, uniques)}
+        num_out = num_groups
+    out = _monoid_agg_result(schema, keys, fetch_names, tables,
+                             key_cols, num_out)
+    if salt_plan is not None:
+        attach_hot_keys(out, keys, uniques, salt_plan)
+    return out
+
+
+def attach_hot_keys(frame: TensorFrame, keys, uniques, salt_plan) -> None:
+    """Record the hot-key OBSERVATIONS that triggered salting on the
+    result frame (``frame.hot_keys()`` and an ``explain()`` line)."""
+    hot, K = salt_plan[2]
+    fracs = salt_plan[3] if len(salt_plan) > 3 else None
+    records = []
+    for j, g in enumerate(hot):
+        kv = {}
+        for k, u in zip(keys, uniques):
+            v = u[int(g)]
+            kv[k] = v.item() if hasattr(v, "item") else v
+        records.append({
+            "keys": kv,
+            "fraction": (float(fracs[j]) if fracs is not None else None),
+            "salt_slots": int(K),
+        })
+    frame._hot_keys = records
+
+
+def _segmented_fold(comp, names, mesh: DeviceMesh, arrays, ids: ShardedArray,
+                    G: int) -> Dict[str, torch.Tensor]:
+    """Per-group fold of an arbitrary reduce computation on the mesh.
+
+    ``ids``: sharded dense group ids (int32, ``-1`` for pad rows). Per
+    shard: stable sort by id, a segmented scan whose operator applies
+    ``comp`` to a stacked two-row block when both elements share an id
+    (``engine/ops.py``'s fold pieces), segment tails scattered into a
+    ``[G, ...]`` table + presence mask; the shards' tables are folded
+    pairwise with the same combiner on the first shard's device, and
+    ``comp`` is applied once more over each group's one-row block
+    (at-least-once parity with the host ``CompactionBuffer.evaluate``).
+    Returns ``{fetch: [G, ...cell]}`` on the first shard's device. A
+    program ``torch.func.vmap`` cannot batch raises
+    :class:`~..engine.ops.FoldBatchingError`.
+    """
+    pair_v, single_v, op = _ops._fold_functions(comp, names)
+    dev0 = mesh.shard_devices()[0]
+    tabs, present = [], []
+    trace = current_trace()
+    t0 = trace.clock() if trace is not None else 0.0
+    with span("daggregate.segmented_fold_dispatch"), torch.no_grad():
+        for s, ids_local in enumerate(ids.shards):
+            vals = {f: arrays[f].shards[s] for f in names}
+            dev = ids_local.device
+            # pad rows (-1) sort to the end as group G and are dropped
+            sort_ids = torch.where((ids_local < 0) | (ids_local >= G), G,
+                                   ids_local).long()
+            order = torch.argsort(sort_ids, stable=True)
+            sid = sort_ids[order]
+            _, scanned = _ops._segmented_scan(
+                op, sid, {f: v[order.to(v.device)] for f, v in vals.items()})
+            tail = torch.ones_like(sid, dtype=torch.bool)
+            tail[:-1] = sid[1:] != sid[:-1]
+            keep = tail & (sid < G)
+            target = sid[keep]
+            table = {}
+            for f in names:
+                z = torch.zeros((G,) + tuple(scanned[f].shape[1:]),
+                                dtype=scanned[f].dtype, device=dev)
+                z[target] = scanned[f][keep]
+                table[f] = z.to(dev0)
+            p = torch.zeros((G,), dtype=torch.bool, device=dev)
+            p[target] = True
+            tabs.append(table)
+            present.append(p.to(dev0))
+        acc, acc_p = tabs[0], present[0]
+        for s in range(1, len(tabs)):
+            comb = _ops._fold_call(pair_v, comp, acc, tabs[s])
+            both = acc_p & present[s]
+            nxt = {}
+            for f in names:
+                shape = (-1,) + (1,) * (acc[f].dim() - 1)
+                nxt[f] = torch.where(both.reshape(shape), comb[f],
+                                     torch.where(present[s].reshape(shape),
+                                                 tabs[s][f], acc[f]))
+            acc, acc_p = nxt, acc_p | present[s]
+        # at-least-once application of the computation (host parity for
+        # single-row groups, where the scan never ran the combiner)
+        out = _ops._fold_call(single_v, comp, acc)
+    counters.inc("mesh.dispatches")
+    if trace is not None:
+        _trace_done(trace, "daggregate", t0)
+    return {f: out[f] for f in names}
+
+
+def _generic_daggregate(fetches, dist: DistributedFrame, keys,
+                        max_groups: Optional[int] = None) -> TensorFrame:
+    """Arbitrary-computation keyed aggregation on the mesh: the segmented
+    fold of every shard's groups and a fold of the shards' tables
+    (:func:`_segmented_fold`), group ids from the host or, with
+    ``max_groups``, from the devices."""
+    schema = dist.schema
+    mesh = dist.mesh
+    if dist.num_rows == 0:
+        raise ValueError("aggregate on an empty distributed frame")
+    value_schema = schema.select([m for m in schema.names if m not in keys])
+    comp = _ops.cached_reduce_computation(fetches, value_schema,
+                                          ("_input",), block_level=True)
+    _ops._validate_reduce(comp, value_schema, ("_input",), rank_delta=1)
+    names = sorted(comp.output_names)
+    ids, uniques, key_table, count_dev, table_groups = _cached_group_ids(
+        dist, keys, max_groups)
+    final = _segmented_fold(comp, names, mesh,
+                            {f: dist.columns[f] for f in names},
+                            ids, table_groups)
+    if max_groups is not None:
+        cols, num_groups = _device_key_columns(dist, keys, key_table,
+                                               count_dev, max_groups)
+    else:
+        num_groups = table_groups
+        cols = {k: u for k, u in zip(keys, uniques)}
+    for f in names:
+        cols[f] = to_storage_dtype(to_host(final[f])[:num_groups],
+                                   schema[f].dtype)
+    out_fields = [schema[k] for k in keys] + [
+        Field(s.name, s.dtype, block_shape=s.shape.prepend(Unknown),
+              sql_rank=s.shape.ndim)
+        for s in comp.outputs]
+    return TensorFrame.from_blocks([Block(cols, num_groups)],
+                                   Schema(out_fields))

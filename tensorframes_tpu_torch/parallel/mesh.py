@@ -1,0 +1,126 @@
+"""Device meshes for the single-controller parallel layer.
+
+The port's counterpart of ``tensorframes_tpu/parallel/mesh.py``. As in the
+JAX package, one process drives every device of a mesh: a
+:class:`DeviceMesh` is an array of ``torch.device`` objects with named
+axes, and the default 1-axis ``data`` mesh is pure data parallelism (a
+shard of every column on each device of the data axis). Multi-process
+meshes (``torch.distributed`` with NCCL, the counterpart of the JAX
+package's ``cluster.initialize``) are ``ROADMAP.md`` A item 7b.
+
+:func:`local_mesh` enumerates the cards ``torch.cuda.device_count()``
+reports when the package's default device is CUDA (one H100: a 1-shard
+mesh). When the default device is the CPU it enumerates logical CPU
+shards, each ``torch.device("cpu")``: ``TFT_CPU_DEVICE_COUNT`` of them
+(default 1), the counterpart of the JAX package's
+``--xla_force_host_platform_device_count``, so the tests build the JAX
+package's 8-device meshes. An explicit :class:`DeviceMesh` may name one
+device more than once (8 logical shards on one card); ``local_mesh``
+never repeats a card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import default_device
+from ..utils.env import env_int
+
+__all__ = ["DeviceMesh", "local_mesh"]
+
+
+class DeviceMesh:
+    """Named axes over an array of ``torch.device`` objects; the data axis
+    shards the rows of a distributed frame."""
+
+    def __init__(self, devices, axis_names: Sequence[str] = ("data",),
+                 data_axis: str = "data"):
+        arr = np.empty(np.shape(devices), dtype=object)
+        flat = [torch.device(d) for d in np.asarray(devices,
+                                                    dtype=object).flat]
+        arr.reshape(-1)[:] = flat
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        if arr.ndim != len(self.axis_names):
+            raise ValueError(
+                f"devices of shape {arr.shape} do not match axes "
+                f"{self.axis_names}")
+        self.devices = arr
+        self.data_axis = data_axis
+        if data_axis not in self.axis_names:
+            raise ValueError(
+                f"Mesh has axes {self.axis_names}; no {data_axis!r} axis")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def num_data_shards(self) -> int:
+        return self.shape[self.data_axis]
+
+    @property
+    def num_devices(self) -> int:
+        return int(self.devices.size)
+
+    def shard_devices(self) -> List[torch.device]:
+        """The device of each data shard, in shard order: the first device
+        along every other axis (a shard is replicated over those)."""
+        axis = self.axis_names.index(self.data_axis)
+        moved = np.moveaxis(self.devices, axis, 0)
+        return list(moved.reshape(moved.shape[0], -1)[:, 0])
+
+    def __repr__(self):
+        return f"DeviceMesh({self.shape}, data_axis={self.data_axis!r})"
+
+
+def _visible_devices() -> List[torch.device]:
+    """The cards when the default device is CUDA, else the logical CPU
+    shards (``TFT_CPU_DEVICE_COUNT``, default 1)."""
+    if default_device().type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")] * max(env_int("TFT_CPU_DEVICE_COUNT", 1), 1)
+
+
+def local_mesh(num_devices: Optional[int] = None,
+               axis_names: Sequence[str] = ("data",),
+               shape: Optional[Sequence[int]] = None) -> DeviceMesh:
+    """Build a mesh over the locally visible devices.
+
+    One card gives a 1-device mesh (the degenerate case every op still
+    runs through); 8 logical CPU shards (tests) give the 8-way data mesh
+    of the JAX package's tests.
+    """
+    devices = _visible_devices()
+    if num_devices is not None:
+        if num_devices < 1:
+            raise ValueError(
+                f"num_devices must be >= 1, got {num_devices}")
+        if num_devices > len(devices):
+            raise ValueError(
+                f"local_mesh(num_devices={num_devices}) asked for more "
+                f"devices than the {len(devices)} visible; lower "
+                f"num_devices (or add devices, e.g. TFT_CPU_DEVICE_COUNT "
+                f"on CPU)")
+        devices = devices[:num_devices]
+    n = len(devices)
+    if shape is None:
+        shape = (n,) + (1,) * (len(axis_names) - 1)
+    if int(np.prod(shape)) != n:
+        # validate against what the CALLER asked for: naming only the
+        # visible device count when num_devices was given is misleading
+        if num_devices is not None:
+            raise ValueError(
+                f"Mesh shape {tuple(shape)} covers {int(np.prod(shape))} "
+                f"device(s) but num_devices={num_devices} was requested "
+                f"— make the shape's product equal num_devices")
+        raise ValueError(
+            f"Mesh shape {tuple(shape)} covers {int(np.prod(shape))} "
+            f"device(s) but {n} are visible")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices
+    return DeviceMesh(arr.reshape(tuple(shape)), tuple(axis_names),
+                      data_axis=axis_names[0])

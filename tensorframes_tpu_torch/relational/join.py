@@ -607,7 +607,7 @@ def _left_rows_hint(left: TensorFrame):
 def _mesh_unavailable(what: str):
     return NotImplementedError(
         f"{what} runs on a device mesh, which needs the parallel layer "
-        f"(ROADMAP A10) that tensorframes_tpu_torch does not have yet; "
+        f"(ROADMAP A item 7b) that tensorframes_tpu_torch does not have yet; "
         f"pass mesh=None")
 
 

@@ -43,7 +43,7 @@ Without a window the aggregation runs in **update mode**: one state
 table, and each batch emits the updated rows of the keys it touched.
 
 Not in this package yet: ``mesh=`` folds over more than one data shard
-(the parallel layer's ``mesh_segment_partial``, ``ROADMAP.md`` A10) raise
+(the parallel layer's ``mesh_segment_partial``, ``ROADMAP.md`` A item 7b) raise
 ``NotImplementedError``.
 """
 
@@ -284,7 +284,7 @@ def _mesh_guard(mesh) -> None:
         raise NotImplementedError(
             "a streaming aggregate over a device mesh folds each batch "
             "through the parallel layer (plan/dist.mesh_segment_partial, "
-            "ROADMAP A10), which tensorframes_tpu_torch does not have yet; "
+            "ROADMAP A item 7b), which tensorframes_tpu_torch does not have yet; "
             "pass mesh=None")
 
 

@@ -1345,3 +1345,48 @@ def test_fabric_resumes_a_lost_workers_aggregate_on_the_card(
     adaptive.invalidate_results()
     gc.collect()
     assert torch.cuda.memory_allocated() == mem0
+
+
+# -- the parallel layer on the card ------------------------------------------
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_mesh_ops_on_the_card_launch_b1_on_every_shard(cuda, shards):
+    """``distribute`` -> ``dfilter`` -> ``dreduce_blocks`` ->
+    ``daggregate`` (host keys and device keys) over ``shards`` logical
+    shards of the card: B1 launches once per shard and float sum column,
+    and every result equals the same ops over CPU shards (f64 to rtol
+    1e-12, f32 to 1e-5, min and integer results exactly)."""
+    from tensorframes_tpu_torch import native, parallel
+
+    assert native.available()
+    rng = np.random.default_rng(17)
+    n = 100_003
+    df = ttf.frame({"k": rng.integers(-50, 5_000, n), "x": rng.random(n),
+                    "v": rng.random((n, 3)).astype(np.float32),
+                    "c": rng.integers(0, 9, n)}, num_partitions=3)
+
+    def mesh_of(device):
+        return parallel.DeviceMesh(np.array([device] * shards, dtype=object))
+
+    results = {}
+    for where, device in (("card", cuda), ("cpu", torch.device("cpu"))):
+        dist = parallel.distribute(df, mesh_of(device))
+        flt = parallel.dfilter(lambda x: x > 0.1, dist)
+        out = {"min": parallel.dreduce_blocks({"x": "min"},
+                                              flt.select(["x"]))["x"]}
+        for max_groups in (None, 8_192):
+            l0 = segment_reduce.launches
+            agg = parallel.daggregate({"x": "sum", "v": "sum", "c": "sum"},
+                                      flt, "k", max_groups=max_groups)
+            out[max_groups] = agg.blocks()[0].columns
+            if where == "card":
+                assert segment_reduce.launches - l0 == 2 * shards
+        results[where] = out
+    card, cpu = results["card"], results["cpu"]
+    assert float(card["min"]) == float(cpu["min"])
+    for max_groups in (None, 8_192):
+        a, b = card[max_groups], cpu[max_groups]
+        np.testing.assert_array_equal(a["k"], b["k"])
+        np.testing.assert_array_equal(a["c"], b["c"])
+        np.testing.assert_allclose(a["x"], b["x"], rtol=1e-12)
+        np.testing.assert_allclose(a["v"], b["v"], rtol=1e-5)

@@ -91,6 +91,40 @@ def test_kmeans_converges_to_true_centers(km_data):
     np.testing.assert_allclose(centers, j_centers, rtol=RTOL)
 
 
+@pytest.mark.parametrize("shards", [8, 1])
+@pytest.mark.parametrize("variant", ["device_resident", "daggregate"])
+def test_kmeans_mesh_step_matches_numpy_and_the_jax_package(
+        km_data, variant, shards, monkeypatch):
+    """Variants C and D on a distributed frame: the port on ``shards``
+    logical CPU shards, the JAX package on its 8 virtual devices."""
+    from tensorframes_tpu.parallel import distribute as jdistribute
+    from tensorframes_tpu.parallel import local_mesh as jlocal_mesh
+    from tensorframes_tpu_torch.parallel import distribute, local_mesh
+
+    (df, init, _), (jdf, _, _) = km_data
+    monkeypatch.setenv("TFT_CPU_DEVICE_COUNT", str(shards))
+    dist = distribute(df, local_mesh())
+    assert dist.mesh.num_data_shards == shards
+    pts = np.concatenate([b.dense("features") for b in df.blocks()])
+    step = getattr(km, f"step_{variant}")
+    got_c, got_d = step(dist, init)
+    want_c, want_d = _numpy_step(pts, init)
+    np.testing.assert_allclose(got_c, want_c, rtol=1e-5)
+    assert got_d == pytest.approx(want_d, rel=1e-5)
+    j_c, j_d = getattr(jkm, f"step_{variant}")(
+        jdistribute(jdf, jlocal_mesh()), init)
+    np.testing.assert_allclose(got_c, j_c, rtol=RTOL)
+    assert got_d == pytest.approx(j_d, rel=RTOL)
+    # and the driver loop converges alike
+    centers, history = km.kmeans(dist, init, num_iters=30, step=step)
+    j_centers, j_history = jkm.kmeans(jdistribute(jdf, jlocal_mesh()), init,
+                                      num_iters=30, step=getattr(
+                                          jkm, f"step_{variant}"))
+    assert len(history) == len(j_history)
+    np.testing.assert_allclose(history, j_history, rtol=RTOL)
+    np.testing.assert_allclose(centers, j_centers, rtol=RTOL)
+
+
 # -- harmonic / geometric mean ----------------------------------------------
 
 def _keys_and_x(df):

@@ -156,7 +156,9 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "stream/runtime.py", "stream/sink.py", "builder.py",
             "serve/__init__.py", "serve/cache.py", "plan/adaptive.py",
             "demos/__init__.py", "demos/kmeans.py", "demos/geom_mean.py",
-            "demos/groupby_scratch.py"} <= names
+            "demos/groupby_scratch.py", "native.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/collectives.py",
+            "parallel/elastic.py", "parallel/distributed.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):
@@ -181,6 +183,17 @@ def test_demos_and_adaptive_run_without_jax():
         "for step in (kmeans.step_aggregate, kmeans.step_preaggregate):\n"
         "    c, d = step(df, init)\n"
         "    assert c.shape == (2, 2) and d > 0\n"
+        "import os\n"
+        "os.environ['TFT_CPU_DEVICE_COUNT'] = '4'\n"
+        "from tensorframes_tpu_torch import native, parallel\n"
+        "dist = parallel.distribute(df, parallel.local_mesh())\n"
+        "assert dist.mesh.num_data_shards == 4\n"
+        "for step in (kmeans.step_device_resident, kmeans.step_daggregate):\n"
+        "    c, d = step(dist, init)\n"
+        "    assert c.shape == (2, 2) and d > 0\n"
+        "import numpy as np\n"
+        "a = np.arange(100_000)\n"
+        "assert (native.convert(a, np.float32) == a).all()\n"
         "assert len(geom_mean.geometric_mean_per_key(\n"
         "    geom_mean.make_data(n=9)).collect()) == 3\n"
         "assert len(groupby_scratch.groupby_sum()) == 2\n"
@@ -191,6 +204,25 @@ def test_demos_and_adaptive_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_no_port_file_names_the_jax_packages_native_directory():
+    """The port builds its host runtime from its own ``csrc/`` and never
+    reads ``native/``, which belongs to the JAX package."""
+    import re
+
+    files = [f for f in sorted(PORT.rglob("*")) if f.is_file()
+             and f.suffix in (".py", ".cpp", ".cu", ".h")]
+    files.append(ROOT / "chip_smoke.py")
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if re.search(r"\bnative/", f.read_text())]
+    assert not offenders, offenders
+    from tensorframes_tpu_torch import native
+    from tensorframes_tpu_torch.ops import _build
+    if native.available():
+        loaded = Path(native._load()._name).resolve()
+        assert loaded.parent == _build.BUILD_DIR.resolve(), loaded
+        assert loaded.name.startswith("libhost_runtime-")
 
 
 def test_first_dispatch_raises_without_gpu(monkeypatch):

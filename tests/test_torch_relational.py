@@ -19,8 +19,8 @@ spillable ledger entry; both packages are held to the same rows and the
 same ``relational.build_chunks`` / ``memory.*`` counters.
 
 Not mirrored here yet: the ``mesh8`` cases (mesh sort-merge, device loss,
-external sort, partitioned joins, ``daggregate`` sketches, hot keys of a
-salted ``daggregate``) wait for the parallel layer (ROADMAP A10); the
+external sort, partitioned joins, ``daggregate`` sketches) wait for the
+rest of the parallel layer (ROADMAP A item 7b); the
 stream join and the stream sketch fold for the stream layer (A9).
 """
 
@@ -469,7 +469,7 @@ class TestChunkedBuild:
 
 
 # ---------------------------------------------------------------------------
-# sort-merge join (host order_by; the mesh variant waits for A10)
+# sort-merge join (host order_by; the mesh variant waits for A item 7b)
 # ---------------------------------------------------------------------------
 
 def _smj_oracle(left, right, on, how, indicator=None):
@@ -536,11 +536,11 @@ class TestSortMergeJoin:
     def test_a_mesh_is_not_ported_yet(self):
         left = ttf.frame(_left_cols())
         right = ttf.frame(_right_unique_cols())
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
             trel.sort_merge_join(left, right, on="k", mesh=object())
         with pytest.raises(ValueError, match="needs a mesh"):
             trel.partitioned_hash_join(left, right, on="k")
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
             trel.partitioned_hash_join(left, right, on="k", mesh=object())
 
 
@@ -567,7 +567,7 @@ class TestRouting:
                              [None, "broadcast", "sort_merge", "partitioned"])
     def test_a_mesh_is_not_ported_yet(self, strategy):
         left = ttf.frame(_left_cols())
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
             trel.join(left, ttf.frame(_right_unique_cols()), on="k",
                       strategy=strategy, mesh=object())
 
@@ -838,10 +838,38 @@ def test_sketch_fold_counts_and_span():
 
 
 # ---------------------------------------------------------------------------
-# hot keys: no salted daggregate in the port yet
+# hot keys: the observations of a salted daggregate
 # ---------------------------------------------------------------------------
 
 class TestHotKeys:
+    def test_hot_keys_surface_and_explain(self, monkeypatch):
+        from tensorframes_tpu import parallel as jpar
+        from tensorframes_tpu_torch import parallel as tpar
+
+        monkeypatch.setenv("TFT_HOT_KEY_FRACTION", "0.5")
+        monkeypatch.setenv("TFT_CPU_DEVICE_COUNT", "8")
+        rng = np.random.default_rng(13)
+        k = np.concatenate([np.full(800, 7),
+                            rng.integers(0, 5, 200)]).astype(np.int64)
+        cols = {"k": k, "v": np.arange(1000, dtype=np.int64)}
+        prev = ttf.default_device()
+        ttf.set_default_device("cpu")
+        try:
+            out = tpar.daggregate({"v": "sum"}, tpar.distribute(
+                ttf.frame(cols), tpar.local_mesh(8)), "k")
+            report = out.explain()
+        finally:
+            ttf.set_default_device(prev)
+        jout = jpar.daggregate({"v": "sum"}, jpar.distribute(
+            jtf.frame(cols), jpar.local_mesh(8)), "k")
+        hot = out.hot_keys()
+        assert hot == jout.hot_keys()
+        assert len(hot) == 1 and hot[0]["keys"] == {"k": 7}
+        assert 0.7 <= hot[0]["fraction"] <= 0.9
+        assert hot[0]["salt_slots"] == 8
+        assert "hot key" in report and "k=7" in report
+        assert_frames_match(jout, out)
+
     def test_no_salting_no_hot_keys(self):
         cols = {"k": np.arange(20, dtype=np.int64), "v": np.arange(20.0)}
         jo, to = _agg_both(cols, lambda rel: {"v": "sum"}, parts=1,

@@ -1086,7 +1086,7 @@ class TestWaitsForLaterLayers:
     def test_mesh_fold_raises_and_one_shard_does_not(self):
         g = tstream.from_source(
             tstream.GeneratorSource(_batches(2))).group_by("k")
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
             g.aggregate({"v": "sum"}, mesh=SimpleNamespace(
                 num_data_shards=2))
         h = g.aggregate({"v": "sum"},

@@ -188,20 +188,20 @@ def test_init_state_draws_or_takes_parameters():
 def test_multi_device_mesh_and_mesh_axes_raise():
     model = TransformerLM(TransformerConfig(**CFG), device="cpu")
     two = [torch.device("cpu"), torch.device("cpu")]
-    # the port has no mesh type until A10: the JAX package's mesh, of one
+    # the port's train step takes no mesh type until A item 7b: the JAX package's mesh, of one
     # device or more, is refused like a mesh of two devices
     jax_meshes = [DeviceMesh(Mesh(np.array(jax.devices()[:n]), ("data",)),
                              data_axis="data") for n in (1, 2)]
     assert port_transformer.mesh_size(two) == 2
     for mesh in [two] + jax_meshes:
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
             model.make_sharded_train_step(mesh)
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
             LogisticRegression(4, device="cpu").make_sharded_train_step(mesh)
     for axis in ("model_axis", "seq_axis", "expert_axis"):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
             model.make_sharded_train_step(None, **{axis: "x"})
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A item 7b"):
         model.make_pipelined_train_step(two)
     assert port_transformer.mesh_size(None) == 1
     assert port_transformer.mesh_size((torch.device("cpu"),)) == 1
