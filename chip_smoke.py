@@ -33,6 +33,19 @@ paths through its public entry points and checks every result:
    host keys bit-equal to device keys, segment_sum launched once per shard and
    sum column, the ``aggregate.factorize_keys`` span against the device-key
    id build (``daggregate.device_key_ids``);
+2d. the shuffle (``shuffle_20M``): phase 2's 20M rows on both meshes of
+   2c: ``dsort`` by ``key`` ascending and by (``key``, ``x``) descending,
+   bit-equal to numpy's stable lexsort; the first under a 256 MiB ledger
+   through the external sort (5 runs), bit-equal; ``daggregate({"v":
+   "sum", "c": "max"})`` over 2,000,000 distinct keys (routed through
+   ``shuffle_daggregate`` on 8 shards, the dense route under
+   ``TFT_SHUFFLE=0`` and on one shard) against numpy, and an HLL by a
+   100-valued key through the sketch route, bit-equal to ``aggregate``;
+   ``join(mesh=8 shards)`` of 6M of the rows (cut from 20M) against a
+   4M-row build (96 MB, over the 64 MiB broadcast limit): routed
+   ``partitioned`` and bit-identical to ``broadcast_join``, routed
+   ``sort_merge`` under ``TFT_SHUFFLE=0`` and on one shard, with the same
+   rows in key order; one JSON line a part;
 3. the k-means centre update: ``aggregate({"f": "sum"})`` over a 2M x 64
    f32 vector column grouped by 1,024 keys, against numpy f64 to rtol 1e-5;
 3b. the lazy query path from a file: the 20M-row workload written with
@@ -599,6 +612,312 @@ def phase_mesh_reference_workload(ttf, np, torch, segment_reduce,
                                 "hot_keys": hot_keys}
         out[name] = res
         del dist, z, flt, sel, agg, pdist, hdist
+    return out
+
+
+def host_cols(np, frame) -> dict:
+    """A host frame's columns, each concatenated over its blocks."""
+    blocks = frame.blocks()
+    return {n: np.concatenate([np.asarray(b.columns[n]) for b in blocks])
+            for n in frame.schema.names}
+
+
+def span_total(tracing, name) -> float:
+    return tracing.timings.snapshot().get(name, {}).get("total_s", 0.0)
+
+
+def timed(torch, fn):
+    """``fn()`` and its wall in seconds, the card synchronized."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(counters, names, fn):
+    """``fn()`` and how much each named counter rose while it ran."""
+    before = {k: counters.get(k) for k in names}
+    out = fn()
+    return out, {k: counters.get(k) - before[k] for k in names}
+
+
+def phase_shuffle(ttf, np, torch, segment_reduce, n=20_000_000, parts=8,
+                  keys=100_000, groups=2_000_000, users=1_000_000,
+                  sketch_keys=100, build_rows=4_000_000,
+                  probe_rows=6_000_000,
+                  shards=8, sort_limit=256 << 20, device="cuda") -> dict:
+    """The shuffle (phase 2d, ``shuffle_20M``) at the reference workload's
+    size (``PerformanceSuite.scala:14-26``: 20M f64 rows in 8 partitions,
+    320 MB of tensor columns) on ``local_mesh()`` and on ``shards`` logical
+    shards of the one card:
+
+    (a) ``dsort`` by ``key`` (int64 over ``keys`` values) ascending, then
+        by (``key``, ``x``) descending, each order bit-equal to numpy's
+        stable lexsort and the two meshes bit-equal;
+    (b) (a)'s first sort under a ledger of ``sort_limit`` bytes
+        (``memory.configure``): the external sort, a run a quarter of the
+        budget, bit-equal to (a);
+    (c) ``daggregate({"v": "sum", "c": "max"})`` keyed over ``groups``
+        distinct int64 values: on the shards it routes through
+        ``shuffle_daggregate``; again under ``TFT_SHUFFLE=0`` (the dense
+        route, a ``[groups]`` table on every shard) and on one shard; max
+        equal and sums to rtol 1e-12 of numpy's; a ``dexchange`` of 2M of
+        the keys, each row on the shard of its host hash; the sketch route,
+        ``{"u": approx_distinct(bits=10), "v": "sum"}`` of a user column
+        by a ``sketch_keys``-valued key, bit-equal to the one-device
+        ``aggregate``;
+    (d) ``join(probe, build, mesh=shards)`` of ``probe_rows`` probe rows
+        (the first of the ``n``; 6M, SSB SF 1's lineorder, the cut the
+        phase's time asks for: PERF.md, shuffle_20M) against ``build_rows`` unique keys with two f64
+        columns (96 MB at 4M, over the 64 MiB broadcast limit): routed
+        ``partitioned``, bit-identical to ``broadcast_join``, a shard's
+        build about 1/``shards`` of the whole; under ``TFT_SHUFFLE=0``
+        routed ``sort_merge`` through the mesh ``dsort``, and on one shard
+        ``sort_merge`` (the shuffle needs two), both with the same rows in
+        (k, row) order; the partitioned result aggregated by ``key``
+        through B1, against numpy.
+
+    Returns each part's walls, counters, routes and B1 launches."""
+    from tensorframes_tpu_torch import memory, parallel, relational
+    from tensorframes_tpu_torch.utils import tracing
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    probe_rows = n if probe_rows is None else probe_rows
+    rng = np.random.default_rng(2)
+    key = rng.integers(0, keys, n)
+    x = rng.random(n)
+    dev = torch.device(device)
+    meshes = {"local_mesh": parallel.local_mesh(),
+              f"{shards}_shards_of_one_card": parallel.DeviceMesh(
+                  np.array([dev] * shards, dtype=object))}
+    multi = f"{shards}_shards_of_one_card"
+    out = {"rows": n, "parts": parts, "keys": keys,
+           "meshes": {k: m.num_data_shards for k, m in meshes.items()}}
+
+    # -- (a) dsort ------------------------------------------------------------
+    df = ttf.frame({"key": key, "x": x}, num_partitions=parts)
+    asc = np.argsort(key, kind="stable")
+    desc = np.lexsort((-x, ~key))
+    want = {"asc": (key[asc], x[asc]), "desc": (key[desc], x[desc])}
+    part_a = {}
+    sorted_by = {}
+    dists = {}
+    for name, mesh in meshes.items():
+        l0 = segment_reduce.launches
+        dist, put_s = timed(torch, lambda: parallel.distribute(df, mesh))
+        dists[name] = dist
+        res = {"distribute_s": put_s}
+        for label, ks, descending in (("asc", "key", False),
+                                      ("desc", ["key", "x"], True)):
+            span0 = {s: span_total(tracing, s) for s in
+                     ("dsort.columnsort_dispatch", "dsort.dispatch")}
+            srt, wall = timed(torch, lambda: parallel.dsort(
+                ks, dist, descending=descending))
+            cols, collect_s = timed(torch, lambda: host_cols(
+                np, srt.collect_frame()))
+            assert srt.shard_valid is None
+            np.testing.assert_array_equal(cols["key"], want[label][0])
+            np.testing.assert_array_equal(cols["x"], want[label][1])
+            sorted_by[(name, label)] = cols
+            res[label] = {"wall_s": wall, "collect_s": collect_s, **{
+                s: span_total(tracing, s) - span0[s] for s in span0}}
+        res["launches"] = segment_reduce.launches - l0
+        part_a[name] = res
+    for label in ("asc", "desc"):
+        for c in ("key", "x"):
+            assert np.array_equal(sorted_by[("local_mesh", label)][c],
+                                  sorted_by[(multi, label)][c])
+    emit({"phase": "shuffle_20M", "part": "a_dsort", **part_a})
+    out["a_dsort"] = part_a
+
+    # -- (b) the external sort ----------------------------------------------
+    part_b = {"limit_bytes": sort_limit}
+    for name, dist in dists.items():
+        memory.configure(limit_bytes=sort_limit)
+        try:
+            srt, stats = counted(counters, (
+                "memory.external_sorts", "memory.external_sort_runs",
+                "memory.spills"), lambda: timed(torch, lambda: parallel
+                                                .dsort("key", dist)))
+        finally:
+            memory._reset()
+        srt, wall = srt
+        cols = host_cols(np, srt.collect_frame())
+        for c in ("key", "x"):
+            assert np.array_equal(cols[c], sorted_by[(name, "asc")][c]), \
+                f"the external sort differs from the in-memory one: {c}"
+        assert stats["memory.external_sorts"] == 1, stats
+        runs = stats["memory.external_sort_runs"]
+        # a run is a quarter of the budget; a row is 16 bytes
+        assert runs == -(-n // (sort_limit // 4 // 16)), stats
+        part_b[name] = {"wall_s": wall, **stats}
+    emit({"phase": "shuffle_20M", "part": "b_external_sort", **part_b})
+    out["b_external_sort"] = part_b
+    del dists, sorted_by
+
+    # -- (c) high-cardinality and sketch daggregate -------------------------
+    g = rng.integers(0, groups, n)
+    c_col = rng.integers(-10 ** 9, 10 ** 9, n)
+    present = np.flatnonzero(np.bincount(g, minlength=groups))
+    want_v = np.bincount(g, weights=x, minlength=groups)[present]
+    cmax = torch.full((groups,), np.iinfo(np.int64).min, dtype=torch.int64)
+    cmax.scatter_reduce_(0, torch.from_numpy(g), torch.from_numpy(c_col),
+                         "amax")
+    want_c = cmax.numpy()[present]
+    gdf = ttf.frame({"g": g, "v": x, "c": c_col}, num_partitions=parts)
+    fetches = {"v": "sum", "c": "max"}
+    part_c = {"groups": int(present.size)}
+    group_shard = np.bincount(
+        (parallel.exchange.exchange_hash_host([present])
+         % np.uint64(shards)).astype(np.int64), minlength=shards)
+    row_bytes = 8 + 8  # a group's v (f64) and c (int64) state
+
+    def check(frame):
+        cols = host_cols(np, frame)
+        np.testing.assert_array_equal(cols["g"], present)
+        np.testing.assert_array_equal(cols["c"], want_c)
+        np.testing.assert_allclose(cols["v"], want_v, rtol=1e-12)
+        return cols
+
+    for name, mesh in meshes.items():
+        dist = parallel.distribute(gdf, mesh)
+        routes = {"dense": "0"} if mesh.num_data_shards == 1 else \
+            {"shuffle": "1", "dense": "0"}
+        res = {}
+        for route, knob in routes.items():
+            with env_scope(TFT_SHUFFLE=knob):
+                l0 = segment_reduce.launches
+                (frame, wall), cnt = counted(counters, (
+                    "mesh.shuffle_agg_routes", "mesh.shuffle_daggregates",
+                    "mesh.exchange_rows"), lambda: timed(
+                        torch, lambda: parallel.daggregate(
+                            fetches, dist, "g")))
+                check(frame)
+            S = mesh.num_data_shards
+            if route == "shuffle":
+                assert cnt["mesh.shuffle_daggregates"] == 1, cnt
+                state = int(group_shard.max()) * row_bytes
+            else:
+                assert cnt["mesh.shuffle_daggregates"] == 0, cnt
+                state = int(present.size) * row_bytes
+            res[route] = {"wall_s": wall, "launches":
+                          segment_reduce.launches - l0,
+                          "state_bytes_per_shard": state,
+                          "groups_per_shard": (group_shard.tolist()
+                                               if route == "shuffle"
+                                               else [int(present.size)] * S),
+                          **cnt}
+        part_c[name] = res
+        del dist
+    # the device hash on the card places rows by the host hash
+    m = min(n, 2_000_000)
+    ex, ex_s = timed(torch, lambda: parallel.dexchange("g", parallel
+                                                      .distribute(ttf.frame(
+                                                          {"g": g[:m]}),
+                                                          meshes[multi])))
+    rows_per = ex.padded_rows // shards
+    placed = ex.host_read_padded("g")
+    dest = (parallel.exchange.exchange_hash_host([g[:m]])
+            % np.uint64(shards)).astype(np.int64)
+    for s, cnt in enumerate(ex.per_shard_valid()):
+        np.testing.assert_array_equal(
+            placed[s * rows_per:s * rows_per + int(cnt)], g[:m][dest == s])
+    part_c["placement"] = {"rows": m, "dexchange_s": ex_s,
+                           "per_shard": ex.per_shard_valid().tolist()}
+    del ex, placed
+    sk = rng.integers(0, sketch_keys, n)
+    u = rng.integers(0, users, n)
+    sdf = ttf.frame({"sk": sk, "u": u, "v": x}, num_partitions=parts)
+    sfetch = {"u": relational.approx_distinct(bits=10), "v": "sum"}
+    l0 = segment_reduce.launches
+    host, host_s = timed(torch, lambda: ttf.aggregate(
+        sfetch, sdf.group_by("sk")))
+    hcols = host_cols(np, host)
+    sdist = parallel.distribute(sdf, meshes[multi])
+    (mesh_out, mesh_s), cnt = counted(counters, ("relational.sketch_folds",),
+                                      lambda: timed(torch, lambda: parallel
+                                                    .daggregate(sfetch, sdist,
+                                                                "sk")))
+    mcols = host_cols(np, mesh_out)
+    assert list(mcols) == list(hcols), (list(mcols), list(hcols))
+    np.testing.assert_array_equal(mcols["sk"], hcols["sk"])
+    np.testing.assert_array_equal(mcols["u"], hcols["u"])  # the registers
+    np.testing.assert_allclose(mcols["v"], np.bincount(
+        sk, weights=x, minlength=sketch_keys), rtol=1e-12)
+    part_c["sketch"] = {"keys": sketch_keys, "users": users,
+                        "host_aggregate_s": host_s, "daggregate_s": mesh_s,
+                        "launches": segment_reduce.launches - l0, **cnt}
+    del sdist
+    emit({"phase": "shuffle_20M", "part": "c_daggregate", **part_c})
+    out["c_daggregate"] = part_c
+
+    # -- (d) joins -------------------------------------------------------------
+    bk = rng.permutation(build_rows).astype(np.int64)
+    w1, w2 = rng.random(build_rows), rng.random(build_rows)
+    pk = rng.integers(0, 2 * build_rows, probe_rows)
+    probe = ttf.frame({"k": pk, "key": key[:probe_rows], "x": x[:probe_rows]},
+                      num_partitions=parts)
+    build = ttf.frame({"k": bk, "w1": w1, "w2": w2}, num_partitions=parts)
+    mesh = meshes[multi]
+    part_d = {"probe_rows": probe_rows, "build_rows": build_rows,
+              "build_bytes": build_rows * 24,
+              "cut": (None if probe_rows == n else
+                      f"the probe side cut to {probe_rows} of the {n} rows")}
+    l0 = segment_reduce.launches
+    part, part_s = timed(torch, lambda: relational.join(
+        probe, build, "k", mesh=mesh))
+    assert part._join_route["strategy"] == "partitioned", part._join_route
+    pcols, force_s = timed(torch, lambda: host_cols(np, part))
+    bcast = relational.broadcast_join(probe, build, "k")
+    bcols, bcast_s = timed(torch, lambda: host_cols(np, bcast))
+    assert [b.num_rows for b in part.blocks()] == \
+        [b.num_rows for b in bcast.blocks()]
+    for c in bcols:
+        assert np.array_equal(pcols[c], bcols[c]), \
+            f"partitioned join differs from the broadcast join: {c}"
+    info = part._partitioned_info
+    assert info["shards"] == shards
+    assert info["max_build_bytes"] * shards < 2 * info["global_build_bytes"]
+    agg, agg_s = timed(torch, lambda: ttf.aggregate(
+        {"w1": "sum"}, ttf.frame({"key": pcols["key"], "w1": pcols["w1"]},
+                                 num_partitions=parts).group_by("key")))
+    acols = host_cols(np, agg)
+    joined_key = pcols["key"]
+    np.testing.assert_array_equal(acols["key"], np.unique(joined_key))
+    np.testing.assert_allclose(acols["w1"], np.bincount(
+        joined_key, weights=pcols["w1"])[acols["key"]], rtol=1e-12)
+    with env_scope(TFT_SHUFFLE="0"):
+        smj, smj_s = timed(torch, lambda: relational.join(
+            probe, build, "k", mesh=mesh))
+        assert smj._join_route["strategy"] == "sort_merge", smj._join_route
+        scols, smj_force_s = timed(torch, lambda: host_cols(np, smj))
+    one, one_s = timed(torch, lambda: relational.join(
+        probe, build, "k", mesh=meshes["local_mesh"]))
+    assert one._join_route["strategy"] == "sort_merge", one._join_route
+    ocols, one_force_s = timed(torch, lambda: host_cols(np, one))
+    # the same rows once both are ordered by (k, probe row)
+    prow = np.flatnonzero(np.isin(pk, bk))
+    order = np.lexsort((prow, pk[prow]))
+    for c in ("k", "key", "x", "w1", "w2"):
+        assert np.array_equal(scols[c], pcols[c][order]), c
+        assert np.array_equal(ocols[c], scols[c]), c
+    assert part_c[multi]["shuffle"]["launches"] > 0 and \
+        segment_reduce.launches > l0, "parts (c) and (d) launched no B1"
+    part_d.update({
+        "rows_out": int(len(pcols["k"])),
+        "routes": {"partitioned": part._join_route,
+                   "sort_merge": smj._join_route,
+                   "one_shard": one._join_route},
+        "partitioned_s": part_s + force_s, "broadcast_s": bcast_s,
+        "sort_merge_s": smj_s + smj_force_s,
+        "one_shard_sort_merge_s": one_s + one_force_s, "aggregate_s": agg_s,
+        "max_build_bytes": info["max_build_bytes"],
+        "global_build_bytes": info["global_build_bytes"],
+        "build_share_of_one_shard": (info["max_build_bytes"]
+                                     / info["global_build_bytes"]),
+        "launches": segment_reduce.launches - l0})
+    emit({"phase": "shuffle_20M", "part": "d_joins", **part_d})
+    out["d_joins"] = part_d
     return out
 
 
@@ -4225,6 +4544,16 @@ def phase_kernel_checks(np, torch, segment_reduce) -> dict:
                           torch.zeros(m, dtype=torch.int32, device=dev), 1,
                           f"one segment n={m} S=1 d={d}")
             cases += 2
+        if dtype == "float64":
+            # phase 2d: a shard's aggregate after the exchange (2.5M rows
+            # of the 20M into that shard's ~250,000 of 2M groups)
+            m = 2_500_000
+            vals = torch.from_numpy(rng.random((m, 1))).to(dev, tdt)
+            tid = torch.from_numpy(rng.integers(0, 250_000, m)).to(
+                dev, torch.int32)
+            segment_check(torch, segment_reduce, vals, tid, 250_000,
+                          "shuffle shard n=2.5M S=250,000")
+            cases += 1
         if dtype != "bfloat16":
             big_n, big_s = 1 << 22, 1 << 27
             assert segment_reduce.plan_sort(big_n, 1, big_s, 8).passes == 4
@@ -5054,7 +5383,10 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
     mesh's 2.5M into 131,073 and into the two-key table's 32,769, the
     salted frame's 500,000 into 100,007; the 8-shard host route is phase
     2's shape) and of phase 3j's variant C (the gathered 2M x 64 and 2M x
-    1 f64, S = 256);
+    1 f64, S = 256) and of phase 2d's part (c) (a shard after the exchange,
+    2.5M f64 rows into 250,000 groups; a shard of the dense route and the
+    one-shard mesh, 2.5M and 20M rows into 2,000,000; the sketch route's
+    scalar sum, 2.5M rows into 100);
     flash_attention and its backward at the transformer's [8, 2048, 8,
     64] causal in f32 (the model's) and bf16 (the backward when ``fab``,
     its module, is given: an earlier checkout has none)."""
@@ -5109,7 +5441,18 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 2_000_000, 64, 256,
                                torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 2_000_000, 1, 256,
-                               torch.float64, flush)]
+                               torch.float64, flush),
+              # phase 2d (c): a shard's aggregate after the exchange, a
+              # shard of the dense route (every group on every shard), the
+              # one-shard mesh, and the sketch route's scalar sum
+              time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               250_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               2_000_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000, 1,
+                               2_000_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
+                               100, torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -5242,6 +5585,8 @@ def main(argv=None) -> int:
         ("mesh_reference_workload_20M",
          lambda: phase_mesh_reference_workload(ttf, np, torch,
                                                segment_reduce)),
+        ("shuffle_20M",
+         lambda: phase_shuffle(ttf, np, torch, segment_reduce)),
         ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np)),
         ("plan_parquet_20M",
          lambda: static_plan(phase_plan_parquet, ttf, np, torch,
@@ -5284,6 +5629,8 @@ def main(argv=None) -> int:
         "k-means variants B-D did not launch segment_sum as modelled"
     assert per_phase["mesh_reference_workload_20M"]["segment_sum"] == \
         2 * (1 + 8) * 4, "the mesh did not launch segment_sum on every shard"
+    assert per_phase["shuffle_20M"]["segment_sum"] > 0, \
+        "the shuffle's aggregates never launched segment_sum"
     assert per_phase["serve_three_tenants_20M"]["segment_sum"] > 0 and \
         served["child_launches"] > 0, \
         "the served aggregates never launched segment_sum"

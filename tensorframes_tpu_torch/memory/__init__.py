@@ -11,8 +11,9 @@ surface:
   process pays one global read per dispatch and nothing else;
 - :func:`configure` / :func:`bypass` / :func:`_reset`: explicit control
   for tests and benchmarks;
-- :class:`SpillableBuffer` / :class:`SpillableColumns`: the spill
-  mechanics;
+- :class:`SpillableBuffer` / :class:`SpillableColumns` /
+  :func:`external_sort`: the spill mechanics and the out-of-core sort
+  (``dsort`` routes there when a frame outgrows the budget);
 - :mod:`.persist`: the durable disk tier under the in-memory state
   (preemption checkpoints, result-cache entries; ``TFT_PERSIST_DIR``);
 - :class:`QueryCheckpoint`: a preempted query's parked outputs.
@@ -37,9 +38,6 @@ The ``tft_memory_*`` gauges and counters render through
 ``observability/metrics.py`` (the ``memory`` provider, registered when
 the manager resolves). Stream window state (``stream/aggregate.py``)
 registers in the LRU under a budget, so the ledger spills it too.
-
-Not in this package yet: the external sort (with ``dsort``,
-``ROADMAP.md`` A10).
 """
 
 from __future__ import annotations
@@ -52,6 +50,7 @@ from . import persist
 from .checkpoint import QueryCheckpoint
 from .estimate import (blocks_estimate, frame_estimate, propagate_hints,
                        schema_row_bytes)
+from .external_sort import external_sort
 from .manager import MemoryManager
 from .spill import (SpillableBuffer, SpillableColumns, array_nbytes,
                     host_value, is_device_value, to_pinned_host,
@@ -60,7 +59,7 @@ from .spill import (SpillableBuffer, SpillableColumns, array_nbytes,
 __all__ = [
     "MemoryManager", "manager", "active", "configure", "bypass",
     "SpillableBuffer", "SpillableColumns", "spillable_columns",
-    "frame_estimate", "propagate_hints", "blocks_estimate",
+    "external_sort", "frame_estimate", "propagate_hints", "blocks_estimate",
     "schema_row_bytes", "array_nbytes", "host_value", "value_nbytes",
     "is_device_value", "to_pinned_host", "note_frame_cache",
     "forget_frame_cache", "QueryCheckpoint", "persist",

@@ -9,9 +9,11 @@ bound for ``filter``, exact for ``select``). An unforced frame with a plan
 node answers from the node's per-column cost model instead
 (:meth:`~..plan.nodes.PlanNode.estimate`).
 
-Not in this package yet: the distributed/exchange estimates of the JAX
-package (``dist_frame_estimate``, ``exchange_buffer_bytes``; with the
-parallel layer, ``ROADMAP.md`` A10).
+Mesh frames: :func:`dist_frame_estimate` counts a
+:class:`~..parallel.distributed.DistributedFrame`'s columns and
+:func:`exchange_buffer_bytes` prices one ``dexchange`` dispatch for the
+ledger. A lazy distributed plan (``plan/dist.py``) is ``ROADMAP.md`` A
+item 7b, so every mesh frame the port holds is materialized.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from ..utils.logging import get_logger
 
 __all__ = ["array_nbytes", "column_nbytes", "block_nbytes",
            "blocks_estimate", "schema_row_bytes", "frame_estimate",
-           "propagate_hints"]
+           "propagate_hints", "dist_frame_estimate",
+           "exchange_buffer_bytes"]
 
 _log = get_logger("memory.estimate")
 
@@ -112,6 +115,57 @@ def frame_estimate(frame) -> Tuple[Optional[float], Optional[int]]:
     nbytes = getattr(frame, "_bytes_hint", None)
     return (float(rows) if rows is not None else None,
             int(nbytes) if nbytes is not None else None)
+
+
+def dist_frame_estimate(frame) -> Tuple[Optional[float], Optional[int]]:
+    """``(rows, device_bytes)`` of a
+    :class:`~..parallel.distributed.DistributedFrame`: its rows and the
+    bytes of every column it holds, padded layout included (host
+    ride-alongs count their pointers), read without moving a shard."""
+    try:
+        total = 0
+        for name in frame.schema.names:
+            total += int(array_nbytes(frame.columns[name]) or 0)
+        return float(frame.num_rows), total
+    except Exception as e:  # noqa: BLE001 - an estimate is advisory
+        _log.debug("distributed frame estimate failed (%s)", e)
+        return None, None
+
+
+def _itemsize(dt) -> int:
+    """Bytes per element of a numpy dtype, a torch dtype or their name."""
+    size = getattr(dt, "itemsize", None)
+    if isinstance(size, int):
+        return size
+    import torch
+
+    if isinstance(dt, torch.dtype):
+        return torch.empty((), dtype=dt).element_size()
+    if isinstance(dt, str) and hasattr(torch, dt.replace("torch.", "")):
+        t = getattr(torch, dt.replace("torch.", ""))
+        if isinstance(t, torch.dtype):
+            return torch.empty((), dtype=t).element_size()
+    return int(np.dtype(dt).itemsize)
+
+
+def exchange_buffer_bytes(cell_specs: Sequence[Tuple[Tuple[int, ...], Any]],
+                          shards: int, cap: int,
+                          rowid_bytes: int = 0) -> int:
+    """Device bytes a ``dexchange`` dispatch admits against the ledger:
+    every shard sorts its rows into ``shards`` buckets of at most ``cap``
+    rows per column, and the swap holds the send and receive sides at
+    once: ``shards * shards * cap`` rows of every exchanged column (plus
+    the optional carried row id), times two.
+
+    ``cell_specs`` is ``[(cell_shape, dtype), ...]`` for the tensor
+    columns riding the exchange (numpy or torch dtypes)."""
+    per_row = int(rowid_bytes)
+    for cell, dt in cell_specs:
+        n = 1
+        for d in cell:
+            n *= int(d)
+        per_row += n * _itemsize(dt)
+    return 2 * shards * shards * cap * per_row
 
 
 def propagate_hints(src_frame, out_schema

@@ -9,19 +9,45 @@ own :class:`~.events.QueryTrace`, so overlapping queries do not mix their
 numbers. :func:`frame_report` adds the logical plan's section (fused
 stages, pruned columns, pushdown, resident edges) and a join's routing.
 
-The JAX package's per-device (mesh) section, with its straggler ratio
-against ``TFT_SKEW_WARN``, comes with the parallel layer (``ROADMAP.md``
-A10): no port layer records per-device shard events yet.
+A mesh join adds its partitioned build and its exchange's partition
+imbalance, judged against ``TFT_SKEW_WARN`` (default 2.0), the threshold
+``parallel.dexchange`` reports skew by. The JAX package's per-device
+(mesh) section of a query, with its straggler ratio, is ``ROADMAP.md`` A
+item 7b: no port layer records per-device times yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from ..utils import tracing
 from . import events as _events
 
 __all__ = ["render", "frame_report", "last_query_report"]
+
+DEFAULT_SKEW_WARN = 2.0
+
+_skew_malformed_warned = False
+
+
+def _skew_threshold() -> float:
+    """``TFT_SKEW_WARN`` (default 2.0); a malformed value warns once and
+    reads as the default."""
+    raw = os.environ.get("TFT_SKEW_WARN")
+    if not raw:
+        return DEFAULT_SKEW_WARN
+    try:
+        return float(raw)
+    except ValueError:
+        global _skew_malformed_warned
+        if not _skew_malformed_warned:
+            from ..utils.logging import get_logger
+            get_logger("observability.report").warning(
+                "ignoring malformed TFT_SKEW_WARN=%r (using %g)", raw,
+                DEFAULT_SKEW_WARN)
+            _skew_malformed_warned = True
+        return DEFAULT_SKEW_WARN
 
 
 def _fmt_bytes(n) -> str:
@@ -134,8 +160,9 @@ def render(trace: "_events.QueryTrace") -> str:
 def _with_plan(df, report: str) -> str:
     """The frame's own sections after the trace's: the optimized plan of
     its forcing (absent under ``TFT_FUSE=0`` or when the chain ran per
-    op), the hot keys a salted ``daggregate`` observed and a join's
-    routing decision."""
+    op), the hot keys a salted ``daggregate`` observed, a join's routing
+    decision, a partitioned join's build per shard and its exchange's
+    partition imbalance."""
     info = getattr(df, "_plan_info", None)
     if info:
         report = report + "\n" + "\n".join(info)
@@ -147,14 +174,29 @@ def _with_plan(df, report: str) -> str:
                    f"{h['salt_slots']} slot(s) (frame.hot_keys())")
     route = getattr(df, "_join_route", None)
     if route:
+        # the join's routing decision (also on the flight ring as
+        # relational.join_route; ttf.why() renders it)
         est = route.get("est_build_bytes")
-        tail = ""
-        if est is not None or route.get("limit") is not None:
-            est_s = _fmt_bytes(est) if est is not None else "unknown"
-            tail = (f" — est build {est_s} vs limit "
-                    f"{_fmt_bytes(route.get('limit'))}")
+        est_s = _fmt_bytes(est) if est is not None else "unknown"
         report += (f"\n  join     : auto-routed to "
-                   f"{route['strategy']!r} ({route['reason']}){tail}")
+                   f"{route['strategy']!r} ({route['reason']}) — "
+                   f"est build {est_s} vs limit "
+                   f"{_fmt_bytes(route['limit'])}, shuffle "
+                   f"{'on' if route.get('shuffle') else 'off'}")
+    pinfo = getattr(df, "_partitioned_info", None)
+    if pinfo:
+        report += (f"\n  shuffle  : partitioned build across "
+                   f"{pinfo['shards']} shard(s) — max per-device build "
+                   f"{_fmt_bytes(pinfo['max_build_bytes'])} of "
+                   f"{_fmt_bytes(pinfo['global_build_bytes'])} global")
+    ex = getattr(df, "_exchange_skew", None) \
+        or getattr(df, "_exchange", None)
+    if ex:
+        flag = (" OVER TFT_SKEW_WARN"
+                if ex["ratio"] > ex["threshold"] else "")
+        report += (f"\n  exchange : partition imbalance {ex['ratio']:.2f} "
+                   f"(threshold {ex['threshold']:.2f}{flag}); per-shard "
+                   f"rows {ex['per_shard']}")
     return report
 
 

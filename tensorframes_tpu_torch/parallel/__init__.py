@@ -8,18 +8,22 @@ data axis; a mesh reduce's combine becomes the combiner's collective over
 the shards' partials (``collectives.py``).
 
 Ported: the mesh, its collectives and the distributed frame's ops
-``distribute``, ``dmap_blocks``, ``dfilter``, ``dreduce_blocks`` and
-``daggregate`` (host and device keys, hot-key salting). The other public
-names of the JAX package's layer stay in this namespace and raise
-``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when called:
-``dsort``, the elastic mesh's growth, the shuffle exchange, ring
-attention and the multi-process cluster (``torch.distributed`` with NCCL,
-the counterpart of the JAX package's multi-host ``initialize``).
+``distribute``, ``dmap_blocks``, ``dfilter``, ``dsort`` (columnsort, or
+the external sort past the device budget), ``dreduce_blocks`` and
+``daggregate`` (host and device keys, hot-key salting, sketch combiners,
+the high-cardinality shuffle route), and the shuffle (``dexchange``,
+``shuffle_daggregate``, ``shuffle_enabled``). The other public names of
+the JAX package's layer stay in this namespace and raise
+``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when called: the
+elastic mesh's growth, ring attention and the multi-process cluster
+(``torch.distributed`` with NCCL, the counterpart of the JAX package's
+multi-host ``initialize``).
 """
 
 from .collectives import COMBINERS
 from .distributed import (DistributedFrame, daggregate, dfilter, distribute,
                           dmap_blocks, dreduce_blocks, dsort)
+from .exchange import dexchange, shuffle_daggregate, shuffle_enabled
 from .mesh import DeviceMesh, local_mesh
 
 __all__ = [
@@ -49,9 +53,6 @@ def _not_yet(name: str, module: str):
 admit_devices = _not_yet("admit_devices", "elastic.py")
 grow_mesh = _not_yet("grow_mesh", "elastic.py")
 probe_device = _not_yet("probe_device", "elastic.py")
-dexchange = _not_yet("dexchange", "exchange.py")
-shuffle_daggregate = _not_yet("shuffle_daggregate", "exchange.py")
-shuffle_enabled = _not_yet("shuffle_enabled", "exchange.py")
 ring_attention = _not_yet("ring_attention", "ring.py")
 ring_allreduce = _not_yet("ring_allreduce", "ring.py")
 cluster_mesh = _not_yet("cluster_mesh", "cluster.py")

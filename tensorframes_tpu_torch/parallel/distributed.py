@@ -26,11 +26,17 @@ remainder; ``num_rows`` remembers the truth). Then:
   shard's groups by a segmented scan of the program and folds the
   shards' tables with the same program.
 
-Every op runs through the dispatch boundary of ``elastic.py``. Not here
-yet (``ROADMAP.md`` A item 7b, each raising ``NotImplementedError``):
-``dsort``, :meth:`DistributedFrame.lazy`, sketch combiners in
-``daggregate`` and its shuffle route; ``TFT_EXECUTOR=pjrt`` waits for the
-native execution core (A item 8).
+- :func:`dsort` sorts globally by columnsort (per-shard sorts and copies
+  between the shards, never the global array on one device), or through
+  the external sort when the frame outgrows the device budget.
+
+``daggregate`` routes past ``TFT_SHUFFLE_AGG_GROUPS`` groups to the
+shuffle-partitioned aggregate (``exchange.py``) and folds sketch
+combiners from the host copies of their columns. Every op runs once: the
+JAX package's device-loss recovery (``elastic_call``) and
+:meth:`DistributedFrame.lazy` are ``ROADMAP.md`` A item 7b, raising
+``NotImplementedError``; ``TFT_EXECUTOR=pjrt`` waits for the native
+execution core (A item 8).
 """
 
 from __future__ import annotations
@@ -48,12 +54,13 @@ from ..engine import ops as _ops
 from ..engine.executor import (BlockExecutor, to_device, to_host,
                                to_storage_dtype)
 from ..frame import Block, TensorFrame
+from ..memory.external_sort import lexsort_order
 from ..observability.events import (DEVICE_TRACK_BASE, current_trace,
                                     traced_query)
 from ..resilience import default_policy as _default_policy
 from ..schema import Field, Schema
 from ..shape import Unknown
-from ..utils.env import env_bool, env_int
+from ..utils.logging import get_logger
 from ..utils.tracing import counters, span
 from . import elastic as _elastic
 from .collectives import COMBINERS
@@ -107,6 +114,11 @@ class ShardedArray:
     def devices(self) -> List[torch.device]:
         return [s.device for s in self.shards]
 
+    @property
+    def nbytes(self) -> int:
+        return sum(int(s.numel()) * int(s.element_size())
+                   for s in self.shards)
+
     def gather(self, device: torch.device) -> torch.Tensor:
         """The global array, concatenated on ``device``."""
         return torch.cat([s.to(device) for s in self.shards])
@@ -144,16 +156,22 @@ def _shard_rows(dist) -> List[int]:
     return [dist.padded_rows // S] * S
 
 
+def _chunk_rows(n: int, S: int) -> List[int]:
+    """Rows of each shard when ``n`` rows lie in ceil-div chunks (equal
+    shards when ``n`` tiles the data axis)."""
+    chunk = -(-n // S)
+    return [max(0, min(n, (i + 1) * chunk) - min(n, i * chunk))
+            for i in range(S)]
+
+
 def _split_global(mesh: DeviceMesh, t: torch.Tensor) -> ShardedArray:
     """A trim program's global result back onto the mesh, in the ceil-div
     chunks of :meth:`DistributedFrame.per_shard_valid` (equal shards when
     it tiles the data axis; some chunks may be empty otherwise)."""
     devices = mesh.shard_devices()
-    S = len(devices)
-    n = int(t.shape[0])
-    chunk = -(-n // S)
-    return ShardedArray([t[min(i * chunk, n):min((i + 1) * chunk, n)]
-                         .to(d) for i, d in enumerate(devices)])
+    bounds = np.cumsum([0] + _chunk_rows(int(t.shape[0]), len(devices)))
+    return ShardedArray([t[int(a):int(b)].to(d) for a, b, d in
+                         zip(bounds[:-1], bounds[1:], devices)])
 
 
 def _read_global(a) -> np.ndarray:
@@ -209,6 +227,16 @@ def _meta_dfilter(predicate=None, dist=None, *a, **k):
     return _mesh_meta(dist) if dist is not None else {}
 
 
+def _meta_dsort(keys=None, dist=None, *a, **k):
+    dist = k.get("dist", dist)
+    keys = k.get("keys", keys)
+    if dist is None:
+        return {}
+    meta = _mesh_meta(dist)
+    meta["keys"] = [keys] if isinstance(keys, str) else list(keys or ())
+    return meta
+
+
 def _meta_daggregate(fetches=None, dist=None, keys=None, *a, **k):
     meta = _meta_with_fetches(fetches, dist, **k)
     keys = k.get("keys", keys)
@@ -230,7 +258,8 @@ def _trace_shards(trace, op: str, dist) -> float:
     tracks; returns the dispatch's start for :func:`_trace_done`."""
     rows = dist.per_shard_valid()
     for i, dev in enumerate(dist.mesh.shard_devices()):
-        trace.add("shard", name=f"{op} shard {i}", device=str(dev),
+        trace.add("shard", name=f"{op} shard {i}", device=i,
+                  device_name=str(dev),
                   rows=int(rows[i]), track=DEVICE_TRACK_BASE + i)
     return trace.clock()
 
@@ -335,7 +364,9 @@ class DistributedFrame:
     def select(self, names) -> "DistributedFrame":
         """A view with only ``names`` (no data movement — the reduce ops
         require every column to back a fetch, so dropping ride-along
-        columns first is the normal prelude)."""
+        columns first is the normal prelude). The view shares the frame's
+        group-id cache: its ids depend only on the key columns and the
+        validity, which a view keeps."""
         if isinstance(names, str):
             names = [names]
         names = list(names)
@@ -343,9 +374,11 @@ class DistributedFrame:
         if missing:
             raise KeyError(
                 f"No column(s) {missing}; columns: {self.schema.names}")
-        return DistributedFrame(self.mesh, self.schema.select(names),
+        view = DistributedFrame(self.mesh, self.schema.select(names),
                                 {n: self.columns[n] for n in names},
                                 self.num_rows, shard_valid=self.shard_valid)
+        view._group_ids_cache = self._group_ids_cache
+        return view
 
     def count(self) -> int:
         """True (un-padded) global row count."""
@@ -364,6 +397,14 @@ class DistributedFrame:
                  "  validity: "
                  + ("prefix" if self.shard_valid is None
                     else f"per-shard {list(map(int, self.shard_valid))}")]
+        ex = getattr(self, "_exchange", None)
+        if ex:
+            flag = (" OVER TFT_SKEW_WARN"
+                    if ex["ratio"] > ex["threshold"] else "")
+            lines.append(
+                f"  exchange: partition imbalance {ex['ratio']:.2f} "
+                f"(threshold {ex['threshold']:.2f}{flag}); per-shard "
+                f"rows {ex['per_shard']}")
         for f in self.schema:
             col = self.columns[f.name]
             if isinstance(col, np.ndarray):
@@ -617,12 +658,349 @@ def _dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
                             shard_valid=counts_host)
 
 
+# ---------------------------------------------------------------------------
+# dsort
+# ---------------------------------------------------------------------------
+
 def dsort(keys, dist: DistributedFrame, descending: bool = False
           ) -> DistributedFrame:
-    """Rows globally sorted by scalar key column(s) on the mesh (the JAX
-    package's columnsort, with ``memory/external_sort.py``): not ported
-    yet."""
-    raise _later("dsort")
+    """Rows globally sorted by scalar key column(s), on the mesh.
+
+    Multi-shard frames sort by **columnsort** (Leighton's 8 steps): four
+    per-shard sorts interleaved with the deal and inverse deal (each
+    shard's rows dealt round-robin to every shard and back, the
+    ``all_to_all``s of the JAX package, here copies between the shards'
+    tensors) and a half-block shift and unshift between neighbour shards.
+    No shard ever sorts, or holds, the global array. Stability and pad
+    handling ride in the sort key: a flag (real rows 0, frame pad rows 1,
+    internal pad rows 2) is the most significant key and the global row
+    id the least, and each user key is order-transformed for
+    ``descending`` (negation for floats, ``~k`` for ints, which never
+    overflows). Correctness needs rows per shard >= 2(S-1)^2 and a
+    multiple of 2S, met by padding each shard inside the sort; the final
+    slice restores the frame's layout. Single-shard meshes and frames
+    whose rows do not tile the data axis sort on the first shard's device
+    in one program instead (warned once on a multi-shard mesh).
+
+    Under an active device budget a frame whose tensor columns exceed
+    ``TFT_MEM_SORT_FRACTION`` of it takes the external sort
+    (``memory.external_sort``) instead, with the same result.
+
+    The result has prefix validity: pad rows are all at the tail whatever
+    the input layout. Keys must be device (numeric) columns; sort by a
+    string key on the host with ``TensorFrame.order_by``. Host-side
+    string columns are permuted on the host by the same order.
+    """
+    _check_executor()
+    if isinstance(keys, str):
+        keys = [keys]
+    return _dsort_eager(list(keys), dist, descending)
+
+
+@traced_query("dsort", _meta_dsort)
+def _dsort_eager(keys, dist: DistributedFrame, descending: bool = False
+                 ) -> DistributedFrame:
+    ext = _dsort_external_if_needed(keys, dist, descending)
+    if ext is not None:
+        return ext
+    return _dsort(keys, dist, descending)
+
+
+def _validate_dsort_keys(schema: Schema, keys) -> None:
+    for k in keys:
+        f = schema.get(k)
+        if f is None:
+            raise KeyError(f"No key column {k!r}; columns: {schema.names}")
+        if not f.dtype.tensor:
+            raise _ops.InvalidTypeError(
+                f"dsort key {k!r} is a host-side (string) column; sort on "
+                f"the host with order_by, or key on a numeric column")
+        if f.block_shape is not None and len(f.block_shape.dims) != 1:
+            raise _ops.InvalidShapeError(
+                f"dsort key {k!r} must be a scalar column")
+
+
+def _dsort_external_if_needed(keys, dist: DistributedFrame,
+                              descending: bool
+                              ) -> Optional[DistributedFrame]:
+    """Route a larger-than-budget frame to the external sort: only under
+    an active device budget, when the frame's tensor columns exceed
+    ``TFT_MEM_SORT_FRACTION`` of it (columnsort would hold the input and
+    its exchange copies resident at once)."""
+    mgr = _memory.active()
+    if mgr is None or not mgr.spill_enabled:
+        return None
+    threshold = mgr.external_sort_threshold()
+    if threshold is None:
+        return None
+    total = sum(_memory.value_nbytes(dist.columns, f.name)
+                for f in dist.schema if f.dtype.tensor)
+    if total <= threshold:
+        return None
+    _validate_dsort_keys(dist.schema, keys)
+    return _dsort_external(keys, dist, descending, mgr)
+
+
+def _dsort_external(keys, dist: DistributedFrame, descending: bool,
+                    mgr) -> DistributedFrame:
+    """Out-of-core dsort: budget-sized device runs and a host k-way merge
+    (``memory.external_sort``), the result equal to the in-memory sort's:
+    stable by original row order, pads at the global tail, host
+    ride-along columns permuted alongside."""
+    mesh = dist.mesh
+    schema = dist.schema
+    tensor_names = [f.name for f in schema if f.dtype.tensor]
+    host_names = [f.name for f in schema if not f.dtype.tensor]
+    with span("dsort.external"):
+        mask = dist.valid_row_mask()
+        valid_idx = np.flatnonzero(mask)
+        host_cols = {n: _read_global(dist.columns[n])[mask]
+                     for n in tensor_names}
+        sorted_cols, order, stats = _memory.external_sort(
+            host_cols, keys, descending=descending, manager=mgr,
+            device=mesh.shard_devices()[0])
+        trace = current_trace()
+        if trace is not None:
+            trace.add("external_sort", rows=stats["rows"],
+                      runs=stats["runs"], bytes=stats["bytes"])
+        padded = dist.padded_rows
+        n_valid = len(valid_idx)
+        rows = _chunk_rows(padded, mesh.num_data_shards)
+        new_cols: Dict[str, object] = {}
+        for n in tensor_names:
+            a = sorted_cols[n]
+            if padded != n_valid:
+                out = np.zeros((padded,) + a.shape[1:], a.dtype)
+                out[:n_valid] = a
+                a = out
+            mgr.make_room(int(a.nbytes))
+            with span("dsort.external_put"):
+                new_cols[n] = _place(mesh, a, rows, dist.columns[n].dtype)
+        for n in host_names:
+            g = np.asarray(dist.columns[n], object)[valid_idx[order]]
+            if padded != n_valid:
+                g = np.concatenate([g, np.full(padded - n_valid, None,
+                                               object)])
+            new_cols[n] = g
+        get_logger("dsort").info(
+            "dsort took the external-memory path: %d rows (%d B) in %d "
+            "run(s), k-way merged on the host", stats["rows"],
+            stats["bytes"], stats["runs"])
+        return DistributedFrame(mesh, schema, new_cols, dist.num_rows)
+
+
+def _dsort(keys, dist: DistributedFrame, descending: bool
+           ) -> DistributedFrame:
+    schema = dist.schema
+    _validate_dsort_keys(schema, keys)
+    mesh = dist.mesh
+    S = mesh.num_data_shards
+    tensor_names = [f.name for f in schema if f.dtype.tensor]
+    host_names = [f.name for f in schema if not f.dtype.tensor]
+    trace = current_trace()
+    t0 = _trace_shards(trace, "dsort", dist) if trace is not None else 0.0
+    if S > 1 and dist.padded_rows % S == 0:
+        if trace is not None:
+            # the exchange schedule: the deal and its inverse, the shift
+            # and the unshift
+            trace.add("collective", name="all_to_all", ts=t0, count=2,
+                      op="dsort.columnsort")
+            trace.add("collective", name="ppermute", ts=t0, count=2,
+                      op="dsort.columnsort")
+        with span("dsort.columnsort_dispatch"):
+            cols, order = _dsort_columnsort(dist, keys, descending,
+                                            tensor_names)
+    else:
+        if S > 1:
+            _warn_dsort_gather(dist, S)
+        with span("dsort.dispatch"):
+            cols, order = _dsort_local(dist, keys, descending,
+                                       tensor_names)
+    counters.inc("mesh.dispatches")
+    if trace is not None:
+        _trace_done(trace, "dsort", t0)
+    new_cols: Dict[str, object] = dict(zip(tensor_names, cols))
+    if host_names:
+        order_host = _read_global(order)
+        for n in host_names:
+            new_cols[n] = dist.columns[n][order_host]
+    return DistributedFrame(mesh, schema, new_cols, dist.num_rows)
+
+
+_dsort_gather_warned = False
+
+
+def _warn_dsort_gather(dist: DistributedFrame, S: int) -> None:
+    """Warn ONCE when a multi-shard frame sorts on one device: its rows
+    do not tile the data axis (a trim or global map result), so the key
+    columns gather onto the first shard's device, the pathology
+    columnsort exists to avoid."""
+    global _dsort_gather_warned
+    if _dsort_gather_warned:
+        return
+    get_logger("dsort").warning(
+        "dsort on a %d-shard mesh fell back to the global-argsort program "
+        "because the frame's %d rows do not tile the data axis: the "
+        "columns gather onto one device. Pad or repartition the frame to "
+        "a multiple of the shard count to get columnsort (warned once)",
+        S, dist.padded_rows)
+    _dsort_gather_warned = True
+
+
+def _key_transform(kv: torch.Tensor, descending: bool) -> torch.Tensor:
+    """Order-reversing transforms with no overflow for descending: float
+    negation, and bitwise-not for ints (``~k = -k-1`` is strictly
+    decreasing and never overflows, where raw negation overflows
+    ``iinfo.min``)."""
+    if not descending:
+        return kv
+    return -kv if kv.is_floating_point() else ~kv
+
+
+def _dsort_local(dist: DistributedFrame, keys, descending: bool,
+                 tensor_names) -> tuple:
+    """The one-device sort (single-shard meshes, non-tiling frames): the
+    shards gather onto the first shard's device, one stable lexicographic
+    sort by (invalid, keys..., position) runs there, and the result goes
+    back to the shards in the frame's chunks. The validity flag leads, so
+    pad rows sink behind every real row, a NaN or an ``iinfo.max`` key
+    included. Returns ``(columns, order)``."""
+    mesh = dist.mesh
+    dev0 = mesh.shard_devices()[0]
+    valid = torch.cat([v.to(dev0) for v in _valid_dev(dist).shards])
+    named = {n: dist.columns[n].gather(dev0) for n in tensor_names}
+    order = lexsort_order(
+        [(~valid).to(torch.int8)]
+        + [_key_transform(named[k], descending) for k in keys])
+    cols = [_split_global(mesh, named[n].index_select(0, order))
+            for n in tensor_names]
+    return cols, order
+
+
+def _reslice(parts: Sequence[torch.Tensor], sizes: Sequence[int],
+             devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The rows of ``parts`` (one tensor per shard, in shard order) cut
+    into consecutive pieces of ``sizes`` rows, piece ``i`` on
+    ``devices[i]``; rows past ``sum(sizes)`` are dropped."""
+    bounds = np.concatenate([[0], np.cumsum([int(p.shape[0])
+                                             for p in parts])])
+    out, lo = [], 0
+    for size, dev in zip(sizes, devices):
+        hi = lo + int(size)
+        pieces = []
+        for j, p in enumerate(parts):
+            a, b = max(lo, int(bounds[j])), min(hi, int(bounds[j + 1]))
+            if a < b:
+                pieces.append(p[a - int(bounds[j]):b - int(bounds[j])]
+                              .to(dev))
+        out.append(torch.cat(pieces) if len(pieces) != 1 else pieces[0])
+        lo = hi
+    return out
+
+
+def _dsort_columnsort(dist: DistributedFrame, keys, descending: bool,
+                      tensor_names) -> tuple:
+    """Columnsort over the data axis (see :func:`dsort`).
+
+    The shards are the matrix's "columns" of ``rp`` rows; the 8 steps:
+    1. sort each shard; 2. deal its rows round-robin to the shards (row
+    ``i`` of shard ``j`` to shard ``i % S``, at ``j * rp/S + i // S``);
+    3. sort; 4. the inverse deal (shard ``j``'s contiguous chunk ``d`` to
+    shard ``d``, interleaved by source); 5. sort; 6. shift by half a
+    shard: each shard's bottom half moves to the next shard's top (shard
+    0's top is a min-sentinel half, flag -16); 7. sort the shifted shards
+    (the conceptual extra shard, ``[last shard's bottom, +inf]``, is
+    already sorted); 8. unshift: each shard's top is its own shifted
+    bottom half, its bottom the next shard's shifted top (the last
+    shard's: its own step-5 bottom). The flag (min-sentinel -16 < real 0
+    < frame pad 1 < internal pad 2) is the most significant key and the
+    global row id the least, so every step's order is total and the
+    result stable; internal pad rows sort behind the frame's own pads and
+    the first ``padded`` rows are the frame's layout. Returns
+    ``(columns, order)``, the order as the global row id of each output
+    row."""
+    mesh = dist.mesh
+    devs = mesh.shard_devices()
+    S = len(devs)
+    padded = dist.padded_rows
+    r = padded // S
+    # internal rows per shard: a multiple of 2S, >= 2(S-1)^2 (Leighton's
+    # condition), >= r
+    need = max(r, 2 * (S - 1) * (S - 1))
+    rp = ((need + 2 * S - 1) // (2 * S)) * (2 * S)
+    h, q = rp // 2, rp // S
+    pad_n = rp - r
+    key_idx = [tensor_names.index(k) for k in keys]
+    valid = _valid_dev(dist)
+
+    # a shard's state: [flag, rowid, col_0, col_1, ...], rp rows each
+    state = []
+    for s, dev in enumerate(devs):
+        flag = torch.cat([torch.where(valid.shards[s], 0, 1).to(torch.int8),
+                          torch.full((pad_n,), 2, dtype=torch.int8,
+                                     device=dev)])
+        rowid = torch.cat([s * r + torch.arange(r, device=dev),
+                           torch.zeros(pad_n, dtype=torch.int64,
+                                       device=dev)])
+        cols = []
+        for n in tensor_names:
+            c = dist.columns[n].shards[s]
+            cols.append(torch.cat([c, c.new_zeros((pad_n,)
+                                                  + tuple(c.shape[1:]))]))
+        state.append([flag, rowid] + cols)
+
+    def colsort(st):
+        order = lexsort_order(
+            [st[0]] + [_key_transform(st[2 + i], descending)
+                       for i in key_idx] + [st[1]])
+        return [t.index_select(0, order) for t in st]
+
+    def deal(parts):
+        return [torch.cat([p[d::S].to(devs[d]) for p in parts])
+                for d in range(S)]
+
+    def undeal(parts):
+        return [torch.stack([p[d * q:(d + 1) * q].to(devs[d])
+                             for p in parts], 1)
+                .reshape((rp,) + tuple(parts[0].shape[1:]))
+                for d in range(S)]
+
+    def exchange(fn, st):
+        moved = [fn([sh[i] for sh in st]) for i in range(len(st[0]))]
+        return [[m[s] for m in moved] for s in range(S)]
+
+    with torch.no_grad():
+        state = [colsort(st) for st in state]                       # 1
+        state = exchange(deal, state)                               # 2
+        state = [colsort(st) for st in state]                       # 3
+        state = exchange(undeal, state)                             # 4
+        state = [colsort(st) for st in state]                       # 5
+        shifted = []                                                # 6
+        for s, dev in enumerate(devs):
+            top = []
+            for i, t in enumerate(state[s]):
+                if s:
+                    prev = state[s - 1][i][h:].to(dev)
+                elif i == 0:
+                    prev = torch.full((rp - h,), -16, dtype=torch.int8,
+                                      device=dev)
+                else:
+                    prev = t.new_zeros((rp - h,) + tuple(t.shape[1:]))
+                top.append(torch.cat([prev, t[:h]]))
+            shifted.append(top)
+        shifted = [colsort(st) for st in shifted]                   # 7
+        out = []                                                    # 8
+        for s, dev in enumerate(devs):
+            nxt = (shifted[s + 1] if s < S - 1 else None)
+            out.append([torch.cat([b[h:], (nxt[i][:h].to(dev)
+                                            if nxt is not None
+                                            else state[s][i][h:])])
+                        for i, b in enumerate(shifted[s])])
+        sizes = [r] * S
+        order = ShardedArray(_reslice([o[1] for o in out], sizes, devs))
+        cols = [ShardedArray(_reslice([o[2 + j] for o in out], sizes, devs))
+                for j in range(len(tensor_names))]
+    return cols, order
 
 
 # ---------------------------------------------------------------------------
@@ -1057,10 +1435,12 @@ def _daggregate_eager(fetches, dist: DistributedFrame, keys,
 
 
 def _shuffle_route(num_groups: int, mesh: DeviceMesh) -> bool:
-    """The JAX package's high-cardinality auto-route
-    (``TFT_SHUFFLE_AGG_GROUPS``, default 131072; ``TFT_SHUFFLE``)."""
-    thr = env_int("TFT_SHUFFLE_AGG_GROUPS", 1 << 17)
-    return (bool(thr) and thr > 0 and env_bool("TFT_SHUFFLE", True)
+    """The high-cardinality auto-route: more than
+    ``TFT_SHUFFLE_AGG_GROUPS`` groups (default 131072) on more than one
+    shard, with the shuffle on (``TFT_SHUFFLE``)."""
+    from .exchange import shuffle_agg_groups_threshold, shuffle_enabled
+    thr = shuffle_agg_groups_threshold()
+    return (thr is not None and shuffle_enabled()
             and num_groups > thr and mesh.num_data_shards > 1)
 
 
@@ -1107,7 +1487,7 @@ def _daggregate(fetches, dist: DistributedFrame, keys,
         return _generic_daggregate(fetches, dist, keys,
                                    max_groups=max_groups)
     if any(_ops._is_sketch(v) for v in fetches.values()):
-        raise _later("sketch combiners in daggregate (_daggregate_sketch)")
+        return _daggregate_sketch(fetches, dist, keys, max_groups)
     col_combiners = fetches
     mesh = dist.mesh
     value_names = [n for n in schema.names if n not in keys]
@@ -1123,12 +1503,14 @@ def _daggregate(fetches, dist: DistributedFrame, keys,
         salt_plan = None
     else:
         ids, uniques, num_groups, salt_plan = _monoid_group_plan(dist, keys)
-        # high-cardinality keys: the JAX package hash-repartitions so that
-        # each device aggregates only its own key range
+        # high-cardinality keys: the dense per-shard tables below hold
+        # EVERY group on EVERY shard; past TFT_SHUFFLE_AGG_GROUPS the rows
+        # hash-repartition instead, so each shard aggregates only its own
+        # key range (O(groups / shards) state; parallel/exchange.py)
         if _shuffle_route(num_groups, mesh):
-            raise _later(
-                f"daggregate's shuffle route ({num_groups} groups over "
-                f"TFT_SHUFFLE_AGG_GROUPS; parallel/exchange.py)")
+            from .exchange import _shuffle_daggregate_impl
+            counters.inc("mesh.shuffle_agg_routes")
+            return _shuffle_daggregate_impl(fetches, dist, keys)
     if salt_plan is not None:
         prog_ids, prog_groups = salt_plan[0], salt_plan[1]
     else:
@@ -1187,6 +1569,83 @@ def attach_hot_keys(frame: TensorFrame, keys, uniques, salt_plan) -> None:
             "salt_slots": int(K),
         })
     frame._hot_keys = records
+
+
+def _daggregate_sketch(fetches, dist: DistributedFrame, keys,
+                       max_groups: Optional[int]) -> TensorFrame:
+    """The sketch half of a mesh aggregation.
+
+    Sketch combiners hash and bucket on the host in float64 (the
+    determinism contract that makes ``aggregate``, ``daggregate`` and the
+    stream agree bit for bit), so their partials fold from the host copies
+    of the value columns, on the first shard's device from
+    ``relational.sketch.DEVICE_FOLD_ROWS`` rows. Scalar combiners in the
+    same mapping keep the shards' segment reduce and collective (B1 for a
+    float sum); both halves share ONE cached group factorization, so
+    their group order is identical by construction."""
+    schema = dist.schema
+    if max_groups is not None:
+        raise ValueError(
+            "max_groups= (device-side group ids) does not compose with "
+            "sketch combiners — sketches hash on the host; drop "
+            "max_groups or the sketch fetches")
+    value_names = [n for n in schema.names if n not in keys]
+    _ops._validate_monoid_fetches(fetches, value_names,
+                                  "before distribute()", schema=schema)
+    if dist.num_rows == 0:
+        raise ValueError("aggregate on an empty distributed frame")
+    scalars = {f: c for f, c in fetches.items() if not _ops._is_sketch(c)}
+    sketches = {f: c for f, c in fetches.items() if _ops._is_sketch(c)}
+
+    ids_dev, uniques, num_groups, salt_plan = _monoid_group_plan(dist, keys)
+    # the scalar half sees only its own columns; the group order is the
+    # same by construction (same key data, same host factorization)
+    scalar_out = (_daggregate(
+        scalars, dist.select(list(keys) + sorted(scalars)), keys, None)
+        if scalars else None)
+
+    ids_host = ids_dev.numpy()
+    ids = ids_host[ids_host >= 0].astype(np.int64)
+    mask = dist.valid_row_mask()
+    dev0 = dist.mesh.shard_devices()[0]
+    sketch_cols: Dict[str, np.ndarray] = {}
+    with span("daggregate.sketch_fold"):
+        for f in sorted(sketches):
+            sk = sketches[f]
+            a = _read_global(dist.columns[f])
+            vals = a[mask] if dist.shard_valid is not None \
+                else a[: dist.num_rows]
+            if schema[f].dtype.tensor:
+                vals = to_storage_dtype(vals, schema[f].dtype)
+            table = sk.block_partial(np.asarray(vals), ids, num_groups,
+                                     device=dev0)
+            counters.inc("relational.sketch_folds")
+            sketch_cols.update(sk.finalize(f, table))
+
+    # keys + sorted fetch columns (a sketch's outputs inline after its
+    # fetch name)
+    out_fields = [schema[k] for k in keys]
+    cols: Dict[str, object] = {}
+    if scalar_out is not None:
+        sb = Block.concat(scalar_out.blocks(), scalar_out.schema)
+        for k in keys:
+            cols[k] = sb.columns[k]
+    else:
+        for k, u in zip(keys, uniques):
+            cols[k] = np.asarray(u)
+    for f in sorted(fetches):
+        if f in sketches:
+            for fld in sketches[f].out_fields(f, schema[f]):
+                out_fields.append(fld)
+                cols[fld.name] = sketch_cols[fld.name]
+        else:
+            out_fields.append(scalar_out.schema[f])
+            cols[f] = sb.columns[f]
+    out = TensorFrame.from_blocks([Block(cols, num_groups)],
+                                  Schema(out_fields))
+    if salt_plan is not None:
+        attach_hot_keys(out, keys, uniques, salt_plan)
+    return out
 
 
 def _segmented_fold(comp, names, mesh: DeviceMesh, arrays, ids: ShardedArray,

@@ -19,10 +19,24 @@ probe row, build matches in build-row order. ``how`` is ``"inner"`` or
 included, 0 for ints, False for bools, ``""`` for strings; pass
 ``indicator=`` for an explicit int32 matched column).
 
-**Sort-merge join**: both sides sort by key with the host ``order_by``
-(stable), then the two key-sorted streams merge on the host with a
-vectorized group-cartesian expansion. Output order: key-ascending, stable by
-original row order within ties.
+**Sort-merge join**: both sides sort by key, with the host ``order_by``
+or, given a ``mesh``, the mesh ``dsort`` (both stable, so both give the
+same order), then the two key-sorted streams merge on the host with a
+vectorized group-cartesian expansion. Output order: key-ascending, stable
+by original row order within ties.
+
+**Partitioned hash join** (a mesh, large build sides): both sides
+hash-repartition by key through ``parallel.dexchange``; every shard builds
+a :class:`BuildTable` over its own key range and probes its own left rows,
+so a shard holds about 1/S of the build. A carried row id and one stable
+sort restore the broadcast join's probe order, and the left frame's block
+boundaries are re-cut: the result equals the broadcast join's.
+
+``join()`` routes: broadcast without a mesh or for a build side estimated
+under ``TFT_BROADCAST_LIMIT_BYTES`` (64 MiB); above it on a multi-shard
+mesh, the partitioned join, or with ``TFT_SHUFFLE=0`` the mesh sort-merge
+join (numeric keys). The decision is flight-recorded
+(``relational.join_route``) and rendered by ``explain()``.
 
 Both strategies are LAZY and record a :class:`~..plan.nodes.JoinNode`, so
 downstream chains fuse over the join result, and column pruning reaches
@@ -39,15 +53,14 @@ copied for its own dispatch (``relational.build_chunks``, span
 held as :class:`~..memory.spill.SpillableColumns`, so it can be spilled
 under pressure and faults back at its next probe.
 
-Not in this package yet: the mesh sort-merge
-and the shuffle-partitioned joins (the parallel layer), the streaming
-enrichment ``StreamingFrame.join`` (the stream layer), and the flight
-record and metrics families of the routing decision (observability). The
-``relational.*`` counters keep the JAX package's names.
+The ``relational.*`` counters keep the JAX package's names. Every mesh
+join runs once: the JAX package's re-pairing of two exchanged sides after
+a device loss needs the elastic layer (``ROADMAP.md`` A item 7b).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -65,6 +78,8 @@ __all__ = ["join", "broadcast_join", "sort_merge_join",
            "partitioned_hash_join", "BuildTable", "approx_key_distinct"]
 
 _log = get_logger("relational.join")
+
+_DEFAULT_BROADCAST_LIMIT = 64 << 20
 
 
 def _fill_value(field):
@@ -604,19 +619,18 @@ def _left_rows_hint(left: TensorFrame):
             nbytes)
 
 
-def _mesh_unavailable(what: str):
-    return NotImplementedError(
-        f"{what} runs on a device mesh, which needs the parallel layer "
-        f"(ROADMAP A item 7b) that tensorframes_tpu_torch does not have yet; "
-        f"pass mesh=None")
-
-
 def _sorted_merged(df: TensorFrame, names: Sequence[str],
-                   on: List[str]) -> Block:
+                   on: List[str], mesh=None) -> Block:
     """The frame's rows (at least ``names`` and the keys) as ONE block,
-    key-sorted ascending, stable by original row order: the host
-    ``order_by``."""
+    key-sorted ascending, stable by original row order: through the mesh
+    ``dsort`` (with its external-sort route) when a mesh is given, the
+    host ``order_by`` otherwise. Both are stable, so both give the same
+    order."""
     sub = _pruned(df, names, on)
+    if mesh is not None and sum(b.num_rows for b in sub.blocks()) > 0:
+        from ..parallel.distributed import distribute, dsort
+        sorted_df = dsort(on, distribute(sub, mesh)).collect_frame()
+        return Block.concat(sorted_df.blocks(), sub.schema)
     return Block.concat(sub.order_by(*on).blocks(), sub.schema)
 
 
@@ -639,12 +653,12 @@ def _group_spans(key_arrays: List[np.ndarray]
 def sort_merge_join(left: TensorFrame, right: TensorFrame, on,
                     how: str = "inner", mesh=None,
                     indicator: Optional[str] = None) -> TensorFrame:
-    """Sort-merge join (lazy), both sides sorted by the host ``order_by``.
+    """Sort-merge join (lazy).
 
-    Keys must be numeric scalars; string columns ride along. Output is
-    key-sorted, stable by original row order within equal keys, and
-    re-partitioned to the left frame's partition count. A ``mesh`` raises
-    ``NotImplementedError``: the mesh sort needs the parallel layer.
+    Keys must be numeric scalars; string columns ride along. Given a
+    ``mesh``, both sides sort there through ``parallel.dsort`` (the same
+    order). Output is key-sorted, stable by original row order within
+    equal keys, and re-partitioned to the left frame's partition count.
     """
     on = _validate_on(left.schema, right.schema,
                       [on] if isinstance(on, str) else list(on))
@@ -655,8 +669,6 @@ def sort_merge_join(left: TensorFrame, right: TensorFrame, on,
                 f"sort_merge_join key {k!r} must be numeric (the dsort "
                 f"contract); use the partitioned strategy for string "
                 f"keys")
-    if mesh is not None:
-        raise _mesh_unavailable("sort_merge_join with a mesh")
     out_schema = join_schema(left.schema, right.schema, on, how,
                              indicator)
     counters.inc("relational.sort_merge_joins")
@@ -665,8 +677,8 @@ def sort_merge_join(left: TensorFrame, right: TensorFrame, on,
     def materialize(names: Sequence[str]) -> List[Block]:
         out_set = set(names)
         with span("join.sort_merge"):
-            lm = _sorted_merged(left, names, on)
-            rm = _sorted_merged(right, names, on)
+            lm = _sorted_merged(left, names, on, mesh)
+            rm = _sorted_merged(right, names, on, mesh)
             lkeys = [np.asarray(lm.columns[k]) for k in on]
             rkeys = [np.asarray(rm.columns[k]) for k in on]
             lu, lstarts, lcounts = _group_spans(lkeys)
@@ -755,63 +767,284 @@ def sort_merge_join(left: TensorFrame, right: TensorFrame, on,
 # partitioned hash join (shuffle exchange)
 # ---------------------------------------------------------------------------
 
+_PROW = "_tft_prow"  # the carried probe row id column (internal)
+
+
+def _partition_keys_ok(left_schema: Schema, right_schema: Schema,
+                       on: Sequence[str]) -> bool:
+    """Whether the exchange may hash these keys: present on both sides,
+    scalar, equally host or device, and (device keys) of the same
+    storage dtype: the device hash is a bit hash, so an int32 key against
+    an int64 one would place equal values on different shards."""
+    for k in on:
+        lf = left_schema.get(k)
+        rf = right_schema.get(k)
+        if lf is None or rf is None:
+            return False
+        if lf.sql_rank != 0 or rf.sql_rank != 0:
+            return False
+        if lf.dtype.tensor != rf.dtype.tensor:
+            return False
+        if lf.dtype.tensor and (np.dtype(lf.dtype.np_storage)
+                                != np.dtype(rf.dtype.np_storage)):
+            return False
+    return True
+
+
+def _empty_like(field):
+    if not field.dtype.tensor:
+        return []
+    cell = ()
+    if field.block_shape is not None:
+        cell = tuple(d if isinstance(d, int) and d > 0 else 0
+                     for d in field.block_shape.dims[1:])
+    return np.empty((0,) + cell, field.dtype.np_storage)
+
+
 def partitioned_hash_join(left: TensorFrame, right: TensorFrame, on,
                           how: str = "inner", mesh=None,
                           indicator: Optional[str] = None) -> TensorFrame:
-    """Shuffle-partitioned hash join: both sides hash-repartitioned by key
-    across a device mesh, each shard building and probing only its own key
-    range. It needs a mesh (``ValueError`` without one) and the parallel
-    layer, which this package does not have yet (``NotImplementedError``
-    with one)."""
+    """Shuffle-partitioned hash join (lazy): BOTH sides hash-repartition by
+    key through :func:`~..parallel.exchange.dexchange`, then every shard
+    builds a :class:`BuildTable` over ONLY its own key range and probes
+    only its own left rows: a shard's build memory is O(R/S) instead of
+    broadcast's O(R). Equal keys land on one shard (placement is a
+    function of the key value and the shard count), so the shards' probes
+    see every match.
+
+    The output equals :func:`broadcast_join`'s: a carried row id restores
+    the probe order with one stable sort and the left frame's block
+    boundaries are re-cut. String keys hash on the host; key STORAGE
+    dtypes must match across sides. An empty side, a one-shard mesh or
+    ``TFT_SHUFFLE=0`` falls back to the broadcast join, with the same
+    result. Per-shard and global build bytes are recorded on the result
+    as ``_partitioned_info`` when it is forced."""
     if mesh is None:
         raise ValueError("partitioned_hash_join needs a mesh; use "
                          "broadcast_join for host-only frames")
-    _validate_on(left.schema, right.schema,
-                 [on] if isinstance(on, str) else list(on))
-    raise _mesh_unavailable("partitioned_hash_join")
+    on = _validate_on(left.schema, right.schema,
+                      [on] if isinstance(on, str) else list(on))
+    from ..engine.ops import InvalidTypeError
+    if not _partition_keys_ok(left.schema, right.schema, on):
+        raise InvalidTypeError(
+            f"partitioned_hash_join keys {on!r} have mismatched storage "
+            f"dtypes across sides; cast one side first")
+    from ..parallel import exchange as _ex
+    if not _ex.shuffle_enabled() or mesh.num_data_shards <= 1:
+        counters.inc("relational.partitioned_fallbacks")
+        return broadcast_join(left, right, on, how=how,
+                              indicator=indicator)
+    out_schema = join_schema(left.schema, right.schema, on, how,
+                             indicator)
+    counters.inc("relational.partitioned_joins")
+
+    def materialize(names: Sequence[str]) -> List[Block]:
+        out_set = set(names)
+        with span("join.partitioned"):
+            from ..parallel.distributed import distribute
+            lneeded = [f.name for f in left.schema
+                       if f.name in out_set or f.name in on]
+            rneeded = [f.name for f in right.schema
+                       if f.name in out_set or f.name in on]
+            lf = left.select(lneeded) \
+                if set(lneeded) != set(left.schema.names) else left
+            rf = right.select(rneeded) \
+                if set(rneeded) != set(right.schema.names) else right
+            lblocks = lf.blocks()
+            lm = Block.concat(lblocks, lf.schema)
+            block_sizes = [b.num_rows for b in lblocks]
+            rm = Block.concat(rf.blocks(), rf.schema)
+            if lm.num_rows == 0 or rm.num_rows == 0:
+                # a degenerate side: the broadcast join IS the
+                # partitioned plan here (an empty exchange buys nothing)
+                counters.inc("relational.partitioned_fallbacks")
+                build = BuildTable(rf, on)
+                return [probe_block(build, b, how, list(names),
+                                    indicator=indicator)
+                        for b in lblocks]
+            lcols = dict(lm.columns)
+            lcols[_PROW] = np.arange(lm.num_rows, dtype=np.int64)
+            lschema = Schema(list(lf.schema) + [Field(_PROW, _dt.int64)])
+            lex = _ex.dexchange(on, distribute(
+                TensorFrame.from_columns(lcols, schema=lschema), mesh))
+            rex = _ex.dexchange(on, distribute(
+                TensorFrame.from_columns(dict(rm.columns),
+                                         schema=rf.schema), mesh))
+            if lex.mesh.num_data_shards != rex.mesh.num_data_shards:
+                # the JAX package re-exchanges the wider side after a
+                # device loss shrank one exchange (elastic.reshard)
+                raise NotImplementedError(
+                    "re-pairing the two sides of a partitioned join whose "
+                    "shard counts differ after a device loss needs the "
+                    "elastic layer (elastic.reshard), which is not ported "
+                    "to tensorframes_tpu_torch yet: ROADMAP.md A item 7b")
+            S = lex.mesh.num_data_shards
+            lrp = lex.padded_rows // S
+            rrp = rex.padded_rows // S
+            lvalid = lex.per_shard_valid()
+            rvalid = rex.per_shard_valid()
+            lhost = {n: lex.host_read_padded(n) for n in lneeded + [_PROW]}
+            rhost = {n: rex.host_read_padded(n) for n in rneeded}
+
+            def shard_cols(host, schema, rows_per, s, k):
+                out = {}
+                for n, full in host.items():
+                    a = full[s * rows_per: s * rows_per + k]
+                    fld = schema[n]
+                    if isinstance(a, np.ndarray) and fld.dtype.tensor \
+                            and a.dtype != fld.dtype.np_storage:
+                        a = a.astype(fld.dtype.np_storage)
+                    out[n] = a
+                return out
+
+            probe_names = list(names) + [_PROW]
+            parts: List[Block] = []
+            build_bytes: List[int] = []
+            for s in range(S):
+                lk = int(lvalid[s])
+                rk = int(rvalid[s])
+                if lk == 0:
+                    continue
+                rshard = TensorFrame.from_columns(
+                    shard_cols(rhost, rex.schema, rrp, s, rk),
+                    schema=rf.schema)
+                build = BuildTable(rshard, on)
+                build_bytes.append(int(build.dev_bytes))
+                lblk = Block(shard_cols(lhost, lex.schema, lrp, s, lk), lk)
+                parts.append(probe_block(build, lblk, how, probe_names,
+                                         indicator=indicator))
+            part_schema = Schema([out_schema[n] for n in names
+                                  if out_schema.get(n) is not None]
+                                 + [Field(_PROW, _dt.int64)])
+            if parts:
+                cat = Block.concat(parts, part_schema)
+            else:
+                cat = Block({n: (np.empty(0, np.int64) if n == _PROW
+                                 else _empty_like(out_schema[n]))
+                             for n in part_schema.names}, 0)
+            # the matches of one probe row all lie on ONE shard (equal
+            # keys land together), so a stable sort by the carried row id
+            # restores the broadcast join's probe order exactly
+            prow = np.asarray(cat.columns[_PROW])
+            perm = np.argsort(prow, kind="stable")
+            prow_sorted = prow[perm]
+            cols = {n: (cat.columns[n][perm]
+                        if isinstance(cat.columns[n], np.ndarray)
+                        else [cat.columns[n][i] for i in perm])
+                    for n in part_schema.names if n != _PROW}
+            counters.inc("relational.partitioned_probe_rows",
+                         int(lm.num_rows))
+            out._partitioned_info = {
+                "shards": S,
+                "build_bytes": build_bytes,
+                "max_build_bytes": max(build_bytes, default=0),
+                "global_build_bytes": int(sum(build_bytes)),
+            }
+            ex_info = getattr(lex, "_exchange", None)
+            if ex_info is not None:
+                out._exchange_skew = ex_info
+            # re-cut the left frame's block boundaries
+            bounds = np.cumsum(np.asarray(block_sizes, np.int64))
+            splits = np.searchsorted(prow_sorted, bounds, side="left")
+            blocks: List[Block] = []
+            a = 0
+            for b in splits.tolist():
+                blocks.append(Block(
+                    {n: (c[a:b] if isinstance(c, np.ndarray)
+                         else list(c[a:b])) for n, c in cols.items()},
+                    b - a))
+                a = b
+            return blocks
+
+    rows_h, _ = _left_rows_hint(left)
+    out = TensorFrame(
+        out_schema, lambda: materialize(out_schema.names),
+        left.num_partitions,
+        plan=f"join[partitioned,{how}]({left._plan})",
+        rows_hint=rows_h if how == "left" else None)
+    _attach_join_node(out, left, right, on, how, "partitioned",
+                      materialize)
+    return out
+
+
+def _broadcast_limit() -> int:
+    try:
+        return int(os.environ.get("TFT_BROADCAST_LIMIT_BYTES",
+                                  _DEFAULT_BROADCAST_LIMIT))
+    except ValueError:
+        return _DEFAULT_BROADCAST_LIMIT
+
+
+def _route_join(left: TensorFrame, right: TensorFrame, on_l, mesh,
+                how: str) -> Tuple[str, Dict[str, object]]:
+    """``join()``'s routing, with the decision record the flight ring
+    keeps: the strategy, the estimated build bytes it was judged on
+    (``frame_estimate``) and the limit it was judged against."""
+    from ..parallel import exchange as _ex
+    limit = _broadcast_limit()
+    _, rbytes = _memory.frame_estimate(right)
+    oversized = mesh is not None and (rbytes is None or rbytes > limit)
+    tensor_keys = all(
+        left.schema.get(k) is not None and left.schema[k].dtype.tensor
+        for k in on_l)
+    shuffle_ok = (_ex.shuffle_enabled() and mesh is not None
+                  and getattr(mesh, "num_data_shards", 1) > 1
+                  and _partition_keys_ok(left.schema, right.schema, on_l))
+    strategy = "broadcast"
+    reason = "no mesh" if mesh is None else "build fits"
+    if oversized:
+        if shuffle_ok:
+            # over the limit on a multi-shard mesh: shuffle both sides
+            # (string keys too)
+            strategy = "partitioned"
+            reason = "build over limit"
+        elif tensor_keys:
+            strategy = "sort_merge"
+            reason = ("build over limit (shuffle off)"
+                      if mesh is not None else "build over limit")
+        else:
+            # string keys without the shuffle can only broadcast
+            reason = "string keys, shuffle off"
+    route = {"strategy": strategy, "reason": reason,
+             "est_build_bytes": (int(rbytes) if rbytes is not None
+                                 else None),
+             "limit": limit, "how": how,
+             "shuffle": bool(_ex.shuffle_enabled()),
+             "keys": list(on_l)}
+    return strategy, route
 
 
 def join(left: TensorFrame, right: TensorFrame, on,
          how: str = "inner", strategy: Optional[str] = None,
          mesh=None, indicator: Optional[str] = None) -> TensorFrame:
-    """Join two frames (lazy). ``strategy=None`` routes to the broadcast
-    join, the only route without a mesh, and records the decision on the
-    result as ``_join_route``. Every route the port takes, broadcast or a
-    requested sort-merge, is flight-recorded (``relational.join_route``,
-    with the build side's estimated bytes; ``ttf.why()`` renders it). A
-    ``mesh`` raises ``NotImplementedError``: the routing between
-    broadcast, partitioned and mesh sort-merge joins (``TFT_SHUFFLE``,
-    ``TFT_BROADCAST_LIMIT_BYTES``) comes with the parallel layer."""
-    if mesh is not None:
-        raise _mesh_unavailable("join with a mesh")
+    """Join two frames (lazy). ``strategy=None`` routes: the broadcast
+    join for a build side estimated under ``TFT_BROADCAST_LIMIT_BYTES``
+    (default 64 MiB) or without a mesh; the shuffle-partitioned hash join
+    for a larger build on a multi-shard mesh (string keys included); the
+    mesh sort-merge join when the shuffle is off (``TFT_SHUFFLE=0``) and
+    the keys are numeric. The choice is flight-recorded
+    (``relational.join_route``; ``ttf.why()`` renders it), kept on the
+    result as ``_join_route`` and rendered by ``explain()``."""
     on_l = [on] if isinstance(on, str) else list(on)
     route = None
-    reason = "requested"
     if strategy is None:
-        strategy, reason = "broadcast", "no mesh"
-        route = {"strategy": strategy, "reason": reason, "how": how,
-                 "keys": on_l}
+        strategy, route = _route_join(left, right, on_l, mesh, how)
     if strategy == "broadcast":
         out = broadcast_join(left, right, on, how=how,
                              indicator=indicator)
     elif strategy == "sort_merge":
-        out = sort_merge_join(left, right, on, how=how,
+        out = sort_merge_join(left, right, on, how=how, mesh=mesh,
                               indicator=indicator)
     elif strategy == "partitioned":
-        out = partitioned_hash_join(left, right, on, how=how,
+        out = partitioned_hash_join(left, right, on, how=how, mesh=mesh,
                                     indicator=indicator)
     else:
         raise ValueError(
             f"unknown join strategy {strategy!r}; use 'broadcast', "
             f"'sort_merge', or 'partitioned'")
-    _, rbytes = _memory.frame_estimate(right)
-    from ..observability import flight as _flight
-    _flight.record("relational.join_route", strategy=strategy,
-                   reason=reason,
-                   est_build_bytes=(int(rbytes) if rbytes is not None
-                                    else None),
-                   how=how, shuffle=False, keys=on_l)
     if route is not None:
+        from ..observability import flight as _flight
+        _flight.record("relational.join_route", **route)
         out._join_route = route
     return out
 
@@ -820,8 +1053,6 @@ def join(left: TensorFrame, right: TensorFrame, on,
 # metrics
 # ---------------------------------------------------------------------------
 
-# the JAX package's families; the partitioned ones read 0 until the
-# parallel layer gives the port a partitioned join
 _REL_FAMILIES = (
     ("relational.broadcast_joins", "tft_relational_broadcast_joins_total",
      "Broadcast hash joins defined."),

@@ -1390,3 +1390,118 @@ def test_mesh_ops_on_the_card_launch_b1_on_every_shard(cuda, shards):
         np.testing.assert_array_equal(a["c"], b["c"])
         np.testing.assert_allclose(a["x"], b["x"], rtol=1e-12)
         np.testing.assert_allclose(a["v"], b["v"], rtol=1e-5)
+
+
+def _card_and_cpu_meshes(cuda, shards):
+    from tensorframes_tpu_torch import parallel
+
+    return {where: parallel.DeviceMesh(np.array([device] * shards,
+                                                dtype=object))
+            for where, device in (("card", cuda),
+                                  ("cpu", torch.device("cpu")))}
+
+
+def _host_columns(frame):
+    blocks = frame.blocks()
+    return {n: np.concatenate([np.asarray(b.columns[n]) for b in blocks])
+            for n in frame.schema.names}
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+@pytest.mark.parametrize("descending", [False, True])
+def test_dsort_on_the_card_equals_the_cpu(cuda, shards, descending):
+    """``dsort`` on logical shards of the card (columnsort on 8, the
+    one-device program on 1) against the same sort over CPU shards, bit
+    for bit, with keys holding -0.0 and 0.0, NaN and -NaN, +-inf and the
+    integer extremes, at a size where the card sorts by radix."""
+    from tensorframes_tpu_torch import parallel
+
+    rng = np.random.default_rng(23)
+    n = 200_003
+    f = np.round(rng.standard_normal(n), 2)
+    f[rng.choice(n, 600, replace=False)] = [0.0, -0.0, np.nan, -np.nan,
+                                            np.inf, -np.inf] * 100
+    i = rng.integers(-40, 40, n)
+    i[::997] = np.iinfo(np.int64).min
+    i[5::991] = np.iinfo(np.int64).max
+    df = ttf.frame({"f": f, "f32": f.astype(np.float32), "i": i,
+                    "tag": np.arange(n)}, num_partitions=3)
+    out = {}
+    for where, mesh in _card_and_cpu_meshes(cuda, shards).items():
+        dist = parallel.distribute(df, mesh)
+        out[where] = [_host_columns(parallel.dsort(
+            keys, dist, descending=descending).collect_frame())
+            for keys in ("f", "f32", ["i", "f"])]
+    for card, cpu in zip(out["card"], out["cpu"]):
+        for name in card:
+            np.testing.assert_array_equal(card[name], cpu[name])
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32", "float64", "float32"])
+def test_dexchange_on_the_card_places_by_the_host_hash(cuda, dtype):
+    """The device key hash on the card places every row on the shard the
+    CPU shards' exchange picks, in the same order, and for exact key
+    dtypes on ``exchange_hash_host(keys) % 8``."""
+    from tensorframes_tpu_torch import parallel
+
+    rng = np.random.default_rng(29)
+    n = 100_000
+    k = (rng.standard_normal(n) * 1e4).astype(dtype)
+    if dtype.startswith("float"):
+        k[:6] = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf]
+    else:
+        k[:2] = [np.iinfo(dtype).min, np.iinfo(dtype).max]
+    df = ttf.frame({"k": k, "tag": np.arange(n)}, num_partitions=2)
+    out = {}
+    for where, mesh in _card_and_cpu_meshes(cuda, 8).items():
+        ex = parallel.dexchange("k", parallel.distribute(df, mesh))
+        rows = ex.padded_rows // 8
+        tag = ex.host_read_padded("tag")
+        out[where] = [tag[s * rows:s * rows + int(c)]
+                      for s, c in enumerate(ex.per_shard_valid())]
+    for a, b in zip(out["card"], out["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    if dtype != "float32":
+        dest = (parallel.exchange.exchange_hash_host([k])
+                % np.uint64(8)).astype(np.int64)
+        for s, tags in enumerate(out["card"]):
+            np.testing.assert_array_equal(tags, np.flatnonzero(dest == s))
+
+
+def test_shuffle_aggregate_and_joins_on_the_card(cuda, monkeypatch):
+    """``shuffle_daggregate`` (B1 once per shard), the partitioned join and
+    the mesh sort-merge join on 8 logical shards of the card, against the
+    same calls over CPU shards."""
+    from tensorframes_tpu_torch import parallel, relational
+
+    monkeypatch.setenv("TFT_BROADCAST_LIMIT_BYTES", "1000")
+    rng = np.random.default_rng(31)
+    n = 50_000
+    df = ttf.frame({"k": rng.integers(0, 20_000, n), "x": rng.random(n),
+                    "c": rng.integers(-9, 9, n)}, num_partitions=4)
+    left = ttf.frame({"k": rng.integers(0, 8_000, n), "lv": rng.random(n)},
+                     num_partitions=3)
+    right = ttf.frame({"k": rng.permutation(6_000), "w": rng.random(6_000)})
+    out = {}
+    for where, mesh in _card_and_cpu_meshes(cuda, 8).items():
+        l0 = segment_reduce.launches
+        agg = parallel.shuffle_daggregate(
+            {"x": "sum", "c": "max"}, parallel.distribute(df, mesh), "k")
+        res = {"agg": _host_columns(agg)}
+        if where == "card":
+            assert segment_reduce.launches - l0 == 8
+        part = relational.join(left, right, "k", mesh=mesh)
+        assert part._join_route["strategy"] == "partitioned"
+        res["part"] = _host_columns(part)
+        res["blocks"] = [b.num_rows for b in part.blocks()]
+        res["smj"] = _host_columns(relational.sort_merge_join(
+            left, right, "k", mesh=mesh))
+        out[where] = res
+    card, cpu = out["card"], out["cpu"]
+    np.testing.assert_array_equal(card["agg"]["k"], cpu["agg"]["k"])
+    np.testing.assert_array_equal(card["agg"]["c"], cpu["agg"]["c"])
+    np.testing.assert_allclose(card["agg"]["x"], cpu["agg"]["x"], rtol=1e-12)
+    assert card["blocks"] == cpu["blocks"]
+    for name in ("part", "smj"):
+        for c in card[name]:
+            np.testing.assert_array_equal(card[name][c], cpu[name][c])

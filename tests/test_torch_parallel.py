@@ -1,8 +1,10 @@
 """The port's parallel layer (``tensorframes_tpu_torch/parallel/``) against
 the JAX package's on the same seeded frames: the cases of
-``tests/test_parallel.py`` that the port has (all but ``TestDSort``,
-``TestColumnsort`` and the ring cases) and ``tests/test_elastic.py``'s
-``TestHotKeySalting``, each run through both packages.
+``tests/test_parallel.py`` that the port has (all but the ring cases;
+``TestDSort``, ``TestColumnsort`` and the sort of
+``TestHostMeshConformance`` are in ``tests/test_torch_dsort.py``) and
+``tests/test_elastic.py``'s ``TestHotKeySalting``, each run through both
+packages.
 
 Both run on 8-shard meshes: the JAX package on the conftest's 8 virtual CPU
 devices, the port on 8 logical CPU shards (``TFT_CPU_DEVICE_COUNT=8``);
@@ -985,33 +987,29 @@ class TestHotKeySalting:
 # ---------------------------------------------------------------------------
 
 def test_unported_routes_raise_naming_their_item(meshes, monkeypatch):
-    from tensorframes_tpu_torch.relational import approx_distinct
-
     dist = tpar.distribute(ttf.frame({"k": np.arange(8) % 2,
                                       "x": np.arange(8.0)}),
                            meshes["torch"])
     with pytest.raises(NotImplementedError, match="A item 7b"):
-        tpar.dsort("x", dist)
-    with pytest.raises(NotImplementedError, match="A item 7b"):
         dist.lazy()
-    with pytest.raises(NotImplementedError, match="A item 7b"):
-        tpar.daggregate({"x": approx_distinct()}, dist, "k")
-    for name in ("admit_devices", "grow_mesh", "probe_device", "dexchange",
-                 "shuffle_daggregate", "shuffle_enabled", "ring_attention",
-                 "ring_allreduce", "cluster_mesh", "distribute_local",
-                 "initialize"):
+    for name in ("admit_devices", "grow_mesh", "probe_device",
+                 "ring_attention", "ring_allreduce", "cluster_mesh",
+                 "distribute_local", "initialize"):
         assert name in tpar.__all__ and name in jpar.__all__
         with pytest.raises(NotImplementedError, match=f"{name}.*A item 7b"):
             getattr(tpar, name)()
     assert sorted(tpar.__all__) == sorted(jpar.__all__)
+    # the shuffle route is ported (tests/test_torch_shuffle.py): past the
+    # threshold on 8 shards it routes; one shard never shuffles, nor does
+    # the device-key path
     monkeypatch.setenv("TFT_SHUFFLE_AGG_GROUPS", "1")
-    with pytest.raises(NotImplementedError, match="shuffle route.*7b"):
-        tpar.daggregate({"x": "sum"}, dist, "k")
-    # one shard never shuffles, nor does the device-key path
+    tpar.daggregate({"x": "sum"}, dist, "k")
+    assert tcounters.get("mesh.shuffle_agg_routes") == 1
     tpar.daggregate({"x": "sum"}, tpar.distribute(
         ttf.frame({"k": np.arange(8) % 2, "x": np.arange(8.0)}),
         meshes["torch1"]), "k")
     tpar.daggregate({"x": "sum"}, dist, "k", max_groups=4)
+    assert tcounters.get("mesh.shuffle_agg_routes") == 1
     monkeypatch.delenv("TFT_SHUFFLE_AGG_GROUPS")
     monkeypatch.setenv("TFT_EXECUTOR", "pjrt")
     for call in (lambda: tpar.distribute(ttf.frame({"x": np.ones(2)}),

@@ -18,10 +18,11 @@ ledger's resident threshold is probed in chunks and any other is a
 spillable ledger entry; both packages are held to the same rows and the
 same ``relational.build_chunks`` / ``memory.*`` counters.
 
-Not mirrored here yet: the ``mesh8`` cases (mesh sort-merge, device loss,
-external sort, partitioned joins, ``daggregate`` sketches) wait for the
-rest of the parallel layer (ROADMAP A item 7b); the
-stream join and the stream sketch fold for the stream layer (A9).
+The ``mesh8`` cases (the mesh sort-merge join, its external sort, the
+partitioned join, ``daggregate``'s sketches) are mirrored in
+``tests/test_torch_shuffle.py``; their device-loss cases wait for the
+elastic layer (ROADMAP A item 7b). Not mirrored here yet: the stream join
+and the stream sketch fold (A9).
 """
 
 import importlib
@@ -259,10 +260,8 @@ class TestBroadcastJoin:
         assert _eq(_rows(to), _oracle_for(
             tl, ttf.frame(_right_unique_cols()), "k", "left"))
         assert_frames_match(jo, to)
-        # the port's route record is the JAX package's without its mesh
-        # inputs (limit, shuffle, estimated build bytes)
-        assert to._join_route == {k: jo._join_route[k]
-                                  for k in to._join_route}
+        # the port's route record is the JAX package's, key for key
+        assert to._join_route == jo._join_route
 
     def test_validation_errors(self):
         for m, rel, not_found in ((jtf, jrel, JInputNotFound),
@@ -469,7 +468,7 @@ class TestChunkedBuild:
 
 
 # ---------------------------------------------------------------------------
-# sort-merge join (host order_by; the mesh variant waits for A item 7b)
+# sort-merge join (host order_by; the mesh variant in test_torch_shuffle.py)
 # ---------------------------------------------------------------------------
 
 def _smj_oracle(left, right, on, how, indicator=None):
@@ -533,15 +532,38 @@ class TestSortMergeJoin:
                                           indicator="hit"))
         assert_frames_match(jo, to)
 
-    def test_a_mesh_is_not_ported_yet(self):
-        left = ttf.frame(_left_cols())
-        right = ttf.frame(_right_unique_cols())
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            trel.sort_merge_join(left, right, on="k", mesh=object())
+    def test_a_mesh_is_not_ported_yet(self, monkeypatch):
+        """What of the mesh joins waits for the elastic layer (ROADMAP A
+        item 7b): re-pairing two exchanged sides whose shard counts differ
+        after a device loss. The mesh sort-merge join itself runs, and
+        equals the host one."""
+        from tensorframes_tpu_torch import parallel as tpar
+        from tensorframes_tpu_torch.parallel import exchange as tex
+
+        left = ttf.frame(_left_cols(), num_partitions=2)
+        right = ttf.frame(_right_dup_cols())
+        mesh = tpar.DeviceMesh(np.array([torch.device("cpu")] * 8,
+                                        dtype=object))
+        assert _eq(_rows(trel.sort_merge_join(left, right, on="k",
+                                              mesh=mesh)),
+                   _rows(trel.sort_merge_join(left, right, on="k")))
         with pytest.raises(ValueError, match="needs a mesh"):
             trel.partitioned_hash_join(left, right, on="k")
+        exchange = tex.dexchange
+        small = tpar.DeviceMesh(np.array([torch.device("cpu")] * 4,
+                                         dtype=object))
+
+        def shrunk_right(keys, dist):
+            # the right side's exchange comes back on fewer shards, as
+            # after a device loss
+            if "w" in dist.schema.names:
+                dist = tpar.distribute(dist.collect_frame(), small)
+            return exchange(keys, dist)
+
+        monkeypatch.setattr(tex, "dexchange", shrunk_right)
         with pytest.raises(NotImplementedError, match="A item 7b"):
-            trel.partitioned_hash_join(left, right, on="k", mesh=object())
+            trel.partitioned_hash_join(left, right, on="k",
+                                       mesh=mesh).collect()
 
 
 class TestRouting:
@@ -555,21 +577,36 @@ class TestRouting:
         jo, to = _both(build)
         assert_frames_match(jo, to)
         if strategy is None:
-            assert to._join_route == {"strategy": "broadcast",
-                                      "reason": "no mesh", "how": how,
-                                      "keys": ["k"]}
-            assert to._join_route == {k: jo._join_route[k]
-                                      for k in to._join_route}
+            assert to._join_route == {
+                "strategy": "broadcast", "reason": "no mesh",
+                "est_build_bytes": to._join_route["est_build_bytes"],
+                "limit": 64 << 20, "how": how, "shuffle": True,
+                "keys": ["k"]}
+            assert to._join_route == jo._join_route
         else:
             assert not hasattr(to, "_join_route")
 
     @pytest.mark.parametrize("strategy",
                              [None, "broadcast", "sort_merge", "partitioned"])
     def test_a_mesh_is_not_ported_yet(self, strategy):
-        left = ttf.frame(_left_cols())
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            trel.join(left, ttf.frame(_right_unique_cols()), on="k",
-                      strategy=strategy, mesh=object())
+        """Every strategy of ``join(mesh=)`` on an 8-shard mesh (named
+        before the mesh routes were ported): the port's rows, blocks and
+        route record are the JAX package's."""
+        from tensorframes_tpu import parallel as jpar
+        from tensorframes_tpu_torch import parallel as tpar
+
+        meshes = {jtf: jpar.local_mesh(8),
+                  ttf: tpar.DeviceMesh(np.array([torch.device("cpu")] * 8,
+                                                dtype=object))}
+
+        def build(m, rel):
+            left = m.frame(_left_cols(), num_partitions=3)
+            return rel.join(left, m.frame(_right_dup_cols()), on="k",
+                            strategy=strategy, mesh=meshes[m])
+        jo, to = _both(build)
+        assert_frames_match(jo, to)
+        assert getattr(to, "_join_route", None) == \
+            getattr(jo, "_join_route", None)
 
     def test_unknown_strategy(self):
         left = ttf.frame(_left_cols())
