@@ -46,6 +46,23 @@ paths through its public entry points and checks every result:
    ``partitioned`` and bit-identical to ``broadcast_join``, routed
    ``sort_merge`` under ``TFT_SHUFFLE=0`` and on one shard, with the same
    rows in key order; one JSON line a part;
+2e. the elastic mesh and the fused distributed plan (``elastic_20M``,
+   :func:`phase_elastic`): phase 2's 20M rows on 8 logical shards of the
+   card: (a) a device lost under each of ``dmap_blocks``, ``dfilter``,
+   ``dreduce_blocks`` sum and min, ``daggregate`` with host and device keys
+   and ``dsort``, each recovered onto 7 shards of the card, bit-equal to
+   the healthy run (f64 sums to rtol 1e-12 of numpy), the lost shard's rows
+   re-sharded, segment_sum once per surviving shard and float sum column;
+   (b) the lost shard admitted back and a second frame migrated at its next
+   dispatch; (c) a rebalance after synthetic persistent skew, then a
+   daggregate over the unequal shards; (d) the idle layer's wall against
+   ``elastic.bypass()``; (e) ``dmap -> dfilter -> dmap -> dreduce`` and
+   ``dmap -> daggregate`` eager and through ``lazy()`` (4 and 2 dispatches
+   against 1, no interstage host bytes, no fallback) and a device loss
+   mid-stage; (f) a windowed stream folding on the mesh, one dispatch and
+   8 segment_sum launches a fold. The path is traced, so each mesh op's
+   shard times feed the skew tracker: 2c, 2d and every part of 2e but (c)
+   must leave the layout alone (``mesh.rebalances`` unmoved);
 3. the k-means centre update: ``aggregate({"f": "sum"})`` over a 2M x 64
    f32 vector column grouped by 1,024 keys, against numpy f64 to rtol 1e-5;
 3b. the lazy query path from a file: the 20M-row workload written with
@@ -612,6 +629,346 @@ def phase_mesh_reference_workload(ttf, np, torch, segment_reduce,
                                 "hot_keys": hot_keys}
         out[name] = res
         del dist, z, flt, sel, agg, pdist, hdist
+    return out
+
+
+def valid_col(np, frame, name):
+    """A distributed frame's valid rows of one column, in global order."""
+    a = np.asarray(frame.host_read_padded(name))
+    return a[frame.valid_row_mask()]
+
+
+# synthetic per-shard times for part (c) of phase 2e, cumulative as the
+# d-ops record them: shard 7 adds ten times any other shard's time
+SKEWED_TIMES = [0.001 * (i + 1) for i in range(7)] + [0.017]
+
+
+def phase_elastic(ttf, np, torch, segment_reduce, n=20_000_000,
+                  keys=100_000, parts=8, shards=8, max_groups=131_072,
+                  lost=2, idle_reps=3, stream_rows=2_000_000,
+                  stream_batch=200_000, stream_keys=1_000,
+                  device="cuda") -> dict:
+    """The elastic mesh and the fused distributed plan (phase 2e,
+    ``elastic_20M``) on phase 2's 20M rows (``key`` in [0, ``keys``),
+    ``x`` uniform, an int64 ``c``) over ``shards`` logical shards of the
+    card:
+
+    (a) device loss: each op run healthy, then again with
+        ``faults.inject("device", 1)`` naming device ``lost``: dmap_blocks
+        (``z = x + x``), dfilter (``x < 0.75``), dreduce_blocks sum and
+        min, daggregate ``{"z": "sum", "c": "sum"}`` by ``key`` with host
+        and device keys (``max_groups``) and dsort by ``key``; each
+        finishes on ``shards - 1`` shards of the card, maps, filters,
+        sorts, min and integer sums bit-equal to the healthy run, f64 sums
+        within rtol 1e-12 of numpy, ``mesh.reshard_rows`` equal to the
+        lost shard's valid rows, B1 once per surviving shard and float
+        sum column; both walls printed;
+    (b) growth: ``admit_devices`` takes the lost shard back from the lost
+        pool; a second frame on the shrunken mesh migrates at its next
+        dispatch (``mesh.grow_migrations`` 1), its map bit-identical;
+    (c) rebalance: :data:`SKEWED_TIMES` fed through ``note_dispatch``
+        ``TFT_SKEW_REBALANCE_AFTER`` times; the next map repartitions in
+        proportion (its per-shard valid rows printed), bit-identical, and
+        a device-key daggregate over the unequal shards launches B1 on
+        each;
+    (d) the idle layer's cost: the healthy ``dmap -> daggregate`` chain
+        (device keys, so that no host factorization hides the layer)
+        with the layer on and under ``elastic.bypass()``, alternating,
+        ``idle_reps`` each, walls printed (not gated);
+    (e) the fused plan: ``dmap -> dfilter -> dmap -> dreduce`` and ``dmap
+        -> daggregate``, eager and through ``lazy()``: integers bit-equal,
+        f64 within rtol 1e-12, 4 dispatches against 1 and 2 against 1,
+        interstage host bytes > 0 against 0, no fallback, B1 once per
+        shard in the fused aggregate, a device loss mid-stage recovered;
+    (f) a windowed stream of integer-valued f64 sums (``stream_rows``
+        events, exact in f64) on the mesh equal to the one-device run,
+        one mesh dispatch and ``shards`` B1 launches per fold.
+
+    The path is traced, so the card's own shard times feed the skew
+    tracker throughout: ``mesh.rebalances`` moves once in the phase, at
+    part (c), and nowhere else."""
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.parallel import elastic
+    from tensorframes_tpu_torch.resilience import faults
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    rng = np.random.default_rng(2)
+    key = rng.integers(0, keys, n)
+    x = rng.random(n)
+    c = rng.integers(-1000, 1000, n)
+    z = x + x
+    keep = x < 0.75
+    want_z = np.bincount(key, weights=z, minlength=keys)
+    want_c = np.bincount(key, weights=c, minlength=keys).astype(np.int64)
+    present = np.flatnonzero(np.bincount(key, minlength=keys))
+    df = ttf.frame({"key": key, "x": x, "c": c}, num_partitions=parts)
+    dev = torch.device(device)
+    mesh = parallel.DeviceMesh(np.array([dev] * shards, dtype=object))
+    message = f"DEVICE_LOST: injected fault: device {lost} is lost"
+    out = {"rows": n, "shards": shards, "lost_device": lost}
+
+    def lose(fn):
+        """``fn()`` with the device site armed once; its wall, the rows
+        re-sharded and the B1 launches it made."""
+        r0 = counters.get("mesh.reshard_rows")
+        l0 = segment_reduce.launches
+        with faults.inject("device", 1, message=message):
+            res, wall = timed(torch, fn)
+        return (res, wall, counters.get("mesh.reshard_rows") - r0,
+                segment_reduce.launches - l0)
+
+    def check_aggregate(frame, what):
+        cols = host_cols(np, frame)
+        np.testing.assert_array_equal(cols["key"], present)
+        np.testing.assert_array_equal(cols["c"], want_c[present])
+        np.testing.assert_allclose(cols["z"], want_z[present], rtol=1e-12)
+        return cols
+
+    rb_start = counters.get("mesh.rebalances")
+    dist, out["distribute_s"] = timed(
+        torch, lambda: parallel.distribute(df, mesh))
+    lost_rows = int(dist.per_shard_valid()[lost])
+    zdist = parallel.dmap_blocks(lambda x: {"z": x + x}, dist)
+    ops = {
+        "dmap_blocks": lambda d: parallel.dmap_blocks(
+            lambda x: {"z": x + x}, d),
+        "dfilter": lambda d: parallel.dfilter(lambda x: x < 0.75, d),
+        "dreduce_sum": lambda d: parallel.dreduce_blocks(
+            {"z": "sum", "c": "sum"}, d.select(["z", "c"])),
+        "dreduce_min": lambda d: parallel.dreduce_blocks(
+            {"z": "min"}, d.select(["z"])),
+        "daggregate_host_keys": lambda d: parallel.daggregate(
+            {"z": "sum", "c": "sum"}, d.select(["key", "z", "c"]),
+            "key"),
+        "daggregate_device_keys": lambda d: parallel.daggregate(
+            {"z": "sum", "c": "sum"}, d.select(["key", "z", "c"]),
+            "key", max_groups=max_groups),
+        "dsort": lambda d: parallel.dsort("key", d),
+    }
+    loss = {}
+    for name, op in ops.items():
+        src = dist if name in ("dmap_blocks", "dfilter", "dsort") \
+            else zdist
+        healthy, healthy_s = timed(torch, lambda: op(src))
+        got, lost_s, moved, launches = lose(lambda: op(src))
+        rec = {"healthy_s": healthy_s, "recovery_s": lost_s,
+               "reshard_rows": moved, "launches": launches}
+        assert moved == lost_rows, (name, moved, lost_rows)
+        if name in ("dmap_blocks", "dfilter", "dsort"):
+            assert got.mesh.num_data_shards == shards - 1, name
+            assert all(d.type == dev.type
+                       for d in got.mesh.shard_devices()), name
+            cols = ("z",) if name == "dmap_blocks" else \
+                ("key", "x", "c")
+            for cname in cols:
+                a = valid_col(np, got, cname)
+                assert np.array_equal(a, valid_col(np, healthy, cname)), \
+                    (name, cname)
+            if name == "dfilter":
+                assert got.count() == int(keep.sum())
+                np.testing.assert_array_equal(valid_col(np, got, "x"),
+                                              x[keep])
+            if name == "dsort":
+                order = np.argsort(key, kind="stable")
+                np.testing.assert_array_equal(valid_col(np, got, "key"),
+                                              key[order])
+                np.testing.assert_array_equal(valid_col(np, got, "x"),
+                                              x[order])
+            rec["per_shard_valid"] = [int(v) for v in
+                                      got.per_shard_valid()]
+        elif name == "dreduce_sum":
+            assert int(got["c"]) == int(healthy["c"]) == int(c.sum())
+            np.testing.assert_allclose(float(got["z"]), z.sum(),
+                                       rtol=1e-12)
+        elif name == "dreduce_min":
+            assert float(got["z"]) == float(healthy["z"]) == z.min()
+        else:
+            g = check_aggregate(got, name)
+            h = check_aggregate(healthy, name)
+            np.testing.assert_array_equal(g["c"], h["c"])
+            # B1 once per surviving shard for the one float sum column
+            assert launches == shards - 1, (name, launches)
+        loss[name] = rec
+    assert counters.get("mesh.devices_lost") >= len(ops)
+    out["device_loss"] = loss
+
+    # (b) growth: the lost shard comes back from the lost pool
+    with faults.inject("device", 1, message=message):
+        a = parallel.dmap_blocks(lambda x: {"z": x + x}, dist)
+    small = a.mesh
+    assert small.num_data_shards == shards - 1
+    assert elastic.lost_pool() == [lost]
+    b = parallel.distribute(df, small)
+    m0 = counters.get("mesh.grow_migrations")
+    grown, grow_s = timed(torch, lambda: parallel.admit_devices(a))
+    assert grown.mesh.num_data_shards == shards
+    assert sorted(grown.mesh.flat_ids()) == list(range(shards))
+    assert elastic.lost_pool() == []
+    bz, pickup_s = timed(torch, lambda: parallel.dmap_blocks(
+        lambda x: {"z": x + x}, b))
+    assert counters.get("mesh.grow_migrations") - m0 == 1
+    assert bz.mesh.num_data_shards == shards
+    assert np.array_equal(valid_col(np, bz, "z"), z)
+    assert np.array_equal(valid_col(np, grown, "z"), z)
+    out["growth"] = {"admit_s": grow_s, "migrated_map_s": pickup_s,
+                     "ids": grown.mesh.flat_ids()}
+    del a, b, bz, grown
+
+    # (c) rebalance after persistent (synthetic) skew; the healthy and
+    # recovering runs before it left the layout alone
+    rb0 = counters.get("mesh.rebalances")
+    assert rb0 == rb_start, ("rebalanced before (c)", rb0 - rb_start)
+    after = int(os.environ.get("TFT_SKEW_REBALANCE_AFTER", "3") or 3)
+    for _ in range(after):
+        elastic.note_dispatch(mesh, "dmap_blocks", SKEWED_TIMES)
+    reb, reb_s = timed(torch, lambda: parallel.dmap_blocks(
+        lambda x: {"z": x + x}, dist))
+    assert counters.get("mesh.rebalances") - rb0 == 1
+    info = reb._rebalance
+    valid = [int(v) for v in reb.per_shard_valid()]
+    assert valid == info["after"] and sum(valid) == n
+    assert valid[-1] == min(valid) < n // shards
+    assert np.array_equal(valid_col(np, reb, "z"), z)
+    l0 = segment_reduce.launches
+    ragg, ragg_s = timed(torch, lambda: parallel.daggregate(
+        {"z": "sum", "c": "sum"}, reb.select(["key", "z", "c"]), "key",
+        max_groups=max_groups))
+    assert segment_reduce.launches - l0 == shards
+    check_aggregate(ragg, "rebalanced")
+    out["rebalance"] = {"map_s": reb_s, "aggregate_s": ragg_s,
+                        "per_shard_valid": valid,
+                        "padded_rows_per_shard": reb.padded_rows // shards,
+                        "ratio": info["ratio"]}
+    del reb, ragg
+
+    # (d) the idle layer's cost on a healthy mesh (printed, not gated)
+    def chain():
+        zz = parallel.dmap_blocks(lambda x: {"z": x + x}, dist)
+        return parallel.daggregate({"z": "sum"},
+                                   zz.select(["key", "z"]), "key",
+                                   max_groups=max_groups)
+
+    walls = {"on": [], "bypass": []}
+    for _ in range(idle_reps):
+        for mode in ("on", "bypass"):
+            ctx = elastic.bypass() if mode == "bypass" \
+                else contextlib.nullcontext()
+            with ctx:
+                _, w = timed(torch, chain)
+            walls[mode].append(w)
+    out["idle_cost"] = walls
+
+    # (e) the fused plan
+    def four(d):
+        d = parallel.dmap_blocks(lambda x, c: {"z": x + x,
+                                               "ci": c * 3}, d)
+        d = parallel.dfilter(lambda x: x < 0.75, d)
+        d = parallel.dmap_blocks(lambda z, ci: {"w": z * 2.0,
+                                                "wi": ci + 1}, d)
+        return parallel.dreduce_blocks({"w": "sum", "wi": "sum"}, d)
+
+    def two(d):
+        d = parallel.dmap_blocks(lambda x: {"z": x + x}, d)
+        return parallel.daggregate({"z": "sum"},
+                                   d.select(["key", "z"]), "key")
+
+    names = ("mesh.dispatches", "mesh.interstage_host_bytes",
+             "dplan.fallbacks", "dplan.fused_forcings")
+    fused = {}
+    want_w = (4.0 * x[keep]).sum()
+    want_wi = int((3 * c[keep] + 1).sum())
+    for label, chain_fn in (("map_filter_map_reduce", four),
+                            ("map_aggregate", two)):
+        res = {}
+        for mode in ("eager", "lazy", "lazy_again"):
+            src = dist if mode == "eager" else dist.lazy()
+            l0 = segment_reduce.launches
+            (got, wall), cnt = counted(
+                counters, names, lambda: timed(torch,
+                                               lambda: chain_fn(src)))
+            res[mode] = {"wall_s": wall, "counts": cnt,
+                         "launches": segment_reduce.launches - l0,
+                         "value": got}
+        e, f, f2 = res["eager"], res["lazy"], res["lazy_again"]
+        for r in (f, f2):
+            assert r["counts"]["mesh.dispatches"] == 1, (label, r)
+            assert r["counts"]["mesh.interstage_host_bytes"] == 0
+            assert r["counts"]["dplan.fallbacks"] == 0
+            assert r["counts"]["dplan.fused_forcings"] == 1
+        if label == "map_filter_map_reduce":
+            assert e["counts"]["mesh.dispatches"] == 4
+            assert e["counts"]["mesh.interstage_host_bytes"] > 0
+            for r in (e, f, f2):
+                assert int(r["value"]["wi"]) == want_wi
+                np.testing.assert_allclose(float(r["value"]["w"]),
+                                           want_w, rtol=1e-12)
+        else:
+            assert e["counts"]["mesh.dispatches"] == 2
+            assert f["launches"] == f2["launches"] == shards
+            ec = host_cols(np, e["value"])
+            for r in (f, f2):
+                fc = host_cols(np, r["value"])
+                np.testing.assert_array_equal(fc["key"], ec["key"])
+                np.testing.assert_allclose(fc["z"], want_z[present],
+                                           rtol=1e-12)
+        fused[label] = {m: {k: v for k, v in r.items() if k != "value"}
+                        for m, r in res.items()}
+    # a device loss in the middle of the fused stage
+    lz = parallel.dfilter(lambda x: x < 0.75, parallel.dmap_blocks(
+        lambda x: {"z": x + x}, dist.lazy()))
+    r0 = counters.get("mesh.reshard_rows")
+    with faults.inject("device", 1, message=message):
+        _, loss_s = timed(torch, lz.count)
+    assert lz.mesh.num_data_shards == shards - 1
+    assert counters.get("mesh.reshard_rows") - r0 == lost_rows
+    assert lz.count() == int(keep.sum())
+    np.testing.assert_array_equal(valid_col(np, lz, "z"), z[keep])
+    fused["device_loss_mid_stage"] = {"wall_s": loss_s}
+    out["fused_plan"] = fused
+    del lz
+
+    # (f) a windowed stream folding on the mesh
+    from tensorframes_tpu_torch import stream
+
+    srng = np.random.default_rng(29)
+    skey = srng.integers(0, stream_keys, stream_rows)
+    sval = srng.integers(0, 1000, stream_rows).astype(np.float64)
+    sts = np.arange(stream_rows, dtype=np.float64) / stream_batch
+
+    def run_stream(m):
+        def gen():
+            for lo in range(0, stream_rows, stream_batch):
+                hi = lo + stream_batch
+                yield {"k": skey[lo:hi], "v": sval[lo:hi],
+                       "ts": sts[lo:hi]}
+
+        agg = (stream.from_source(stream.GeneratorSource(gen()))
+               .group_by("k")
+               .aggregate({"v": "sum"}, window=stream.tumbling(3.0),
+                          time_col="ts", mesh=m))
+        h = agg.start(name=f"elastic-stream-{'mesh' if m else 'one'}")
+        h.run()
+        return [host_cols(np, f) for f in h.collect_updates()]
+
+    one, one_s = timed(torch, lambda: run_stream(None))
+    names = ("stream.mesh_folds", "mesh.dispatches")
+    l0 = segment_reduce.launches
+    (meshed, mesh_s), cnt = counted(
+        counters, names, lambda: timed(torch, lambda: run_stream(mesh)))
+    folds = cnt["stream.mesh_folds"]
+    launches = segment_reduce.launches - l0
+    assert folds > 0 and cnt["mesh.dispatches"] == folds, cnt
+    assert launches == shards * folds, (launches, folds)
+    assert len(meshed) == len(one)
+    for a_, b_ in zip(one, meshed):
+        for k in a_:
+            np.testing.assert_array_equal(b_[k], a_[k])
+    out["stream_mesh"] = {"windows": len(one), "folds": folds,
+                          "launches": launches, "one_device_s": one_s,
+                          "mesh_s": mesh_s}
+    assert counters.get("mesh.rebalances") == rb0 + 1, \
+        ("rebalanced after (c)", counters.get("mesh.rebalances") - rb0 - 1)
+    del dist, zdist
     return out
 
 
@@ -5386,7 +5743,9 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
     1 f64, S = 256) and of phase 2d's part (c) (a shard after the exchange,
     2.5M f64 rows into 250,000 groups; a shard of the dense route and the
     one-shard mesh, 2.5M and 20M rows into 2,000,000; the sketch route's
-    scalar sum, 2.5M rows into 100);
+    scalar sum, 2.5M rows into 100) and of phase 2e (a surviving shard after
+    a device loss, 2,857,143 f64 rows into 100,000 groups, and a shard of
+    the rebalanced layout, 2,816,902 rows);
     flash_attention and its backward at the transformer's [8, 2048, 8,
     64] causal in f32 (the model's) and bf16 (the backward when ``fab``,
     its module, is given: an earlier checkout has none)."""
@@ -5452,7 +5811,14 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 20_000_000, 1,
                                2_000_000, torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 20_000_000 // 8, 1,
-                               100, torch.float64, flush)]
+                               100, torch.float64, flush),
+              # phase 2e: a surviving shard after a device loss (20M rows
+              # over 7 shards) and a shard of the rebalanced layout (its
+              # padded rows; the slow shard holds 281,690 valid ones)
+              time_segment_sum(np, torch, segment_reduce, -(-20_000_000 // 7),
+                               1, 100_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_816_902, 1,
+                               100_000, torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
                     for dt in (torch.float32, torch.bfloat16)]
@@ -5483,6 +5849,19 @@ def print_card() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+def no_rebalance(run) -> dict:
+    """``run()``, a phase of healthy mesh ops traced on equal shards of
+    the card, whose shard times feed the skew tracker: it must leave
+    every layout alone (``mesh.rebalances`` unmoved)."""
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    r0 = counters.get("mesh.rebalances")
+    info = run()
+    moved = counters.get("mesh.rebalances") - r0
+    assert moved == 0, f"{moved} rebalance(s) on a healthy mesh"
+    return info
 
 
 def run_path(torch, phases, counters, per_phase=None) -> dict:
@@ -5583,10 +5962,13 @@ def main(argv=None) -> int:
          lambda: phase_reference_workload(ttf, np, torch)),
         ("native_host_20M", lambda: phase_native_host(ttf, np, torch)),
         ("mesh_reference_workload_20M",
-         lambda: phase_mesh_reference_workload(ttf, np, torch,
-                                               segment_reduce)),
+         lambda: no_rebalance(lambda: phase_mesh_reference_workload(
+             ttf, np, torch, segment_reduce))),
         ("shuffle_20M",
-         lambda: phase_shuffle(ttf, np, torch, segment_reduce)),
+         lambda: no_rebalance(lambda: phase_shuffle(ttf, np, torch,
+                                                    segment_reduce))),
+        ("elastic_20M",
+         lambda: phase_elastic(ttf, np, torch, segment_reduce)),
         ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np)),
         ("plan_parquet_20M",
          lambda: static_plan(phase_plan_parquet, ttf, np, torch,
@@ -5631,6 +6013,8 @@ def main(argv=None) -> int:
         2 * (1 + 8) * 4, "the mesh did not launch segment_sum on every shard"
     assert per_phase["shuffle_20M"]["segment_sum"] > 0, \
         "the shuffle's aggregates never launched segment_sum"
+    assert per_phase["elastic_20M"]["segment_sum"] > 0, \
+        "the elastic mesh's aggregates never launched segment_sum"
     assert per_phase["serve_three_tenants_20M"]["segment_sum"] > 0 and \
         served["child_launches"] > 0, \
         "the served aggregates never launched segment_sum"

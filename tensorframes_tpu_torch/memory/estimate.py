@@ -12,8 +12,8 @@ node answers from the node's per-column cost model instead
 Mesh frames: :func:`dist_frame_estimate` counts a
 :class:`~..parallel.distributed.DistributedFrame`'s columns and
 :func:`exchange_buffer_bytes` prices one ``dexchange`` dispatch for the
-ledger. A lazy distributed plan (``plan/dist.py``) is ``ROADMAP.md`` A
-item 7b, so every mesh frame the port holds is materialized.
+ledger; a lazy distributed chain (``plan/dist.py``) is priced from its
+plan nodes without forcing it.
 """
 
 from __future__ import annotations
@@ -118,14 +118,36 @@ def frame_estimate(frame) -> Tuple[Optional[float], Optional[int]]:
 
 
 def dist_frame_estimate(frame) -> Tuple[Optional[float], Optional[int]]:
-    """``(rows, device_bytes)`` of a
-    :class:`~..parallel.distributed.DistributedFrame`: its rows and the
-    bytes of every column it holds, padded layout included (host
-    ride-alongs count their pointers), read without moving a shard."""
+    """``(rows, device_bytes)`` of a (possibly lazy)
+    :class:`~..parallel.distributed.DistributedFrame`.
+
+    A LAZY frame (``frame.lazy()`` chains, ``plan/dist.py``) answers from
+    its distributed plan node WITHOUT forcing: source column bytes
+    propagated op by op, filters priced at their observed selectivity once
+    any forcing of the same predicate recorded one (the keeps-everything
+    upper bound before that). Materialized frames count every column they
+    hold, padded layout included (host ride-alongs count their pointers),
+    read without moving a shard or faulting a spilled frame back."""
+    node = getattr(frame, "_dplan_node", None)
+    forced = getattr(frame, "_forced", None)
+    if node is not None and forced is None:
+        try:
+            rows, cols = node.estimate()
+        except Exception as e:  # noqa: BLE001 - an estimate is advisory
+            _log.debug("distributed plan estimate failed (%s); counting "
+                       "the source instead", e)
+            rows, cols = None, None
+        if cols is not None:
+            return (float(rows) if rows is not None else None,
+                    int(sum(cols.values())))
+        frame = getattr(frame, "_source", frame)
+    elif forced is not None:
+        frame = forced
     try:
+        from .spill import value_nbytes
         total = 0
         for name in frame.schema.names:
-            total += int(array_nbytes(frame.columns[name]) or 0)
+            total += int(value_nbytes(frame.columns, name) or 0)
         return float(frame.num_rows), total
     except Exception as e:  # noqa: BLE001 - an estimate is advisory
         _log.debug("distributed frame estimate failed (%s)", e)

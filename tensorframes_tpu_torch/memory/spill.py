@@ -22,6 +22,12 @@ A spilled value is the triple ``(host numpy, device, dtype)``
 checkpoint reuses; the persist tier writes it with no device and the
 dtype's name, so a file holds numpy and strings only.
 
+A mesh frame's column (``parallel.distributed.ShardedArray``, a tensor
+per data shard) spills shard by shard: each shard to its own pinned host
+buffer (``_HostShards``, the triple's host part), and faults back shard
+by shard onto the device it came from, so a spilled frame keeps its
+layout. Its host values read as the shards' rows concatenated.
+
 Two stock spillables implement the ledger's duck-typed entry protocol
 (:class:`~.manager.MemoryManager`):
 
@@ -49,10 +55,39 @@ __all__ = ["array_nbytes", "is_device_value", "to_pinned_host",
 Spilled = Tuple[np.ndarray, Optional[torch.device], torch.dtype]
 
 
+def _is_sharded(a: Any) -> bool:
+    """A mesh column (``ShardedArray``): a tensor per data shard."""
+    shards = getattr(a, "shards", None)
+    return isinstance(shards, list) and all(
+        isinstance(t, torch.Tensor) for t in shards)
+
+
 def is_device_value(a: Any) -> bool:
-    """True for ``torch.Tensor`` values; host numpy / lists / scalars are
-    already host bytes and never spill."""
-    return isinstance(a, torch.Tensor)
+    """True for ``torch.Tensor`` values and mesh columns (a tensor per
+    data shard); host numpy / lists / scalars are already host bytes and
+    never spill."""
+    return isinstance(a, torch.Tensor) or _is_sharded(a)
+
+
+class _HostShards:
+    """A spilled mesh column's host side: one pinned host array per shard
+    and the device each shard came from (``nbytes`` and ``shape`` read as
+    the concatenated array's, without concatenating)."""
+
+    __slots__ = ("parts", "devices")
+
+    def __init__(self, parts, devices):
+        self.parts = parts
+        self.devices = devices
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(p.nbytes) for p in self.parts)
+
+    @property
+    def shape(self) -> tuple:
+        return ((sum(int(p.shape[0]) for p in self.parts),)
+                + tuple(self.parts[0].shape[1:]))
 
 
 def to_pinned_host(t: torch.Tensor) -> np.ndarray:
@@ -72,8 +107,13 @@ def to_pinned_host(t: torch.Tensor) -> np.ndarray:
     return out.view(np.uint16) if bf16 else out
 
 
-def spill_value(t: torch.Tensor) -> Spilled:
-    """One tensor's spilled form: its host bytes, device and dtype."""
+def spill_value(t) -> Spilled:
+    """One tensor's spilled form: its host bytes, device and dtype (a mesh
+    column's: each shard's host bytes and device, and the dtype)."""
+    if _is_sharded(t):
+        return (_HostShards([to_pinned_host(p) for p in t.shards],
+                            [p.device for p in t.shards]),
+                None, t.shards[0].dtype)
     return (to_pinned_host(t), t.device, t.dtype)
 
 
@@ -82,6 +122,11 @@ def restore_value(spilled: Spilled, device=None) -> torch.Tensor:
     device (or on ``device``, or the package default when neither is
     known: a checkpoint loaded from disk records none)."""
     host, dev, dtype = spilled
+    if isinstance(host, _HostShards):
+        # a mesh column: every shard back onto the device it came from
+        from ..parallel.distributed import ShardedArray
+        return ShardedArray([restore_value((p, d, dtype))
+                             for p, d in zip(host.parts, host.devices)])
     if isinstance(dtype, str):  # a persisted record names its dtype
         dtype = getattr(torch, dtype)
     if dev is None:
@@ -97,13 +142,18 @@ def _host_values(spilled: Spilled) -> np.ndarray:
     """A spilled value's values as host numpy (``bfloat16`` decoded to
     float32, the port's host dtype for it)."""
     host, _, dtype = spilled
+    if isinstance(host, _HostShards):
+        return np.concatenate([_host_values((p, None, dtype))
+                               for p in host.parts])
     if dtype in (torch.bfloat16, "bfloat16"):
         return torch.from_numpy(np.ascontiguousarray(host).view(np.int16)) \
             .view(torch.bfloat16).float().numpy()
     return host
 
 
-def _tensor_host(t: torch.Tensor) -> np.ndarray:
+def _tensor_host(t) -> np.ndarray:
+    if _is_sharded(t):
+        return np.concatenate([_tensor_host(p) for p in t.shards])
     t = t.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 

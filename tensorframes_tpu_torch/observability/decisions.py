@@ -15,9 +15,9 @@ The serving fabric's decisions (placement, re-placement, rebalance, a
 worker's crash and loss, a query's resume on a survivor, restarts and
 admission probes) and a join's route render as lines of their own, and
 :func:`doctor` shows the open fabric and merges per-worker flight dumps.
-The JAX package's lines for the mesh and the distributed plan come with
-the parallel layer (``ROADMAP.md`` A10); a record of an unknown kind
-renders as ``key=value``.
+The JAX package's lines for the mesh and the distributed plan, and
+``doctor``'s mesh line, are ``ROADMAP.md`` A item 7b (the mesh
+remainders); a record of an unknown kind renders as ``key=value``.
 """
 
 from __future__ import annotations

@@ -256,9 +256,9 @@ class QueryTrace:
     def summary(self) -> Dict[str, Any]:
         """Aggregate the event stream into the per-query totals
         ``explain()`` renders (blocks, rows, bytes, retries, fallbacks,
-        pipeline occupancy, and the card's memory watermarks). Keys the
-        JAX package's summary has for layers the port does not have yet
-        (compile cache, mesh, spills, preemption) stay at zero."""
+        pipeline occupancy, per-device mesh times with a straggler ratio,
+        mesh shrinks, grows and rebalances, spills, preemption and the
+        card's memory watermarks)."""
         s: Dict[str, Any] = {
             "query_id": self.query_id, "op": self.op,
             "duration_s": self.duration if self.duration is not None

@@ -18,8 +18,11 @@ plans.
 The ``fabric`` section is the open serving fabric's
 :meth:`~..serve.fabric.ServeFabric.health_snapshot` (``{"running":
 False}`` without one), and a worker declared lost raises a warning. The
-JAX package's ``mesh`` section comes with the parallel layer
-(``ROADMAP.md`` A10): the snapshot has no such key.
+``mesh`` section counts the devices a mesh would see
+(``parallel.local_mesh``: the cards once CUDA is up, ``None`` before; the
+logical CPU shards when the default device is the CPU), the elastic
+layer's lost pool (a non-empty pool raises a warning: meshes are running
+shrunken) and its shrink, grow, rebalance and dispatch counters.
 """
 
 from __future__ import annotations
@@ -47,6 +50,33 @@ def _backend_initialized() -> bool:
         return bool(torch.cuda.is_initialized())
     except Exception:  # noqa: BLE001 - no torch.cuda at all
         return False
+
+
+def _mesh_section(counts: Dict[str, int]) -> Dict[str, Any]:
+    visible = None
+    try:
+        from ..device import default_device
+        if default_device().type != "cuda" or _backend_initialized():
+            # else None: "not initialized yet", not "no devices"
+            from ..parallel import mesh as _mesh
+            visible = len(_mesh._visible_devices())
+    except Exception as e:  # noqa: BLE001 - health must render regardless
+        _log.debug("health: device enumeration failed: %s", e)
+    lost: List[int] = []
+    try:
+        from ..parallel import elastic as _elastic
+        lost = _elastic.lost_pool()
+    except Exception as e:  # noqa: BLE001 - optional subsystem
+        _log.debug("health: elastic lost pool unavailable: %s", e)
+    return {
+        "visible_devices": visible,
+        "lost_pool": lost,
+        "devices_lost": counts.get("mesh.devices_lost", 0),
+        "shrinks": counts.get("mesh.shrinks", 0),
+        "grows": counts.get("mesh.grows", 0),
+        "rebalances": counts.get("mesh.rebalances", 0),
+        "dispatches": counts.get("mesh.dispatches", 0),
+    }
 
 
 def _memory_section(counts: Dict[str, int]) -> Dict[str, Any]:
@@ -235,6 +265,12 @@ def _warnings(snap: Dict[str, Any]) -> List[str]:
             f"memory: {mem['overflow_admissions']} overflow "
             f"admission(s) — dispatches ran OVER the device budget; "
             f"shrink blocks or raise TFT_MEM_LIMIT_BYTES")
+    mesh = snap["mesh"]
+    if mesh["lost_pool"]:
+        warns.append(
+            f"mesh: device(s) {mesh['lost_pool']} lost and not "
+            f"re-admitted — meshes are running shrunken "
+            f"(parallel.elastic.admit_devices)")
     serve = snap["serve"]
     if serve.get("running"):
         for t, s in serve["tenants"].items():
@@ -299,7 +335,8 @@ def _warnings(snap: Dict[str, Any]) -> List[str]:
 
 def health() -> Dict[str, Any]:
     """One cross-subsystem snapshot: the ledger's headroom and spill
-    pressure with the card's allocator, serve queue depths and in-flight,
+    pressure with the card's allocator, the mesh's devices and lost pool,
+    serve queue depths and in-flight,
     compile and result cache hit ratios, per-stream watermark lag and
     state size, the serving fabric, SLO burn, the sentinel, the history,
     invariants,
@@ -309,6 +346,7 @@ def health() -> Dict[str, Any]:
     snap: Dict[str, Any] = {
         "ts": time.time(),
         "memory": _memory_section(counts),
+        "mesh": _mesh_section(counts),
         "serve": _serve_section(),
         "fabric": _fabric_section(),
         "caches": _cache_section(counts),

@@ -9,11 +9,14 @@ own :class:`~.events.QueryTrace`, so overlapping queries do not mix their
 numbers. :func:`frame_report` adds the logical plan's section (fused
 stages, pruned columns, pushdown, resident edges) and a join's routing.
 
-A mesh join adds its partitioned build and its exchange's partition
-imbalance, judged against ``TFT_SKEW_WARN`` (default 2.0), the threshold
-``parallel.dexchange`` reports skew by. The JAX package's per-device
-(mesh) section of a query, with its straggler ratio, is ``ROADMAP.md`` A
-item 7b: no port layer records per-device times yet.
+A mesh query adds its per-device section: rows, bytes and time per
+shard (the ``shard_compute`` times the d-ops record on the device tracks:
+CUDA events on a card, the host clock on the CPU), the straggler ratio
+(max/median shard time, warned above ``TFT_SKEW_WARN``, default 2.0), a
+fused distributed stage's line, and the elastic layer's ``mesh_shrink``,
+``mesh_grow`` and ``rebalance`` lines. A mesh join adds its partitioned
+build and its exchange's partition imbalance, judged against the same
+threshold.
 """
 
 from __future__ import annotations
@@ -100,6 +103,25 @@ def render(trace: "_events.QueryTrace") -> str:
                         if k != "plan")
         if meta:
             lines.append(f"  query    : {meta}")
+    mesh = s["mesh"]
+    if mesh is not None:
+        ratio = mesh["straggler_ratio"]
+        ratio_s = (f"straggler ratio {ratio:.2f} (max/median device time)"
+                   if ratio is not None else "straggler ratio n/a")
+        lines.append(f"  mesh     : {len(mesh['devices'])} device(s), "
+                     f"{s['mesh_dispatches']} dispatch(es), "
+                     f"{s['collectives']} collective(s), {ratio_s}")
+        for d, acc in mesh["devices"].items():
+            lines.append(f"    device {d}: {acc['rows']} rows · "
+                         f"{_fmt_bytes(acc['bytes'])} · "
+                         f"{_fmt_secs(acc['time_s'])}")
+        if ratio is not None and ratio > _skew_threshold():
+            lines.append(
+                f"  WARNING  : device time imbalance — the slowest "
+                f"device ran {ratio:.2f}x the median (threshold "
+                f"{_skew_threshold():g}; straggling shard or skewed "
+                f"rows, see the per-device table above; persistent "
+                f"skew triggers re-partitioning)")
     for ev in list(trace.events):
         a = ev.args or {}
         if ev.etype == "adaptive_layout":
@@ -124,6 +146,39 @@ def render(trace: "_events.QueryTrace") -> str:
                 f"  admission: preempted query {a.get('victim')} "
                 f"({a.get('victim_bytes')} B) to clear headroom "
                 f"instead of shedding")
+    for ev in list(trace.events):
+        if ev.etype == "fused_stage":
+            a = ev.args or {}
+            res = (f", {a.get('resident')} column(s) pass through "
+                   f"device-resident" if a.get("resident") else "")
+            lines.append(
+                f"  dplan    : fused stage '{ev.name}' — "
+                f"{a.get('ops')} op(s) in ONE fused stage program, "
+                f"{a.get('filters', 0)} in-program filter(s){res}")
+            if a.get("wall_s") is not None:
+                lines.append(
+                    f"    stage shard time: {_fmt_secs(a['wall_s'])} "
+                    f"across {a.get('shards')} shard(s) "
+                    f"(~{_fmt_secs(a['wall_s'] / max(a.get('shards') or 1, 1))}"
+                    f"/shard amortized)")
+    for ev in list(trace.events):
+        a = ev.args or {}
+        if ev.etype == "mesh_shrink":
+            lines.append(
+                f"  elastic  : device {a.get('device')} lost — mesh "
+                f"shrunk {a.get('devices_before')} -> "
+                f"{a.get('devices_after')} device(s), "
+                f"{a.get('reshard_rows')} row(s) re-sharded")
+        elif ev.etype == "mesh_grow":
+            lines.append(
+                f"  elastic  : device(s) {a.get('devices')} "
+                f"re-admitted (probe + warm-up) — mesh grown "
+                f"{a.get('devices_before')} -> "
+                f"{a.get('devices_after')} device(s)")
+        elif ev.etype == "rebalance":
+            lines.append(
+                f"  rebalance: skew {a.get('ratio')} — per-shard "
+                f"rows {a.get('before')} -> {a.get('after')}")
     if s["preempts"] or s["resumed_blocks"]:
         lines.append(
             f"  preempt  : parked {s['preempts']} time(s); "

@@ -3,19 +3,22 @@
 The port's counterpart of ``tensorframes_tpu/parallel/``, single-controller
 as the JAX package is: one process drives every device of a
 :class:`DeviceMesh` (an array of ``torch.device`` objects with named
-axes). Partitions become shards of every column, one per device of the
-data axis; a mesh reduce's combine becomes the combiner's collective over
-the shards' partials (``collectives.py``).
+axes and one logical id per slot). Partitions become shards of every
+column, one per device of the data axis; a mesh reduce's combine becomes
+the combiner's collective over the shards' partials (``collectives.py``).
 
-Ported: the mesh, its collectives and the distributed frame's ops
+Ported: the mesh, its collectives, the distributed frame's ops
 ``distribute``, ``dmap_blocks``, ``dfilter``, ``dsort`` (columnsort, or
 the external sort past the device budget), ``dreduce_blocks`` and
 ``daggregate`` (host and device keys, hot-key salting, sketch combiners,
-the high-cardinality shuffle route), and the shuffle (``dexchange``,
-``shuffle_daggregate``, ``shuffle_enabled``). The other public names of
-the JAX package's layer stay in this namespace and raise
-``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when called: the
-elastic mesh's growth, ring attention and the multi-process cluster
+the high-cardinality shuffle route), the shuffle (``dexchange``,
+``shuffle_daggregate``, ``shuffle_enabled``), the elastic mesh
+(``elastic.py``: device-loss recovery at every op's dispatch, skew
+rebalancing, ``admit_devices``, ``grow_mesh``, ``probe_device``) and the
+fused distributed plan (``DistributedFrame.lazy()``, ``plan/dist.py``).
+The other public names of the JAX package's layer stay in this namespace
+and raise ``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when
+called: ring attention and the multi-process cluster
 (``torch.distributed`` with NCCL, the counterpart of the JAX package's
 multi-host ``initialize``).
 """
@@ -23,6 +26,7 @@ multi-host ``initialize``).
 from .collectives import COMBINERS
 from .distributed import (DistributedFrame, daggregate, dfilter, distribute,
                           dmap_blocks, dreduce_blocks, dsort)
+from .elastic import admit_devices, grow_mesh, probe_device
 from .exchange import dexchange, shuffle_daggregate, shuffle_enabled
 from .mesh import DeviceMesh, local_mesh
 
@@ -50,9 +54,6 @@ def _not_yet(name: str, module: str):
     return missing
 
 
-admit_devices = _not_yet("admit_devices", "elastic.py")
-grow_mesh = _not_yet("grow_mesh", "elastic.py")
-probe_device = _not_yet("probe_device", "elastic.py")
 ring_attention = _not_yet("ring_attention", "ring.py")
 ring_allreduce = _not_yet("ring_allreduce", "ring.py")
 cluster_mesh = _not_yet("cluster_mesh", "cluster.py")

@@ -32,16 +32,28 @@ remainder; ``num_rows`` remembers the truth). Then:
 
 ``daggregate`` routes past ``TFT_SHUFFLE_AGG_GROUPS`` groups to the
 shuffle-partitioned aggregate (``exchange.py``) and folds sketch
-combiners from the host copies of their columns. Every op runs once: the
-JAX package's device-loss recovery (``elastic_call``) and
-:meth:`DistributedFrame.lazy` are ``ROADMAP.md`` A item 7b, raising
-``NotImplementedError``; ``TFT_EXECUTOR=pjrt`` waits for the native
-execution core (A item 8).
+combiners from the host copies of their columns.
+
+Every op dispatches through the elastic boundary
+(``elastic.elastic_call``): a classified device loss shrinks the mesh,
+re-shards the frame through the host and re-runs the op on the surviving
+shards; persistent skew re-partitions the rows first; a grown mesh is
+picked up at the next op. While a trace is active each op records one
+time per shard (a CUDA event after each shard's work on a card, the host
+clock on the CPU, cumulative from one start) as ``shard_compute`` events
+on the device tracks and feeds them to the skew tracker.
+:meth:`DistributedFrame.lazy` records chains for ``plan/dist.py``'s fused
+stages. Under a device budget with spilling on, mesh frames are spill
+candidates of the memory ledger (``memory.spillable_columns``), moved
+shard by shard to pinned host memory and faulted back on their next
+touch; shape metadata never faults them back. ``TFT_EXECUTOR=pjrt``
+waits for the native execution core (A item 8).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from collections import OrderedDict
 from typing import Dict, List, Mapping, Optional, Sequence
 
@@ -58,6 +70,7 @@ from ..memory.external_sort import lexsort_order
 from ..observability.events import (DEVICE_TRACK_BASE, current_trace,
                                     traced_query)
 from ..resilience import default_policy as _default_policy
+from ..resilience import faults as _faults
 from ..schema import Field, Schema
 from ..shape import Unknown
 from ..utils.logging import get_logger
@@ -69,10 +82,12 @@ from .mesh import DeviceMesh
 __all__ = ["DistributedFrame", "ShardedArray", "distribute", "dmap_blocks",
            "dfilter", "dsort", "dreduce_blocks", "daggregate"]
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tensorframes_tpu_torch yet: ROADMAP.md "
-        f"A item 7b (the rest of the parallel layer)")
+
+def _lazy_input(dist):
+    """The lazy recording view when ``dist`` is one (``frame.lazy()``),
+    else None: the d-op entry points continue recorded chains instead of
+    forcing them (``plan/dist.py``)."""
+    return dist if getattr(dist, "_tft_lazy_dist", False) else None
 
 
 def _check_executor() -> None:
@@ -253,20 +268,94 @@ def _meta_distribute(df=None, mesh=None, *a, **k):
             "devices": mesh.num_devices}
 
 
-def _trace_shards(trace, op: str, dist) -> float:
-    """One ``shard`` event per data shard (its valid rows) on the device
-    tracks; returns the dispatch's start for :func:`_trace_done`."""
-    rows = dist.per_shard_valid()
-    for i, dev in enumerate(dist.mesh.shard_devices()):
+class _ShardClock:
+    """Per-shard times of one traced mesh dispatch, in the JAX package's
+    ordered-readiness form: the time until shard ``i`` AND every earlier
+    one were done, had the shards started together each on a device of
+    its own. Shards that share a device (the logical shards of one card,
+    or of the host) run one after another, so each one's own time is its
+    finish less the previous finish on its device, and the form is the
+    running maximum of those: equal shards give equal times, not a ramp
+    that reads as skew. On a card the finishes are CUDA events recorded
+    on the shard's stream after its work (:meth:`mark`), measured from one
+    start event per card; on the CPU, the host clock. Shards the dispatch
+    did not mark share what is left of its time. Made only while a trace
+    is active."""
+
+    def __init__(self, trace, mesh: DeviceMesh):
+        self.ts = trace.clock()
+        self.devices = mesh.shard_devices()
+        self.cuda = all(d.type == "cuda" for d in self.devices)
+        self.starts = {}
+        if self.cuda:
+            for d in dict.fromkeys(self.devices):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(d))
+                self.starts[d] = ev
+        self.w0 = time.perf_counter()
+        self.marks: list = []
+
+    def mark(self) -> None:
+        """The next shard's work has been issued."""
+        d = self.devices[min(len(self.marks), len(self.devices) - 1)]
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(d))
+            self.marks.append((d, ev))
+        else:
+            self.marks.append((d, time.perf_counter() - self.w0))
+
+    def durations(self) -> List[float]:
+        while len(self.marks) < len(self.devices):
+            self.mark()
+        if self.cuda:
+            # a stream's last event done means its earlier ones are too
+            for ev in {d: ev for d, ev in self.marks}.values():
+                ev.synchronize()
+            ends = [(d, self.starts[d].elapsed_time(ev) / 1e3)
+                    for d, ev in self.marks]
+        else:
+            ends = self.marks
+        out, run, prev = [], 0.0, {}
+        for d, end in ends:
+            run = max(run, end - prev.get(d, 0.0))
+            prev[d] = end
+            out.append(run)
+        return out
+
+
+def _trace_shards(trace, op: str, dist=None, mesh=None) -> _ShardClock:
+    """One ``shard`` event per data shard (its valid rows, where the frame
+    knows them) on the device tracks; returns the dispatch's clock for
+    :func:`_trace_done`."""
+    rows = None
+    if dist is not None:
+        mesh = dist.mesh
+        try:
+            rows = dist.per_shard_valid()
+        except ValueError:
+            rows = None
+    for i, dev in enumerate(mesh.shard_devices()):
         trace.add("shard", name=f"{op} shard {i}", device=i,
                   device_name=str(dev),
-                  rows=int(rows[i]), track=DEVICE_TRACK_BASE + i)
-    return trace.clock()
+                  rows=(int(rows[i]) if rows is not None else None),
+                  track=DEVICE_TRACK_BASE + i)
+    return _ShardClock(trace, mesh)
 
 
-def _trace_done(trace, op: str, t0: float) -> None:
-    trace.add("mesh_dispatch", name=op, ts=t0,
-              dur=max(trace.clock() - t0, 0.0))
+def _trace_done(trace, op: str, clock: _ShardClock,
+                mesh: Optional[DeviceMesh] = None) -> None:
+    """Per-shard ``shard_compute`` events and the op-level mesh dispatch
+    span. When ``mesh`` is given the per-shard times also feed the
+    elastic layer's skew tracker (``elastic.note_dispatch``)."""
+    durs = clock.durations()
+    for i, dur in enumerate(durs):
+        trace.add("shard_compute", name=f"{op} d{i}", ts=clock.ts,
+                  dur=dur, device=i, track=DEVICE_TRACK_BASE + i)
+    if mesh is not None and len(durs) >= 2:
+        _elastic.note_dispatch(mesh, op, durs)
+    trace.add("mesh_dispatch", name=op, ts=clock.ts,
+              dur=max(trace.clock() - clock.ts, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +392,13 @@ class DistributedFrame:
 
     @property
     def padded_rows(self) -> int:
-        first = next(iter(self.columns.values()))
+        # shape metadata must NOT fault a spilled frame back to the device
+        # (collect_frame and valid_row_mask route through here; a
+        # larger-than-budget collect would re-resident the whole frame)
+        cols = self.columns
+        if isinstance(cols, _memory.SpillableColumns):
+            return cols.leading_rows()
+        first = next(iter(cols.values()))
         return first.shape[0]
 
     def per_shard_valid(self) -> np.ndarray:
@@ -343,7 +438,12 @@ class DistributedFrame:
         return idx < np.repeat(self.per_shard_valid(), rows_per)
 
     def host_read_padded(self, name: str) -> np.ndarray:
-        """The full padded global column on the host."""
+        """The full padded global column on the host. A spilled frame's
+        columns are served from their pinned host buffers WITHOUT faulting
+        back to the device."""
+        if isinstance(self.columns, _memory.SpillableColumns) \
+                and self.columns.mem_is_spilled():
+            return self.columns.host_value(name)
         return _read_global(self.columns[name])
 
     def collect_frame(self, num_partitions: Optional[int] = None
@@ -385,9 +485,17 @@ class DistributedFrame:
         return self.num_rows
 
     def lazy(self):
-        """The JAX package's recording view (fused distributed plans,
-        ``plan/dist.py``): not ported yet."""
-        raise _later("DistributedFrame.lazy() (plan/dist.py)")
+        """A RECORDING view of this frame: later ``dmap_blocks`` /
+        ``dfilter`` / ``select`` calls record distributed plan nodes
+        instead of dispatching, and the chain forces as ONE fused stage
+        program per mesh stage, its shard intermediates staying on their
+        devices (a terminal monoid ``dreduce_blocks`` / ``daggregate``
+        folds into the same stage). Returns ``self`` when fusion cannot
+        apply (``TFT_FUSE=0``, ``TFT_EXECUTOR=pjrt``, frames whose rows
+        do not tile the data axis), so chains then run per op,
+        bit-identical by construction. See ``plan/dist.py``."""
+        from ..plan import dist as _dplan
+        return _dplan.lazy_frame(self)
 
     def explain(self) -> str:
         """Schema + placement report: per-column dtype, declared shape,
@@ -397,6 +505,12 @@ class DistributedFrame:
                  "  validity: "
                  + ("prefix" if self.shard_valid is None
                     else f"per-shard {list(map(int, self.shard_valid))}")]
+        rb = getattr(self, "_rebalance", None)
+        if rb:
+            lines.append(
+                f"  rebalance: skew {rb['ratio']:.2f} during {rb['op']}; "
+                f"per-shard rows {rb['before']} -> {rb['after']} "
+                f"(proportional to observed device throughput)")
         ex = getattr(self, "_exchange", None)
         if ex:
             flag = (" OVER TFT_SKEW_WARN"
@@ -415,6 +529,12 @@ class DistributedFrame:
                          f"({len(col.shards)} shards on "
                          f"{', '.join(devs)})")
             lines.append(f"  {f.describe()} sharding={place}")
+        info = getattr(self, "_dplan_info", None)
+        if info:
+            # the distributed plan section: fused stage layout, resident
+            # shard edges, fallback reasons (set by plan.dist when this
+            # frame came out of a lazy chain)
+            lines.extend(info)
         return "\n".join(lines)
 
     def __repr__(self):
@@ -465,6 +585,13 @@ def distribute(df: TensorFrame, mesh: DeviceMesh) -> DistributedFrame:
             mem_mgr.make_room(int(a.nbytes))
         with span("distribute.device_put"):
             cols[f.name] = _place(mesh, a, [padded // shards] * shards, dd)
+    if mem_mgr is not None and mem_mgr.spill_enabled:
+        # the frame's device columns become one LRU spill candidate: cold
+        # mesh frames move to pinned host buffers under pressure and fault
+        # back transparently on the next column access
+        cols = _memory.spillable_columns(
+            f"distribute:{df._plan.split('(', 1)[0]}@{id(df):x}", cols,
+            mem_mgr)
     result = DistributedFrame(mesh, df.schema, cols, n)
     trace = current_trace()
     if trace is not None:
@@ -494,8 +621,24 @@ def dmap_blocks(fetches, dist: DistributedFrame, trim: bool = False,
     survives, dropped at collect); ``False`` — the output is a fresh global
     result (every emitted row is real). Default ``None`` infers from the
     row count (equal to ``padded_rows`` -> aligned).
+
+    Like every mesh op, the dispatch runs through the elastic boundary
+    (``elastic.py``): a classified device loss shrinks the mesh,
+    re-shards and re-runs; persistent skew re-partitions first.
+
+    On a LAZY frame (:meth:`DistributedFrame.lazy`) a proven
+    row-preserving non-trim map RECORDS a plan node and defers: the chain
+    forces as one fused stage (``plan/dist.py``); trim and unprovable
+    computations force the chain and dispatch eagerly.
     """
     _check_executor()
+    lz = _lazy_input(dist)
+    if lz is not None:
+        from ..plan import dist as _dplan
+        out = _dplan.record_map(fetches, lz, trim, row_aligned)
+        if out is not None:
+            return out
+        dist = _dplan.materialize(lz)
     return _dmap_blocks_eager(fetches, dist, trim, row_aligned)
 
 
@@ -503,7 +646,9 @@ def dmap_blocks(fetches, dist: DistributedFrame, trim: bool = False,
 def _dmap_blocks_eager(fetches, dist: DistributedFrame, trim: bool = False,
                        row_aligned: Optional[bool] = None
                        ) -> DistributedFrame:
-    return _dmap_blocks(fetches, dist, trim, row_aligned)
+    return _elastic.elastic_call(
+        "dmap_blocks", dist,
+        lambda d: _dmap_blocks(fetches, d, trim, row_aligned))
 
 
 def _dmap_blocks(fetches, dist: DistributedFrame, trim: bool,
@@ -521,23 +666,31 @@ def _dmap_blocks(fetches, dist: DistributedFrame, trim: bool,
     names = [s.name for s in comp.outputs]
     policy = _default_policy()
 
+    trace = current_trace()
+    clock = (_trace_shards(trace, "dmap_blocks", dist)
+             if trace is not None else None)
+
     def _dispatch():
+        _faults.check("dmap")
+        if clock is not None:
+            clock.marks.clear()  # a retried attempt times its own shards
         with span("dmap_blocks.dispatch"):
             if trim:
                 dev0 = mesh.shard_devices()[0]
                 return [_call(comp, {n: dist.columns[n].gather(dev0)
                                      for n in comp.input_names})]
-            return [_call(comp, {n: dist.columns[n].shards[s]
-                                 for n in comp.input_names})
-                    for s in range(mesh.num_data_shards)]
+            parts = []
+            for s in range(mesh.num_data_shards):
+                parts.append(_call(comp, {n: dist.columns[n].shards[s]
+                                          for n in comp.input_names}))
+                if clock is not None:
+                    clock.mark()
+            return parts
 
-    trace = current_trace()
-    t0 = (_trace_shards(trace, "dmap_blocks", dist)
-          if trace is not None else 0.0)
     parts = policy.call(_dispatch, op="dmap_blocks.dispatch")
     counters.inc("mesh.dispatches")
     if trace is not None:
-        _trace_done(trace, "dmap_blocks", t0)
+        _trace_done(trace, "dmap_blocks", clock, mesh)
     rows = {f: sum(int(p[f].shape[0]) for p in parts) for f in names}
     if len(set(rows.values())) > 1:
         raise ValueError(
@@ -584,14 +737,26 @@ def dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
     ``predicate`` follows :func:`tensorframes_tpu_torch.filter_rows`'s
     contract: named args select columns, one rank-1 boolean/integer
     fetch.
+
+    On a LAZY frame the filter RECORDS: its compaction runs inside the
+    chain's fused stage and the survivor counts stay on the devices
+    (no host readback until the chain forces).
     """
     _check_executor()
+    lz = _lazy_input(dist)
+    if lz is not None:
+        from ..plan import dist as _dplan
+        out = _dplan.record_filter(predicate, lz)
+        if out is not None:
+            return out
+        dist = _dplan.materialize(lz)
     return _dfilter_eager(predicate, dist)
 
 
 @traced_query("dfilter", _meta_dfilter)
 def _dfilter_eager(predicate, dist: DistributedFrame) -> DistributedFrame:
-    return _dfilter(predicate, dist)
+    return _elastic.elastic_call("dfilter", dist,
+                                 lambda d: _dfilter(predicate, d))
 
 
 def _dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
@@ -614,7 +779,8 @@ def _dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
     counts_in = dist.per_shard_valid()
 
     trace = current_trace()
-    t0 = _trace_shards(trace, "dfilter", dist) if trace is not None else 0.0
+    clock = (_trace_shards(trace, "dfilter", dist)
+             if trace is not None else None)
     new_shards: Dict[str, list] = {n: [] for n in tensor_names}
     counts, keeps = [], []
     with span("dfilter.dispatch"):
@@ -629,8 +795,10 @@ def _dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
                     0, order.to(local[n].device)))
             counts.append(keep.sum())
             keeps.append(keep)
+            if clock is not None:
+                clock.mark()
     if trace is not None:
-        _trace_done(trace, "dfilter", t0)
+        _trace_done(trace, "dfilter", clock, mesh)
     counters.inc("mesh.dispatches")
     dev0 = mesh.shard_devices()[0]
     counts_host = to_host(torch.stack([c.to(dev0) for c in counts])
@@ -692,6 +860,12 @@ def dsort(keys, dist: DistributedFrame, descending: bool = False
     string columns are permuted on the host by the same order.
     """
     _check_executor()
+    lz = _lazy_input(dist)
+    if lz is not None:
+        # the pending chain forces fused; the sort consumes its
+        # device-resident result
+        from ..plan import dist as _dplan
+        dist = _dplan.materialize(lz)
     if isinstance(keys, str):
         keys = [keys]
     return _dsort_eager(list(keys), dist, descending)
@@ -703,7 +877,8 @@ def _dsort_eager(keys, dist: DistributedFrame, descending: bool = False
     ext = _dsort_external_if_needed(keys, dist, descending)
     if ext is not None:
         return ext
-    return _dsort(keys, dist, descending)
+    return _elastic.elastic_call("dsort", dist,
+                                 lambda d: _dsort(keys, d, descending))
 
 
 def _validate_dsort_keys(schema: Schema, keys) -> None:
@@ -782,6 +957,8 @@ def _dsort_external(keys, dist: DistributedFrame, descending: bool,
                 g = np.concatenate([g, np.full(padded - n_valid, None,
                                                object)])
             new_cols[n] = g
+        new_cols = _memory.spillable_columns(
+            f"dsort.external@{id(dist):x}", new_cols, mgr)
         get_logger("dsort").info(
             "dsort took the external-memory path: %d rows (%d B) in %d "
             "run(s), k-way merged on the host", stats["rows"],
@@ -798,7 +975,9 @@ def _dsort(keys, dist: DistributedFrame, descending: bool
     tensor_names = [f.name for f in schema if f.dtype.tensor]
     host_names = [f.name for f in schema if not f.dtype.tensor]
     trace = current_trace()
-    t0 = _trace_shards(trace, "dsort", dist) if trace is not None else 0.0
+    clock = _trace_shards(trace, "dsort", dist) if trace is not None \
+        else None
+    t0 = clock.ts if clock is not None else 0.0
     if S > 1 and dist.padded_rows % S == 0:
         if trace is not None:
             # the exchange schedule: the deal and its inverse, the shift
@@ -818,7 +997,7 @@ def _dsort(keys, dist: DistributedFrame, descending: bool
                                        tensor_names)
     counters.inc("mesh.dispatches")
     if trace is not None:
-        _trace_done(trace, "dsort", t0)
+        _trace_done(trace, "dsort", clock, mesh)
     new_cols: Dict[str, object] = dict(zip(tensor_names, cols))
     if host_names:
         order_host = _read_global(order)
@@ -1016,8 +1195,19 @@ def dreduce_blocks(fetches, dist: DistributedFrame):
       collective;
     - ``fetches`` is a computation (z/z_input contract): the program
       reduces each shard's rows and once more their stacked partials.
+
+    On a LAZY frame a monoid mapping folds into the chain's fused stage
+    as its terminal combiner; a computation forces the chain and runs the
+    eager path.
     """
     _check_executor()
+    lz = _lazy_input(dist)
+    if lz is not None:
+        from ..plan import dist as _dplan
+        out = _dplan.record_reduce(fetches, lz)
+        if out is not None:
+            return out
+        dist = _dplan.materialize(lz)
     return _dreduce_blocks_eager(fetches, dist)
 
 
@@ -1025,8 +1215,11 @@ def dreduce_blocks(fetches, dist: DistributedFrame):
 def _dreduce_blocks_eager(fetches, dist: DistributedFrame):
     if isinstance(fetches, Mapping) and all(
             isinstance(v, str) for v in fetches.values()):
-        return _collective_reduce(fetches, dist)
-    return _generic_reduce(fetches, dist)
+        return _elastic.elastic_call(
+            "dreduce_blocks", dist,
+            lambda d: _collective_reduce(fetches, d))
+    return _elastic.elastic_call(
+        "dreduce_blocks", dist, lambda d: _generic_reduce(fetches, d))
 
 
 def _host_result(v: torch.Tensor, field) -> np.ndarray:
@@ -1034,22 +1227,19 @@ def _host_result(v: torch.Tensor, field) -> np.ndarray:
     return to_storage_dtype(a, field.dtype) if field is not None else a
 
 
-def _collective_partials(c, shards: Sequence[torch.Tensor],
-                         valid: np.ndarray) -> List[torch.Tensor]:
-    """Each shard's local reduce with its rows past ``valid`` masked to
-    the combiner's neutral element (shards with no rows give none)."""
-    parts = []
-    for s, v in zip(shards, valid):
-        rows = int(s.shape[0])
-        if rows == 0:
-            continue
-        keep = torch.arange(rows, device=s.device) < int(v)
-        neutral = torch.tensor(c.neutral(s.dtype), dtype=s.dtype,
-                               device=s.device)
-        masked = torch.where(keep.reshape((rows,) + (1,) * (s.dim() - 1)),
-                             s, neutral)
-        parts.append(c.local(masked, 0))
-    return parts
+def _collective_partial(c, s: torch.Tensor, valid: int
+                        ) -> Optional[torch.Tensor]:
+    """One shard's local reduce with its rows past ``valid`` masked to the
+    combiner's neutral element (a shard with no rows gives none)."""
+    rows = int(s.shape[0])
+    if rows == 0:
+        return None
+    keep = torch.arange(rows, device=s.device) < int(valid)
+    neutral = torch.tensor(c.neutral(s.dtype), dtype=s.dtype,
+                           device=s.device)
+    masked = torch.where(keep.reshape((rows,) + (1,) * (s.dim() - 1)),
+                         s, neutral)
+    return c.local(masked, 0)
 
 
 def _collective_reduce(col_combiners: Mapping[str, str],
@@ -1067,21 +1257,31 @@ def _collective_reduce(col_combiners: Mapping[str, str],
     names = sorted(col_combiners)
     valid = dist.per_shard_valid()
     trace = current_trace()
-    t0 = 0.0
+    clock = None
     if trace is not None:
-        t0 = _trace_shards(trace, "dreduce_blocks", dist)
+        clock = _trace_shards(trace, "dreduce_blocks", dist)
         for name in names:
-            trace.add("collective", name=combs[name].ici, ts=t0,
+            trace.add("collective", name=combs[name].ici, ts=clock.ts,
                       column=name, op="dreduce_blocks")
     result = {}
     with span("dreduce_blocks.collective_dispatch"):
+        # shard by shard (each shard's partials of every column, then the
+        # collectives), so a traced dispatch can time each shard
+        parts: Dict[str, list] = {name: [] for name in names}
+        for s in range(dist.mesh.num_data_shards):
+            for name in names:
+                p = _collective_partial(combs[name],
+                                        dist.columns[name].shards[s],
+                                        valid[s])
+                if p is not None:
+                    parts[name].append(p)
+            if clock is not None:
+                clock.mark()
         for name in names:
-            c = combs[name]
-            out = c.collective(_collective_partials(
-                c, dist.columns[name].shards, valid))
+            out = combs[name].collective(parts[name])
             result[name] = _host_result(out, dist.schema[name])
     if trace is not None:
-        _trace_done(trace, "dreduce_blocks", t0)
+        _trace_done(trace, "dreduce_blocks", clock, dist.mesh)
     counters.inc("mesh.dispatches")
     return result
 
@@ -1116,11 +1316,15 @@ def _generic_reduce(fetches, dist: DistributedFrame) -> Dict[str, np.ndarray]:
     tail = n - full * rows_per    # valid rows in the boundary shard
     dev0 = mesh.shard_devices()[0]
     trace = current_trace()
-    t0 = (_trace_shards(trace, "dreduce_blocks", dist)
-          if trace is not None else 0.0)
+    clock = (_trace_shards(trace, "dreduce_blocks", dist)
+             if trace is not None else None)
     with span("dreduce_blocks.generic_dispatch"):
-        parts = [_call(comp, {f + "_input": arrays[f].shards[s]
-                              for f in names}) for s in range(full)]
+        parts = []
+        for s in range(full):
+            parts.append(_call(comp, {f + "_input": arrays[f].shards[s]
+                                      for f in names}))
+            if clock is not None:
+                clock.mark()
         if tail:
             parts.append(_call(comp, {f + "_input":
                                       arrays[f].shards[full][:tail]
@@ -1129,7 +1333,7 @@ def _generic_reduce(fetches, dist: DistributedFrame) -> Dict[str, np.ndarray]:
             [p[f].to(dev0) for p in parts]) for f in names})
     counters.inc("mesh.dispatches")
     if trace is not None:
-        _trace_done(trace, "dreduce_blocks", t0)
+        _trace_done(trace, "dreduce_blocks", clock, mesh)
     return {f: _host_result(final[f], schema.get(f)) for f in fetch_names}
 
 
@@ -1425,13 +1629,26 @@ def daggregate(fetches, dist: DistributedFrame, keys,
     if not keys:
         raise ValueError("daggregate needs at least one key column")
     _check_executor()
+    lz = _lazy_input(dist)
+    if lz is not None:
+        # a monoid host-key aggregation over a filter-free chain whose keys
+        # pass through untouched FOLDS into the fused stage as its terminal
+        # combiner; anything else forces the chain (still fused among
+        # itself) and runs the eager op on the device-resident result
+        from ..plan import dist as _dplan
+        out = _dplan.record_aggregate(fetches, lz, keys, max_groups)
+        if out is not None:
+            return out
+        dist = _dplan.materialize(lz)
     return _daggregate_eager(fetches, dist, keys, max_groups)
 
 
 @traced_query("daggregate", _meta_daggregate)
 def _daggregate_eager(fetches, dist: DistributedFrame, keys,
                       max_groups: Optional[int] = None) -> TensorFrame:
-    return _daggregate(fetches, dist, keys, max_groups)
+    return _elastic.elastic_call(
+        "daggregate", dist,
+        lambda d: _daggregate(fetches, d, keys, max_groups))
 
 
 def _shuffle_route(num_groups: int, mesh: DeviceMesh) -> bool:
@@ -1458,6 +1675,23 @@ def _shard_table(cname: str, v: torch.Tensor, ids: torch.Tensor,
                         v, neutral)
         ids = torch.where(valid, ids, 0)
     return _ops._segment_reduce(cname, v, ids, groups)
+
+
+def _shard_tables(fetch_names, col_combiners, columns, ids: ShardedArray,
+                  groups: int, clock=None) -> Dict[str, List[torch.Tensor]]:
+    """Every shard's ``[groups, ...]`` table of every fetch column
+    (:func:`_shard_table`: B1 for a float sum), shard by shard so a traced
+    dispatch can time each shard. The one fragment of the eager, fused and
+    streaming aggregate routes."""
+    parts: Dict[str, List[torch.Tensor]] = {f: [] for f in fetch_names}
+    cols = {f: columns[f] for f in fetch_names}
+    for s, i in enumerate(ids.shards):
+        for f in fetch_names:
+            parts[f].append(_shard_table(col_combiners[f],
+                                         cols[f].shards[s], i, groups))
+        if clock is not None:
+            clock.mark()
+    return parts
 
 
 def _monoid_agg_result(schema: Schema, keys, fetch_names, tables,
@@ -1518,22 +1752,19 @@ def _daggregate(fetches, dist: DistributedFrame, keys,
 
     fetch_names = sorted(col_combiners)
     trace = current_trace()
-    t0 = 0.0
+    clock = None
     if trace is not None:
-        t0 = _trace_shards(trace, "daggregate", dist)
+        clock = _trace_shards(trace, "daggregate", dist)
         for f in fetch_names:
             trace.add("collective", name=COMBINERS[col_combiners[f]].ici,
-                      ts=t0, column=f, op="daggregate")
-    tables = []
+                      ts=clock.ts, column=f, op="daggregate")
     with span("daggregate.dispatch"):
-        for f in fetch_names:
-            cname = col_combiners[f]
-            parts = [_shard_table(cname, v, i, prog_groups)
-                     for v, i in zip(dist.columns[f].shards,
-                                     prog_ids.shards)]
-            tables.append(to_host(COMBINERS[cname].collective(parts)))
+        parts = _shard_tables(fetch_names, col_combiners, dist.columns,
+                              prog_ids, prog_groups, clock)
+        tables = [to_host(COMBINERS[col_combiners[f]].collective(parts[f]))
+                  for f in fetch_names]
     if trace is not None:
-        _trace_done(trace, "daggregate", t0)
+        _trace_done(trace, "daggregate", clock, mesh)
     counters.inc("mesh.dispatches")
 
     if salt_plan is not None:
@@ -1668,7 +1899,8 @@ def _segmented_fold(comp, names, mesh: DeviceMesh, arrays, ids: ShardedArray,
     dev0 = mesh.shard_devices()[0]
     tabs, present = [], []
     trace = current_trace()
-    t0 = trace.clock() if trace is not None else 0.0
+    clock = (_trace_shards(trace, "daggregate", mesh=mesh)
+             if trace is not None else None)
     with span("daggregate.segmented_fold_dispatch"), torch.no_grad():
         for s, ids_local in enumerate(ids.shards):
             vals = {f: arrays[f].shards[s] for f in names}
@@ -1694,6 +1926,8 @@ def _segmented_fold(comp, names, mesh: DeviceMesh, arrays, ids: ShardedArray,
             p[target] = True
             tabs.append(table)
             present.append(p.to(dev0))
+            if clock is not None:
+                clock.mark()
         acc, acc_p = tabs[0], present[0]
         for s in range(1, len(tabs)):
             comb = _ops._fold_call(pair_v, comp, acc, tabs[s])
@@ -1710,7 +1944,7 @@ def _segmented_fold(comp, names, mesh: DeviceMesh, arrays, ids: ShardedArray,
         out = _ops._fold_call(single_v, comp, acc)
     counters.inc("mesh.dispatches")
     if trace is not None:
-        _trace_done(trace, "daggregate", t0)
+        _trace_done(trace, "daggregate", clock, mesh)
     return {f: out[f] for f in names}
 
 

@@ -32,9 +32,11 @@ against ``TFT_SKEW_WARN``, the flight record ``mesh.exchange_skew`` and
 ``TFT_SHUFFLE=0`` is the kill switch of the consumers (``join()``'s
 routing, :func:`shuffle_daggregate`, ``partitioned_hash_join``), which
 then take the broadcast, dense and sort-merge paths; the exchange itself
-stays callable. Every exchange runs once: the JAX package's device-loss
-recovery around it (``elastic_call``) and the registration of its result
-as a spill candidate are ``ROADMAP.md`` A item 7b.
+stays callable. The exchange dispatches through the elastic boundary
+(``elastic.elastic_call``): a device lost mid-exchange shrinks the mesh,
+re-shards the input and exchanges again over the survivors (placement is
+then the hash modulo the surviving shard count). Under a device budget
+with spilling on, its result is a spill candidate of the memory ledger.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from ..resilience import invariants as _invariants
 from ..utils.env import env_bool, env_int
 from ..utils.logging import get_logger
 from ..utils.tracing import counters, span
+from . import elastic as _elastic
 
 __all__ = ["dexchange", "shuffle_daggregate", "shuffle_enabled",
            "shuffle_agg_groups_threshold", "exchange_hash_host"]
@@ -222,8 +225,11 @@ def dexchange(keys, dist):
     Returns a frame with per-shard validity (``shard_valid``) whose rows
     lie, within each shard, in their original global order. A one-shard
     mesh returns ``dist`` itself."""
-    from .distributed import _check_executor
+    from .distributed import _check_executor, _lazy_input
     _check_executor()
+    if _lazy_input(dist) is not None:
+        from ..plan import dist as _dplan
+        dist = _dplan.materialize(dist)
     keys = [keys] if isinstance(keys, str) else list(keys)
     if not keys:
         raise ValueError("dexchange needs at least one key column")
@@ -242,31 +248,8 @@ def dexchange(keys, dist):
 
 @traced_query("dexchange", _meta_dexchange)
 def _dexchange_eager(keys, dist):
-    return _dexchange(keys, dist)
-
-
-def _prefix_layout(dist):
-    """``dist``'s valid rows laid out again as an even prefix (the
-    ``distribute()`` layout) through the host: what a frame whose rows do
-    not tile the data axis goes through before an exchange."""
-    from .distributed import DistributedFrame, _host_side_column, _place
-    mesh = dist.mesh
-    S = mesh.num_data_shards
-    n = dist.num_rows
-    mask = dist.valid_row_mask()
-    padded = ((n + S - 1) // S) * S if n else S
-    cols: Dict[str, object] = {}
-    for f in dist.schema:
-        a = dist.host_read_padded(f.name)
-        a = a[mask] if dist.shard_valid is not None else a[:n]
-        if not f.dtype.tensor:
-            cols[f.name] = _host_side_column(a, f, padded)
-            continue
-        out = np.zeros((padded,) + a.shape[1:], a.dtype)
-        out[:n] = a
-        cols[f.name] = _place(mesh, out, [padded // S] * S,
-                              dist.columns[f.name].dtype)
-    return DistributedFrame(mesh, dist.schema, cols, n)
+    return _elastic.elastic_call("dexchange", dist,
+                                 lambda d: _dexchange(keys, d))
 
 
 def _dexchange(keys, dist):
@@ -276,8 +259,12 @@ def _dexchange(keys, dist):
     S = mesh.num_data_shards
     devs = mesh.shard_devices()
     dev0 = devs[0]
+    if S <= 1:
+        return dist
     if dist.padded_rows % S != 0:
-        dist = _prefix_layout(dist)
+        # non-tiling (trim/global-result) frames first normalize to the
+        # even prefix layout: the same host round trip reshard uses
+        dist = _elastic.reshard(dist, mesh)
     if dist.padded_rows >= 2 ** 31:
         raise ValueError(
             f"dexchange carries int32 row ids; {dist.padded_rows} padded "
@@ -334,11 +321,11 @@ def _dexchange(keys, dist):
 
     # -- phase 2: the swap ---------------------------------------------------
     trace = current_trace()
-    t0 = 0.0
+    clock = None
     if trace is not None:
-        t0 = _trace_shards(trace, "dexchange", dist)
-        trace.add("collective", name="all_to_all", ts=t0, op="dexchange",
-                  columns=len(tensor_names))
+        clock = _trace_shards(trace, "dexchange", dist)
+        trace.add("collective", name="all_to_all", ts=clock.ts,
+                  op="dexchange", columns=len(tensor_names))
     per_out = S * cap
     recv = cmat.sum(axis=0)  # rows each shard receives
 
@@ -370,7 +357,7 @@ def _dexchange(keys, dist):
                 rows_per, device=d.device)).to(torch.int32)
                 for s, d in enumerate(dest_pad)])
     if trace is not None:
-        _trace_done(trace, "dexchange", t0)
+        _trace_done(trace, "dexchange", clock, mesh)
     counters.inc("mesh.dispatches")
 
     total = int(recv.sum())
@@ -389,6 +376,9 @@ def _dexchange(keys, dist):
             out_a = np.full(S * per_out, None, object)
             out_a[vmask] = src[rowid_g[vmask]]
             new_cols[n] = out_a
+    if mgr is not None and mgr.spill_enabled:
+        new_cols = _memory.spillable_columns(
+            f"dexchange@{id(dist):x}", new_cols, mgr)
     result = DistributedFrame(mesh, schema, new_cols, dist.num_rows,
                               shard_valid=recv)
     _note_exchange_skew(result, recv, total, S,

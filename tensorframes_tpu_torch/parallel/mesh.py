@@ -17,6 +17,16 @@ shards, each ``torch.device("cpu")``: ``TFT_CPU_DEVICE_COUNT`` of them
 package's 8-device meshes. An explicit :class:`DeviceMesh` may name one
 device more than once (8 logical shards on one card); ``local_mesh``
 never repeats a card.
+
+Logical device identity: the JAX package keys everything elastic (the
+lost-device pool, admission candidates, the skew tracker, grow's
+membership test) by ``jax.Device.id``. Equal ``torch.device`` objects
+cannot tell the port's shards apart (8 logical shards of ``cuda:0`` are 8
+equal devices), so a :class:`DeviceMesh` carries one logical id per slot
+in ``ids``, an int array of the same shape as ``devices``: the port's
+``d.id``. :func:`local_mesh` numbers the visible devices 0..n-1; an
+explicit ``DeviceMesh(devices)`` numbers by position unless ``ids=`` is
+given. The elastic layer's shrink and grow carry the ids along.
 """
 
 from __future__ import annotations
@@ -29,7 +39,29 @@ import torch
 from ..device import default_device
 from ..utils.env import env_int
 
-__all__ = ["DeviceMesh", "local_mesh"]
+__all__ = ["DeviceMesh", "LogicalDevice", "local_mesh"]
+
+
+class LogicalDevice:
+    """One slot of a mesh: its logical ``id`` (the port's ``jax.Device.id``)
+    and the ``torch.device`` it runs on. Equal when both agree, so the
+    lost shards of one card stay distinct."""
+
+    __slots__ = ("id", "device")
+
+    def __init__(self, id: int, device):
+        self.id = int(id)
+        self.device = torch.device(device)
+
+    def __eq__(self, other):
+        return (isinstance(other, LogicalDevice) and other.id == self.id
+                and other.device == self.device)
+
+    def __hash__(self):
+        return hash((self.id, str(self.device)))
+
+    def __repr__(self):
+        return f"LogicalDevice({self.id}, {self.device})"
 
 
 class DeviceMesh:
@@ -37,7 +69,7 @@ class DeviceMesh:
     shards the rows of a distributed frame."""
 
     def __init__(self, devices, axis_names: Sequence[str] = ("data",),
-                 data_axis: str = "data"):
+                 data_axis: str = "data", ids=None):
         arr = np.empty(np.shape(devices), dtype=object)
         flat = [torch.device(d) for d in np.asarray(devices,
                                                     dtype=object).flat]
@@ -48,6 +80,18 @@ class DeviceMesh:
                 f"devices of shape {arr.shape} do not match axes "
                 f"{self.axis_names}")
         self.devices = arr
+        if ids is None:
+            ids = np.arange(arr.size, dtype=np.int64).reshape(arr.shape)
+        ids = np.asarray(ids, dtype=np.int64)
+        if ids.shape != arr.shape:
+            raise ValueError(
+                f"ids of shape {ids.shape} do not match devices of shape "
+                f"{arr.shape}")
+        if len(set(ids.reshape(-1).tolist())) != ids.size:
+            raise ValueError(f"mesh ids must be distinct, got "
+                             f"{ids.reshape(-1).tolist()}")
+        # one logical id per slot: the port's ``jax.Device.id``
+        self.ids = ids
         self.data_axis = data_axis
         if data_axis not in self.axis_names:
             raise ValueError(
@@ -64,6 +108,15 @@ class DeviceMesh:
     @property
     def num_devices(self) -> int:
         return int(self.devices.size)
+
+    def flat_ids(self) -> List[int]:
+        """Every slot's logical id, in the devices' flat order."""
+        return [int(i) for i in self.ids.reshape(-1)]
+
+    def logical_devices(self) -> List[LogicalDevice]:
+        """Every slot as a :class:`LogicalDevice`, in flat order."""
+        return [LogicalDevice(i, d) for i, d in
+                zip(self.flat_ids(), self.devices.reshape(-1))]
 
     def shard_devices(self) -> List[torch.device]:
         """The device of each data shard, in shard order: the first device
@@ -83,6 +136,11 @@ def _visible_devices() -> List[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device("cpu")] * max(env_int("TFT_CPU_DEVICE_COUNT", 1), 1)
+
+
+def visible_logical_devices() -> List[LogicalDevice]:
+    """The visible devices as :func:`local_mesh` numbers them (0..n-1)."""
+    return [LogicalDevice(i, d) for i, d in enumerate(_visible_devices())]
 
 
 def local_mesh(num_devices: Optional[int] = None,

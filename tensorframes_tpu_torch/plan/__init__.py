@@ -33,7 +33,8 @@ Counters (``utils/tracing.counters``): ``plan.fused_queries``,
 ``plan.pushdown_bytes_skipped``, ``plan.adaptive_*``, ``plan.replans``,
 ``plan.filter_reorders``, ``plan.result_cache_*``; span ``plan.execute``.
 
-Not in this package yet: ``plan/dist.py``.
+``plan.dist`` (:mod:`.dist`) is the distributed plan: lazy mesh d-op
+chains (``DistributedFrame.lazy()``) fused into one stage per mesh stage.
 """
 
 from __future__ import annotations
@@ -49,5 +50,15 @@ __all__ = [
     "PlanNode", "SourceNode", "ParquetScanNode", "MapBlocksNode",
     "MapRowsNode", "FilterNode", "SelectNode", "attach", "node_for",
     "enabled", "maybe_run", "record_selectivity", "observed_selectivity",
-    "adaptive",
+    "adaptive", "dist",
 ]
+
+
+def __getattr__(name):
+    # plan.dist imports parallel.distributed (which imports engine.ops,
+    # which imports this package): resolve the submodule lazily so the
+    # package import graph stays acyclic
+    if name == "dist":
+        import importlib
+        return importlib.import_module(__name__ + ".dist")
+    raise AttributeError(name)

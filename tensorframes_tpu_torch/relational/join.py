@@ -53,9 +53,10 @@ copied for its own dispatch (``relational.build_chunks``, span
 held as :class:`~..memory.spill.SpillableColumns`, so it can be spilled
 under pressure and faults back at its next probe.
 
-The ``relational.*`` counters keep the JAX package's names. Every mesh
-join runs once: the JAX package's re-pairing of two exchanged sides after
-a device loss needs the elastic layer (``ROADMAP.md`` A item 7b).
+The ``relational.*`` counters keep the JAX package's names. A device lost
+during one side's exchange shrinks only that side's mesh: the partitioned
+join then re-exchanges the wider side at the narrower shard count
+(``elastic.reshard``), so the key ranges line up again.
 """
 
 from __future__ import annotations
@@ -870,14 +871,19 @@ def partitioned_hash_join(left: TensorFrame, right: TensorFrame, on,
             rex = _ex.dexchange(on, distribute(
                 TensorFrame.from_columns(dict(rm.columns),
                                          schema=rf.schema), mesh))
-            if lex.mesh.num_data_shards != rex.mesh.num_data_shards:
-                # the JAX package re-exchanges the wider side after a
-                # device loss shrank one exchange (elastic.reshard)
-                raise NotImplementedError(
-                    "re-pairing the two sides of a partitioned join whose "
-                    "shard counts differ after a device loss needs the "
-                    "elastic layer (elastic.reshard), which is not ported "
-                    "to tensorframes_tpu_torch yet: ROADMAP.md A item 7b")
+            # a device lost during one exchange shrinks only that side;
+            # re-exchange the wider side at the narrower shard count so key
+            # ranges line up again (counts only ever decrease)
+            from ..parallel import elastic as _elastic
+            while (lex.mesh.num_data_shards
+                   != rex.mesh.num_data_shards):
+                if (lex.mesh.num_data_shards
+                        > rex.mesh.num_data_shards):
+                    lex = _ex.dexchange(
+                        on, _elastic.reshard(lex, rex.mesh))
+                else:
+                    rex = _ex.dexchange(
+                        on, _elastic.reshard(rex, lex.mesh))
             S = lex.mesh.num_data_shards
             lrp = lex.padded_rows // S
             rrp = rex.padded_rows // S

@@ -49,22 +49,20 @@ worker      ``engine.preempt.boundary`` (a running query) and the
             checkpoint persisted) and flags the worker as crashed, so
             ``TFT_FAULTS=worker:1`` kills one serving worker mid-query and
             the fabric declares it ``worker_lost`` and resumes elsewhere
+dmap        ``parallel.distributed.dmap_blocks`` mesh dispatch and the
+            fused stage of ``plan.dist`` (a transient fault retries the
+            dispatch, a permanent one replays a fused chain per op)
+device      ``parallel.elastic.elastic_call`` dispatch, device-loss
+            shaped (``DEVICE_LOST: injected fault: device %d is lost``,
+            ``TFT_FAULT_DEVICE`` picks the index, default 0): the elastic
+            layer shrinks the mesh, re-shards and re-runs the op
 ========== ===========================================================
 
 ``pad_compile`` has no counterpart: the port has no padding buckets, so
 there is no bucketed compile to fail. The other sites of the JAX package
-(``cluster_init``, ``dmap``, ``device``, ``pjrt_execute``), with the
-device-loss shaping of their faults, come with their layers
-(``ROADMAP.md`` A10, A13); arming one now warns, as any unknown site
-does, and nothing checks it.
-
-Counting is deterministic (a lock-guarded integer per site, decremented
-per check), so a test asserting "succeeds on the 3rd attempt" is exact.
-Seeded chaos schedules compose on top of this (``resilience/chaos.py``,
-``TFT_CHAOS``): while a schedule is active, a :func:`check` whose site
-has no scripted budget consults it, and a seed-deterministic firing arms
-a one-shot budget through :func:`arm`: same machinery, same counters,
-same shaping.
+(``cluster_init``, ``pjrt_execute``) come with their layers
+(``ROADMAP.md`` A items 7b and 8); arming one now warns, as any unknown
+site does.
 """
 
 from __future__ import annotations
@@ -97,7 +95,11 @@ _SITES = {
                "never raised out of the query)",
     "disk": "memory.persist artifact reads (read failure, or checksum "
             "corruption when armed with a 'corrupt' message)",
+    "dmap": "parallel.distributed.dmap_blocks mesh dispatch (and the "
+            "fused stage of plan.dist)",
     "batch": "stream.runtime.StreamHandle per-batch processing",
+    "device": "parallel.elastic.elastic_call dispatch (device-loss "
+              "shaped: the elastic layer shrinks the mesh)",
     "worker": "engine.preempt.boundary / serve.fabric heartbeat "
               "(worker-loss shaped: park + fabric re-placement)",
 }
@@ -141,6 +143,12 @@ _state = _State()
 # the "oom" site must be caught by classify.is_oom, not retried
 _OOM_MESSAGE = ("RESOURCE_EXHAUSTED: injected fault: out of memory "
                 "allocating scratch for block")
+
+# the "device" site must be caught by classify.is_device_lost (mesh
+# shrink), not the retry loop; the device index in the message is what
+# parallel.elastic parses to pick the shard to drop
+_DEVICE_MESSAGE = ("DEVICE_LOST: injected fault: device %d is lost "
+                   "(chip failure simulated)")
 
 # the "worker" site must be caught by classify.is_worker_lost (fabric
 # re-placement and checkpoint resume), never the retry loop
@@ -195,8 +203,11 @@ def arm(site: str, fail_n: int = 1, message: Optional[str] = None,
 
     ``transient`` defaults to True except for the ``oom`` site, whose
     faults must reach the OOM classifier (the row split), not the retry
-    loop, the ``worker`` site (fabric re-placement) and the ``disk`` site
-    (the persist cold path), never a retry.
+    loop, the ``device`` site, whose faults must reach the device-loss
+    classifier (mesh shrink and re-shard; ``TFT_FAULT_DEVICE`` selects
+    the reported device index, default 0), the ``worker`` site (fabric
+    re-placement) and the ``disk`` site (the persist cold path), never a
+    retry.
     """
     if fail_n < 0:
         raise ValueError(f"fail_n must be >= 0, got {fail_n}")
@@ -212,6 +223,12 @@ def arm(site: str, fail_n: int = 1, message: Optional[str] = None,
     if site == "oom":
         if message is None:
             message = _OOM_MESSAGE
+        if transient is None:
+            transient = False
+    elif site == "device":
+        if message is None:
+            from ..utils.env import env_int
+            message = _DEVICE_MESSAGE % env_int("TFT_FAULT_DEVICE", 0)
         if transient is None:
             transient = False
     elif site == "worker":

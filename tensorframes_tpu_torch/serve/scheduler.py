@@ -72,8 +72,9 @@ parks every running query, and ``submit(..., query_id=, _checkpoint=)``
 re-dispatches a migrated query under its original id with its persisted
 checkpoint. A query orphaned at :meth:`QueryScheduler.close` keeps its
 persisted checkpoint file, so that the fabric can resume it elsewhere.
-The JAX package's one retry of a query that lost a mesh device comes
-with the parallel layer (``ROADMAP.md`` A10).
+A query whose forcing raises a ``device_lost`` error (the mesh shrank
+under it, ``parallel/elastic.py``) is retried once on the surviving
+devices: ``serve.device_lost_retries``, a ``device_lost_retry`` event.
 """
 
 from __future__ import annotations
@@ -893,7 +894,23 @@ class QueryScheduler:
                            tenant=q.tenant, queue_wait_s=queue_wait,
                            resumed=q.preemptions > 0)
                 with _deadline(remaining), _preempt.activate(scope):
-                    result = q._thunk()
+                    try:
+                        result = q._thunk()
+                    except Exception as e:
+                        # a device_lost error means the mesh shrank
+                        # underneath the query (parallel/elastic.py): one
+                        # re-attempt on the surviving devices instead of
+                        # failing the future
+                        if error_kind(e) != "device_lost":
+                            raise
+                        counters.inc("serve.device_lost_retries")
+                        _obs.add_event("device_lost_retry",
+                                       name=q.query_id, tenant=q.tenant)
+                        _log.warning(
+                            "query %s (tenant %r) hit a device loss "
+                            "(%s); retrying once on the shrunken mesh",
+                            q.query_id, q.tenant, e)
+                        result = q._thunk()
         except QueryPreempted:
             self._requeue_preempted(q, t)
             return

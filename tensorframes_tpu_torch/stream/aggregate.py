@@ -42,9 +42,14 @@ anywhere in the process can spill it.
 Without a window the aggregation runs in **update mode**: one state
 table, and each batch emits the updated rows of the keys it touched.
 
-Not in this package yet: ``mesh=`` folds over more than one data shard
-(the parallel layer's ``mesh_segment_partial``, ``ROADMAP.md`` A item 7b) raise
-``NotImplementedError``.
+``mesh=`` with more than one data shard folds each batch on the mesh
+(``plan.dist.mesh_segment_partial``): the batch's rows shard over the data
+axis, each shard reduces its rows by group (``segment_sum``, B1, for a
+float sum) and one collective yields the partial tables the window state
+merges: one ``mesh.dispatches`` per fold, counted in
+``stream.mesh_folds``. Float sums may reassociate across shards, as in any
+``daggregate``; integer folds stay exact. A 1-shard mesh (or None) keeps
+the single-device fold.
 """
 
 from __future__ import annotations
@@ -279,15 +284,6 @@ def _merge_program(cname: str, m: int, g: int, h: int,
     return fn
 
 
-def _mesh_guard(mesh) -> None:
-    if mesh is not None and getattr(mesh, "num_data_shards", 1) > 1:
-        raise NotImplementedError(
-            "a streaming aggregate over a device mesh folds each batch "
-            "through the parallel layer (plan/dist.mesh_segment_partial, "
-            "ROADMAP A item 7b), which tensorframes_tpu_torch does not have yet; "
-            "pass mesh=None")
-
-
 class StreamingAggregation:
     """The terminal operator a :class:`~.frame.GroupedStream` builds (see
     the module docstring). Drive it with :meth:`start`: a
@@ -310,7 +306,6 @@ class StreamingAggregation:
                 "sum/min/max/prod names or relational sketch "
                 "combiners; arbitrary reduce computations cannot fold "
                 "incrementally)")
-        _mesh_guard(mesh)
         schema = upstream.schema
         self.upstream = upstream
         self.keys = list(keys)
@@ -318,6 +313,10 @@ class StreamingAggregation:
         self.time_col = time_col
         self.watermark_delay = float(watermark_delay)
         self.max_state_rows = max_state_rows
+        # mesh=: per-batch folds ride the mesh (module docstring); a 1-shard
+        # mesh (or None) keeps the single-device fold
+        self.mesh = mesh if (mesh is not None
+                             and mesh.num_data_shards > 1) else None
         if watermark_delay < 0:
             raise ValueError(
                 f"watermark_delay must be >= 0, got {watermark_delay}")
@@ -593,7 +592,19 @@ class StreamingAggregation:
         scalar_names = [f for f in self.fetch_names
                         if f not in self.sketches]
         parts: Dict[str, object] = {}
-        if scalar_names:
+        if self.mesh is not None and scalar_names:
+            # the distributed-plan path: one mesh dispatch per batch (rows
+            # shard over the data axis, B1 on each shard for a float sum,
+            # the partial tables combine with one collective)
+            from ..plan import dist as _dplan
+            mesh_parts = _dplan.mesh_segment_partial(
+                self.mesh,
+                {f: self.col_combiners[f] for f in scalar_names},
+                fact.ids.astype(np.int32), {f: vals[f] for f in
+                                            scalar_names},
+                fact.num_groups)
+            parts = {f: mesh_parts[f].to(device) for f in scalar_names}
+        elif scalar_names:
             # int32 ids where they fit, as the finite aggregate passes
             # them: 4 bytes a row less for the kernel to read
             id_dt = np.int32 if fact.num_groups < 2 ** 31 else np.int64

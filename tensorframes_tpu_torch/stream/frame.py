@@ -192,8 +192,8 @@ class GroupedStream:
         (:func:`~.aggregate.tumbling` / :func:`~.aggregate.sliding`)
         plus ``time_col`` enable windowing; ``watermark_delay`` is the
         allowed event-time lateness before a window emits and evicts.
-        ``mesh=`` with more than one data shard needs the parallel layer
-        and raises ``NotImplementedError``.
+        ``mesh=`` with more than one data shard folds each batch on the
+        mesh (one dispatch a batch, ``plan.dist.mesh_segment_partial``).
         Returns a :class:`~.aggregate.StreamingAggregation`; call
         ``.start()`` on it."""
         from .aggregate import StreamingAggregation

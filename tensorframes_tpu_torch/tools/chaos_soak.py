@@ -29,8 +29,8 @@ host without a GPU):
 
 ``tests/test_torch_chaos.py`` imports :func:`run_drill` with small
 parameters; ``chip_smoke.py`` runs it on the card. The default sites are
-``worker|preempt|disk|oom``: the JAX drill's ``device`` site needs the
-elastic mesh (``ROADMAP.md`` A10), which the port does not have. The
+``worker|preempt|disk|oom``: the JAX drill's ``device`` site in the
+default schedule is ``ROADMAP.md`` A item 7b (the mesh remainders). The
 ``batch`` site is not in the mix: a fault inside a stream batch is
 *skipped and counted* by contract, correct but lossy by design. An
 ``oom`` inside a stream batch would be skipped the same way, so the
@@ -44,7 +44,7 @@ import time
 
 import numpy as np
 
-# the JAX drill's `device` site waits for the elastic mesh (ROADMAP A10)
+# the JAX drill's `device` site in the default mix is ROADMAP A item 7b
 DEFAULT_SITES = ("worker", "preempt", "disk", "oom")
 
 

@@ -43,8 +43,8 @@ pytestmark = pytest.mark.chaos
 # the literal twin of faults.sites(): the conformance test greps test
 # sources for quoted site names, and test_site_table_matches_literals pins
 # this list to the real table
-PORT_SITES = ("batch", "compile", "disk", "dispatch", "drain", "oom",
-              "perf", "preempt", "worker")
+PORT_SITES = ("batch", "compile", "device", "disk", "dispatch", "dmap",
+              "drain", "oom", "perf", "preempt", "worker")
 
 
 @pytest.fixture(autouse=True)
@@ -176,7 +176,7 @@ class TestChaosSchedule:
             assert faults.may_fire("worker")
         finally:
             chaos.stop()
-        spec = "seed:11,rate:0.3,sites:worker|device"
+        spec = "seed:11,rate:0.3,sites:worker|pjrt_execute"
         monkeypatch.setattr(chaos, "_env_armed", False)
         monkeypatch.setattr(faults._state, "_armed_env", False)
         monkeypatch.setenv("TFT_CHAOS", spec)
@@ -186,7 +186,8 @@ class TestChaosSchedule:
         with pytest.raises(ValueError) as ej:
             jchaos.ChaosSchedule(11, 0.3, ["worker", "no_such_site"])
         known = re.compile(r"known sites: \[.*?\]")
-        assert known.sub("", str(ei.value)).replace("'device'", "X") == \
+        assert known.sub("", str(ei.value)).replace("'pjrt_execute'",
+                                                    "X") == \
             known.sub("", str(ej.value)).replace("'no_such_site'", "X")
 
     def test_firings_flight_recorded(self):
@@ -261,8 +262,7 @@ class TestParity:
     def test_port_sites_are_the_jax_packages(self):
         assert set(faults.sites()) <= set(jfaults.sites())
         assert set(jfaults.sites()) - set(faults.sites()) == {
-            "cluster_init", "device", "dmap", "pad_compile",
-            "pjrt_execute"}
+            "cluster_init", "pad_compile", "pjrt_execute"}
 
 
 # -- the fault-site table --------------------------------------------------
@@ -291,10 +291,11 @@ class TestFaultSites:
             with pytest.raises(InjectedFault) as ei:
                 faults.check(site)
         kind = error_kind(ei.value)
-        expect = {"oom": "oom", "worker": "worker_lost", "disk": "permanent"}
+        expect = {"oom": "oom", "worker": "worker_lost", "disk": "permanent",
+                  "device": "device_lost"}
         assert kind == expect.get(site, "transient"), site
         # non-transient sites must never reach the retry loop
-        if site in ("oom", "worker", "disk"):
+        if site in ("oom", "worker", "disk", "device"):
             assert not is_transient(ei.value)
         assert faults.active(site) == 0
         with jfaults.inject(site):

@@ -1505,3 +1505,160 @@ def test_shuffle_aggregate_and_joins_on_the_card(cuda, monkeypatch):
     for name in ("part", "smj"):
         for c in card[name]:
             np.testing.assert_array_equal(card[name][c], cpu[name][c])
+
+
+def _reset_elastic():
+    from tensorframes_tpu_torch.parallel import elastic
+    from tensorframes_tpu_torch.resilience import faults
+    faults.reset()
+    elastic._tracker.clear()
+    elastic._upgrades.clear()
+    elastic._lost_pool.clear()
+
+
+def test_device_loss_on_card_shards_is_bit_identical(cuda):
+    """A device lost on 8 logical shards of the card: the op shrinks onto
+    7 shards of the same card, its result bit-identical to the healthy
+    run, B1 launched once per surviving shard and sum column."""
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.resilience import faults
+
+    _reset_elastic()
+    rng = np.random.default_rng(37)
+    n = 200_000
+    df = ttf.frame({"key": rng.integers(0, 5_000, n), "x": rng.random(n),
+                    "i": rng.integers(-50, 50, n)}, num_partitions=4)
+    mesh = _card_and_cpu_meshes(cuda, 8)["card"]
+    try:
+        dist = parallel.distribute(df, mesh)
+        healthy_map = parallel.dmap_blocks(lambda x: {"z": x + x}, dist)
+        healthy = parallel.daggregate({"z": "sum", "i": "sum"},
+                                      healthy_map.select(["key", "z", "i"]),
+                                      "key")
+        with faults.inject("device", 1,
+                           message="DEVICE_LOST: injected: device 2 is "
+                                   "lost"):
+            lost_map = parallel.dmap_blocks(lambda x: {"z": x + x}, dist)
+        assert lost_map.mesh.num_data_shards == 7
+        assert all(d.type == "cuda" for d in lost_map.mesh.shard_devices())
+        np.testing.assert_array_equal(
+            _host_columns(lost_map.collect_frame())["z"],
+            _host_columns(healthy_map.collect_frame())["z"])
+        l0 = segment_reduce.launches
+        with faults.inject("device", 1):
+            agg = parallel.daggregate(
+                {"z": "sum", "i": "sum"},
+                healthy_map.select(["key", "z", "i"]), "key")
+        torch.cuda.synchronize()
+        assert segment_reduce.launches - l0 == 7  # one float sum column
+        got, want = _host_columns(agg), _host_columns(healthy)
+        np.testing.assert_array_equal(got["key"], want["key"])
+        np.testing.assert_array_equal(got["i"], want["i"])
+        np.testing.assert_allclose(got["z"], want["z"], rtol=1e-12)
+    finally:
+        _reset_elastic()
+
+
+def test_lost_cpu_slot_never_moves_a_card_frame_to_the_cpu(cuda):
+    """A card mesh and a CPU mesh of 8 slots each, in one process, lose
+    their slot 0 (the ids repeat across meshes). Admitting onto the card
+    frame takes the card's own slot back, never the CPU's: every shard
+    stays on the card, and the CPU frame's slot comes back to the CPU."""
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.parallel import elastic
+    from tensorframes_tpu_torch.resilience import faults
+
+    _reset_elastic()
+    meshes = _card_and_cpu_meshes(cuda, 8)
+    x = np.arange(80_000, dtype=np.float64)
+    df = ttf.frame({"x": x}, num_partitions=2)
+    try:
+        shrunk = {}
+        for where in ("card", "cpu"):
+            dist = parallel.distribute(df, meshes[where])
+            with faults.inject("device", 1,
+                               message="DEVICE_LOST: injected: device 0 "
+                                       "is lost"):
+                shrunk[where] = parallel.dmap_blocks(
+                    lambda x: {"z": x + x}, dist)
+            assert shrunk[where].mesh.num_data_shards == 7
+        assert elastic.lost_pool() == [0]
+        for where, kind in (("card", "cuda"), ("cpu", "cpu")):
+            grown = parallel.admit_devices(shrunk[where])
+            assert grown.mesh.num_data_shards == 8
+            assert sorted(grown.mesh.flat_ids()) == list(range(8))
+            assert all(d.type == kind for d in grown.mesh.shard_devices())
+            for a in grown.columns.values():
+                assert all(t.device.type == kind for t in a.shards)
+            np.testing.assert_array_equal(
+                _host_columns(grown.collect_frame())["z"], x + x)
+        assert elastic.lost_pool() == []
+    finally:
+        _reset_elastic()
+
+
+def test_fused_aggregate_launches_b1_once_per_shard(cuda):
+    """``dmap -> daggregate`` through ``lazy()`` on 8 shards of the card:
+    one mesh dispatch, B1 launched once per shard, equal to the eager
+    chain and no fallback."""
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    rng = np.random.default_rng(41)
+    n = 100_000
+    df = ttf.frame({"key": rng.integers(0, 3_000, n), "x": rng.random(n)},
+                   num_partitions=4)
+    dist = parallel.distribute(df, _card_and_cpu_meshes(cuda, 8)["card"])
+
+    def chain(d):
+        return parallel.daggregate(
+            {"z": "sum"}, parallel.dmap_blocks(
+                lambda x: {"z": x * 3.0}, d).select(["key", "z"]), "key")
+
+    eager = _host_columns(chain(dist))
+    d0, f0 = counters.get("mesh.dispatches"), counters.get("dplan.fallbacks")
+    l0 = segment_reduce.launches
+    fused = _host_columns(chain(dist.lazy()))
+    torch.cuda.synchronize()
+    assert segment_reduce.launches - l0 == 8
+    assert counters.get("mesh.dispatches") - d0 == 1
+    assert counters.get("dplan.fallbacks") == f0
+    np.testing.assert_array_equal(fused["key"], eager["key"])
+    np.testing.assert_allclose(fused["z"], eager["z"], rtol=1e-12)
+
+
+def test_card_shard_times_reach_the_skew_tracker_cumulative(cuda,
+                                                            monkeypatch):
+    """While a trace is active, a mesh op on the card times each shard
+    with a CUDA event after its work, measured from one start event: the
+    times reach ``note_dispatch`` in cumulative (non-decreasing) order,
+    one per shard, and land as ``shard_compute`` events."""
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.observability import events
+    from tensorframes_tpu_torch.parallel import elastic
+    from tensorframes_tpu_torch.utils import tracing
+
+    seen = []
+    real = elastic.note_dispatch
+    monkeypatch.setattr(elastic, "note_dispatch",
+                        lambda m, op, times: (seen.append((op, list(times))),
+                                              real(m, op, times)))
+    rng = np.random.default_rng(43)
+    df = ttf.frame({"x": rng.random(400_000)}, num_partitions=2)
+    dist = parallel.distribute(df, _card_and_cpu_meshes(cuda, 8)["card"])
+    tracing.enable()
+    try:
+        parallel.dmap_blocks(lambda x: {"z": torch.sin(x) * x}, dist)
+        trace = events.last_query()
+    finally:
+        tracing.disable()
+        elastic._tracker.clear()
+    ops = [op for op, _ in seen]
+    assert "dmap_blocks" in ops
+    times = seen[ops.index("dmap_blocks")][1]
+    assert len(times) == 8
+    assert all(t > 0.0 for t in times)
+    assert all(b >= a for a, b in zip(times, times[1:]))
+    comp = [ev for ev in trace.events if ev.etype == "shard_compute"]
+    assert [ev.args["device"] for ev in comp] == list(range(8))
+    assert [ev.dur for ev in comp] == times

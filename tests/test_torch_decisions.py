@@ -344,8 +344,8 @@ class TestHealth:
     def test_snapshot_keys_match_but_mesh_and_fabric(self):
         snaps = [p.top.health() for p in BOTH]
         j, t = snaps
-        assert set(j) - set(t) == {"mesh"}
-        assert set(t) <= set(j)
+        assert set(t) == set(j)
+        assert set(t["mesh"]) == set(j["mesh"])
         assert t["fabric"] == j["fabric"] == {"running": False}
         for sec in ("memory", "caches", "flight", "resilience",
                     "invariants", "quarantine", "perf", "history"):

@@ -158,7 +158,8 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "demos/__init__.py", "demos/kmeans.py", "demos/geom_mean.py",
             "demos/groupby_scratch.py", "native.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/collectives.py",
-            "parallel/elastic.py", "parallel/distributed.py"} <= names
+            "parallel/elastic.py", "parallel/distributed.py",
+            "parallel/exchange.py", "plan/dist.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):
@@ -192,6 +193,15 @@ def test_demos_and_adaptive_run_without_jax():
         "    c, d = step(dist, init)\n"
         "    assert c.shape == (2, 2) and d > 0\n"
         "import numpy as np\n"
+        "from tensorframes_tpu_torch.resilience import faults\n"
+        "xd = parallel.distribute(ttf.frame({'x': np.arange(8.0)}),\n"
+        "                         parallel.local_mesh())\n"
+        "with faults.inject('device', 1):\n"
+        "    lost = parallel.dmap_blocks(lambda x: {'z': x + 1.0}, xd)\n"
+        "assert lost.mesh.num_data_shards == 3\n"
+        "lz = parallel.dmap_blocks(lambda x: {'z': x * 2.0}, xd.lazy())\n"
+        "assert float(parallel.dreduce_blocks({'z': 'sum'}, lz)['z']) \\\n"
+        "    == 56.0\n"
         "a = np.arange(100_000)\n"
         "assert (native.convert(a, np.float32) == a).all()\n"
         "assert len(geom_mean.geometric_mean_per_key(\n"

@@ -990,10 +990,14 @@ def test_unported_routes_raise_naming_their_item(meshes, monkeypatch):
     dist = tpar.distribute(ttf.frame({"k": np.arange(8) % 2,
                                       "x": np.arange(8.0)}),
                            meshes["torch"])
-    with pytest.raises(NotImplementedError, match="A item 7b"):
-        dist.lazy()
-    for name in ("admit_devices", "grow_mesh", "probe_device",
-                 "ring_attention", "ring_allreduce", "cluster_mesh",
+    # the elastic mesh and the fused plan are ported
+    # (tests/test_torch_elastic.py, tests/test_torch_dplan.py)
+    lz = dist.lazy()
+    assert getattr(lz, "_tft_lazy_dist", False)
+    assert tpar.admit_devices(dist) is dist  # no candidate: a no-op
+    assert tpar.grow_mesh(meshes["torch"], []) is meshes["torch"]
+    assert tpar.probe_device(torch.device("cpu")) is True
+    for name in ("ring_attention", "ring_allreduce", "cluster_mesh",
                  "distribute_local", "initialize"):
         assert name in tpar.__all__ and name in jpar.__all__
         with pytest.raises(NotImplementedError, match=f"{name}.*A item 7b"):

@@ -533,10 +533,10 @@ class TestSortMergeJoin:
         assert_frames_match(jo, to)
 
     def test_a_mesh_is_not_ported_yet(self, monkeypatch):
-        """What of the mesh joins waits for the elastic layer (ROADMAP A
-        item 7b): re-pairing two exchanged sides whose shard counts differ
-        after a device loss. The mesh sort-merge join itself runs, and
-        equals the host one."""
+        """The mesh joins with the elastic layer: the mesh sort-merge join
+        equals the host one, and a partitioned join whose right side's
+        exchange came back on fewer shards (as after a device loss)
+        re-pairs the two sides and equals ``broadcast_join``."""
         from tensorframes_tpu_torch import parallel as tpar
         from tensorframes_tpu_torch.parallel import exchange as tex
 
@@ -561,9 +561,9 @@ class TestSortMergeJoin:
             return exchange(keys, dist)
 
         monkeypatch.setattr(tex, "dexchange", shrunk_right)
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            trel.partitioned_hash_join(left, right, on="k",
-                                       mesh=mesh).collect()
+        got = trel.partitioned_hash_join(left, right, on="k", mesh=mesh)
+        assert _eq(_rows(got),
+                   _rows(trel.broadcast_join(left, right, on="k")))
 
 
 class TestRouting:

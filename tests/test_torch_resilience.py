@@ -273,7 +273,7 @@ class TestFaults:
         from tensorframes_tpu_torch.resilience import chaos
         assert set(faults.sites()) == {"compile", "dispatch", "oom",
                                        "drain", "perf", "preempt", "disk",
-                                       "batch", "worker"}
+                                       "batch", "worker", "device", "dmap"}
         assert set(faults.sites()) <= set(jrz.faults.sites())
         monkeypatch.setenv("TFT_CHAOS", "seed:1,rate:0.5")
         monkeypatch.setattr(chaos, "_env_armed", False)
@@ -296,10 +296,10 @@ class TestFaults:
 
     @pytest.mark.parametrize("site", ["device", "worker"])
     def test_sites_of_later_layers_are_unknown_and_unshaped(self, site):
-        """The mesh's site comes with the parallel layer: arming it warns
-        like any unknown site, and its fault carries none of the JAX
-        package's device-loss shaping. The fabric's ``worker`` site is
-        the port's now: known, and shaped as the JAX package shapes it."""
+        """The mesh's ``device`` site came with the elastic layer and the
+        fabric's ``worker`` site with the fabric: each is known, and its
+        fault is shaped as the JAX package shapes it (device-loss and
+        worker-loss, never transient)."""
         with faults.inject(site, fail_n=1):
             with pytest.raises(trz.InjectedFault) as ei:
                 faults.check(site)
@@ -307,14 +307,10 @@ class TestFaults:
             with pytest.raises(jrz.InjectedFault) as ej:
                 jrz.faults.check(site)
         assert jrz.error_kind(ej.value) != "transient"
-        if site == "device":
-            assert counters.get("faults.unknown_sites") == 1
-            assert trz.error_kind(ei.value) == "transient"
-        else:
-            assert counters.get("faults.unknown_sites") == 0
-            assert trz.error_kind(ei.value) == jrz.error_kind(ej.value) \
-                == "worker_lost"
-            assert str(ei.value) == str(ej.value)
+        assert counters.get("faults.unknown_sites") == 0
+        assert trz.error_kind(ei.value) == jrz.error_kind(ej.value) == \
+            {"device": "device_lost", "worker": "worker_lost"}[site]
+        assert str(ei.value) == str(ej.value)
 
     def test_disk_site_is_shaped_like_the_jax_package(self):
         """The persist tier's site came with ``memory/persist.py``: it is

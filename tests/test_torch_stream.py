@@ -1084,12 +1084,31 @@ class TestWaitsForLaterLayers:
         history.clear()
 
     def test_mesh_fold_raises_and_one_shard_does_not(self):
-        g = tstream.from_source(
-            tstream.GeneratorSource(_batches(2))).group_by("k")
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            g.aggregate({"v": "sum"}, mesh=SimpleNamespace(
-                num_data_shards=2))
-        h = g.aggregate({"v": "sum"},
-                        mesh=SimpleNamespace(num_data_shards=1)).start()
-        h.run()
-        assert h.metrics()["batches"] == 2
+        """A 2-shard mesh folds each batch on the mesh (one dispatch a
+        fold) and equals the 1-shard run; a 1-shard mesh keeps the
+        single-device fold."""
+        import torch
+
+        from tensorframes_tpu_torch import parallel as tpar
+
+        tcounters = ttracing.counters
+
+        def run(mesh):
+            g = tstream.from_source(
+                tstream.GeneratorSource(_batches(4))).group_by("k")
+            h = g.aggregate({"v": "sum"}, window=tstream.tumbling(2.0),
+                            time_col="ts", mesh=mesh).start()
+            h.run()
+            assert h.metrics()["batches"] == 4
+            return _rows(h.collect_updates())
+
+        one = run(SimpleNamespace(num_data_shards=1))
+        m0 = tcounters.get("stream.mesh_folds")
+        d0 = tcounters.get("mesh.dispatches")
+        mesh2 = tpar.DeviceMesh(np.array([torch.device("cpu")] * 2,
+                                         dtype=object))
+        two = run(mesh2)
+        folds = tcounters.get("stream.mesh_folds") - m0
+        assert folds == 4
+        assert tcounters.get("mesh.dispatches") - d0 == folds
+        assert two == one
