@@ -274,6 +274,20 @@ paths through its public entry points and checks every result:
    262,144 x 64 f32 features in 8 partitions, ``gradient_via_frame``
    against numpy f64 to rtol 1e-5, then 10 steps of ``fit_via_frame``, the
    loss falling;
+5f. the transformer on meshes of logical shards of the card
+   (``transformer_mesh_8x2048``, :func:`phase_transformer_mesh`), at 4's
+   width over [8, 2048] tokens: (a) ``ring_attention`` on 4 seq shards
+   against B2 (causal) and the plain attention, ``ring_allreduce`` of
+   [8, 1,048,576] f32 on 8, their trace events; (b)
+   ``make_sharded_train_step`` on (data 8), (data 2, model 4) and (data 2,
+   model 2, seq 2), step 0's loss and gathered gradients against the
+   one-device step's, 3 timed steps, B2 and its backward once per layer
+   and (data, model) shard a step (none with the ring); (c) 8 experts on
+   (data 2, model 2, expert 2) against the one-device step, the dropped
+   tokens equal, at capacity factor 0.5 too; (d) the GPipe step on (data
+   2, pipe 3), 4 microbatches; (e) 5e's logistic regression on (data 8)
+   equal to the one-device step; (f) the ``train_lm`` demo on (data 2,
+   model 4), resumed from its checkpoint equal to the uninterrupted run;
 6. each kernel against its plain PyTorch version on the card: segment_sum
    over dtypes, segment counts, widths, dropped ids, a hot segment with 90%
    of the rows and a single segment (also at the main path's 250k x 64
@@ -282,14 +296,15 @@ paths through its public entry points and checks every result:
    Sq != Sk and head dims; its backward (dq, dk, dv and the forward's
    log-sum-exp) over the same types, lengths 1 to 2,048 and head dims 32,
    64, 128 and 40; each case twice for bit-identity. Then, at the main
-   paths' shapes, each kernel held against the plain version and itself
-   again and timed beside the plain version, one library call and its
-   bound.
+   paths' shapes (B2 and its backward also at 5f's per-shard shapes),
+   each kernel held against the plain version and itself again and timed
+   beside the plain version, one library call and its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
 with each kernel's launches during its main path (phases 1-3m, 2b and
-2c included, for segment_sum, the child processes of phases 3h and 3l included, phases 4-5e
-for flash_attention, 5b-5e for its backward), the card's name and power
+2c included, for segment_sum, the child processes of phases 3h and 3l included, phases 4-5f
+for flash_attention, 5b-5f for its backward; 5f's launches that only
+served as the ring's reference left out), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises: the script then exits non-zero and prints no ``ok``.
 It refuses to run without CUDA. Data is random from fixed seeds.
@@ -306,6 +321,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib
 import json
 import os
@@ -4992,11 +5008,19 @@ def random_lm_params(np, cfg, seed: int) -> dict:
             * np.float32(np.sqrt(1.0 / fan_in))
 
     ones = np.ones((D,), np.float32)
-    layers = [{"ln1": ones, "wq": dense((D, H, Dh), D),
-               "wk": dense((D, H, Dh), D), "wv": dense((D, H, Dh), D),
-               "wo": dense((H, Dh, D), D), "ln2": ones,
-               "w1": dense((D, F), D), "w2": dense((F, D), F)}
-              for _ in range(cfg.n_layers)]
+    E = cfg.num_experts
+    layers = []
+    for _ in range(cfg.n_layers):
+        lp = {"ln1": ones, "wq": dense((D, H, Dh), D),
+              "wk": dense((D, H, Dh), D), "wv": dense((D, H, Dh), D),
+              "wo": dense((H, Dh, D), D), "ln2": ones}
+        if E > 0:  # a Switch MoE layer (router f32, experts [E, ...])
+            lp["moe"] = {"router": dense((D, E), D),
+                         "w1": dense((E, D, F), D),
+                         "w2": dense((E, F, D), F)}
+        else:
+            lp.update(w1=dense((D, F), D), w2=dense((F, D), F))
+        layers.append(lp)
     return {"embed": dense((V, D), D) * np.float32(np.sqrt(D)),
             "layers": layers, "ln_f": ones, "head": dense((D, V), D)}
 
@@ -5439,6 +5463,387 @@ def phase_logreg(ttf, np, torch, models, n=262_144, d=64, parts=8, seed=13,
             "loss_numpy_f64": float(nll.mean())}
 
 
+def card_mesh(np, torch, ttf_parallel, shape, names, device):
+    """A ``DeviceMesh`` of ``prod(shape)`` logical shards of ``device``."""
+    n = int(np.prod(shape))
+    devs = np.empty(n, dtype=object)
+    devs[:] = [device] * n
+    return ttf_parallel.DeviceMesh(devs.reshape(shape), names,
+                                   data_axis=names[0])
+
+
+def wall_steps(torch, step, state, tokens, targets, n):
+    """``n`` steps of ``step`` on one batch, each timed to a
+    synchronize: ``(state, losses, walls)``."""
+    losses, walls = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens, targets)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    return state, losses, walls
+
+
+def grads_close(np, got, want) -> float:
+    """The worst of each gradient's max abs error over its reference's
+    max-abs; raises past 1e-4."""
+    worst = 0.0
+    for name, w in want.items():
+        top = float(w.abs().max())
+        err = float((got[name].to(w.device) - w).abs().max())
+        assert err <= 1e-4 * top, (name, err, top)
+        worst = max(worst, err / top)
+    return worst
+
+
+def phase_transformer_mesh(np, torch, fa, fab, models, batch=8, seq=2048,
+                           seed=6, steps=3, lr=1e-3, cfg=None,
+                           moe_cfg=None, logreg_rows=262_144,
+                           logreg_features=64, demo_steps=(30, 40, 10),
+                           ring_elems=1 << 20, device="cuda") -> dict:
+    """The transformer on meshes of logical shards of the card, at the
+    width of phases 4 and 5b (``TransformerConfig()``, f32, weights from a
+    numpy seed through ``params_from_jax``, [batch, seq] tokens):
+
+    (a) ``ring_attention`` over a 4-shard seq axis at [8, 2048, 8, 64] f32,
+        causal against B2 and non-causal against the plain attention, to
+        1e-5 of the output's max-abs, both timed beside B2 on the same
+        inputs; ``ring_allreduce`` of [8, ``ring_elems``] f32 on 8 shards
+        against the sum to rtol 1e-6 (positive values: no cancellation);
+        each call's ``collective`` event and hops on the query trace;
+    (b) ``make_sharded_train_step(learning_rate=lr)`` on (data 8), (data 2,
+        model 4) and (data 2, model 2, seq 2): step 0's loss to 1e-5
+        relative of the one-device step's on the same state, its gathered
+        gradients to 1e-4 of each parameter's max-abs, then ``steps`` timed
+        steps, the loss falling, B2 forward and backward launched once per
+        layer and (data, model) shard a step (none with the seq axis);
+    (c) ``TransformerConfig(num_experts=8)`` on (data 2, model 2, expert
+        2) against its one-device step: step 0's loss (with aux) to 1e-5
+        relative, the dropped tokens' count equal, at capacity factor 0.5
+        too, where layer 0's tokens through ``switch_ffn`` on a (data 2,
+        expert 2) mesh drop the same tokens as on one shard; ``steps``
+        steps, the loss falling;
+    (d) ``make_pipelined_train_step`` on (data 2, pipe 3), 2 layers a
+        stage, 4 microbatches: step 0's loss to 1e-5 relative of the
+        one-device step's, ``steps`` steps, the loss falling;
+    (e) logistic regression at BASELINE config 5's ``logreg_rows`` x
+        ``logreg_features`` f32 on (data 8) against the one-device step
+        (3 steps): losses to 1e-6 relative, parameters to 1e-6 of the
+        largest one's magnitude;
+    (f) the ``train_lm`` demo on (data 2, model 4): ``demo_steps[0]``
+        steps checkpointing every ``demo_steps[2]``, a resume to
+        ``demo_steps[1]``, the resumed losses equal to an uninterrupted
+        run's (``tests/test_demos.py``'s bound, rtol 1e-4, atol 1e-5).
+
+    ``device="cpu"`` rehearses the phase at a small size (``cfg``,
+    ``moe_cfg`` and the sizes given; ``time_ms`` and the ``torch.cuda``
+    memory calls stubbed by the caller). Returns each part's numbers (also printed as one JSON line a part) and
+    ``compare_launches``: B2's launches that only served as a reference in
+    (a), which the ``kernels`` line leaves out."""
+    import shutil
+
+    from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.demos import train_lm
+    from tensorframes_tpu_torch.parallel import moe
+    from tensorframes_tpu_torch.utils.tracing import counters
+
+    cfg = cfg or models.TransformerConfig()
+    moe_cfg = moe_cfg or models.TransformerConfig(num_experts=8)
+    out = {}
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    flush = torch.empty(256 << 20 if dev.type == "cuda" else 1,
+                        dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+
+    def part(name, info):
+        emit({"phase": "transformer_mesh_8x2048", "part": name, **info})
+        out[name] = info
+
+    def launches(fn):
+        before = (fa.launches, fab.launches)
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (fa.launches - before[0], fab.launches - before[1])
+
+    # (a) the ring
+    t0 = time.perf_counter()
+    H, Dh = cfg.n_heads, cfg.head_dim
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (batch, seq, H, Dh), dtype=np.float32)).to(dev) for _ in range(3))
+    ring4 = card_mesh(np, torch, parallel, (4,), ("seq",), dev)
+    with obs.query_trace("ring") as trace:
+        causal = parallel.ring_attention(q, k, v, ring4, causal=True)
+        full = parallel.ring_attention(q, k, v, ring4, causal=False)
+        x = torch.from_numpy(rng.uniform(
+            size=(8, ring_elems)).astype(np.float32)).to(dev)
+        reduced = parallel.ring_allreduce(
+            x, card_mesh(np, torch, parallel, (8,), ("data",), dev))
+    events = [(e.name, e.args) for e in trace.events
+              if e.etype == "collective"]
+    assert [n for n, _ in events] == ["ring_attention", "ring_attention",
+                                      "ring_allreduce"], events
+    assert [a["hops"] for _, a in events] == [8, 8, 14], events
+    b2, compare = launches(lambda: fa.flash_attention(q, k, v, causal=True))
+    compare_fa = compare[0]
+    err_c = float((causal - b2).abs().max())
+    assert err_c <= 1e-5 * float(b2.abs().max()), (err_c, b2.abs().max())
+    plain = fa.flash_attention_reference(q, k, v, False)
+    err_f = float((full - plain).abs().max())
+    assert err_f <= 1e-5 * float(plain.abs().max()), (err_f,)
+    want = x.sum(dim=0)
+    torch.testing.assert_close(reduced, want.expand_as(x), rtol=1e-6,
+                               atol=0)
+    del plain, full, reduced, want
+    ring_ms = time_ms(torch, lambda: parallel.ring_attention(
+        q, k, v, ring4, causal=True), 3, flush)
+    b2_ms, compare = launches(lambda: time_ms(
+        torch, lambda: fa.flash_attention(q, k, v, causal=True), 3, flush))
+    compare_fa += compare[0]
+    del q, k, v, x, causal, b2
+    part("a_ring", {"shape": [batch, seq, H, Dh], "seq_shards": 4,
+                    "causal_max_abs_err_vs_b2": err_c,
+                    "full_max_abs_err_vs_plain": err_f,
+                    "allreduce": [8, ring_elems],
+                    "collectives": [{"name": n, **a} for n, a in events],
+                    "ring_ms": ring_ms, "b2_ms": b2_ms,
+                    "wall_s": time.perf_counter() - t0})
+
+    # the one-device step: the reference of (b), (d) and its wall
+    params = models.params_from_jax(random_lm_params(np, cfg, seed))
+    model = models.TransformerLM(cfg, device=dev)
+    one_step, one_init = model.make_sharded_train_step(learning_rate=lr)
+    state = one_init(params)
+    (loss_1, grads_1), _ = launches(lambda: model.loss_and_grads(
+        state["params"], tokens, targets))
+    loss_1 = float(loss_1)
+    torch.cuda.reset_peak_memory_stats()
+    state, one_losses, one_walls = wall_steps(torch, one_step, state, tokens,
+                                              targets, steps)
+    one_peak = torch.cuda.max_memory_allocated()
+    del state
+
+    # (b) dense layouts
+    t0 = time.perf_counter()
+    layouts = []
+    for names, shape, seq_axis in ((("data",), (8,), None),
+                                   (("data", "model"), (2, 4), None),
+                                   (("data", "model", "seq"), (2, 2, 2),
+                                    "seq")):
+        mesh = card_mesh(np, torch, parallel, shape, names, dev)
+        step, init_state = model.make_sharded_train_step(
+            mesh, seq_axis=seq_axis, learning_rate=lr)
+        st = init_state(params)
+        (loss0, grads), counts0 = launches(lambda: step.loss_and_grads(
+            st, tokens, targets))
+        assert abs(float(loss0) - loss_1) <= 1e-5 * abs(loss_1), \
+            (names, float(loss0), loss_1)
+        worst = grads_close(np, grads, grads_1)
+        del grads
+        torch.cuda.reset_peak_memory_stats()
+        (st, losses, walls), counts = launches(lambda: wall_steps(
+            torch, step, st, tokens, targets, steps))
+        peak = torch.cuda.max_memory_allocated()
+        shards = shape[0] * (shape[1] if "model" in names else 1)
+        per_step = 0 if seq_axis else cfg.n_layers * shards
+        assert counts0 == (per_step, per_step), (names, counts0)
+        assert counts == (steps * per_step,) * 2, (names, counts)
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        assert abs(losses[0] - loss_1) <= 1e-5 * abs(loss_1), losses
+        layouts.append({"mesh": dict(zip(names, shape)),
+                        "step0_loss": float(loss0), "losses": losses,
+                        "step_walls_s": walls,
+                        "step_wall_s": sum(walls[1:]) / (steps - 1),
+                        "step0_grad_max_rel_err": worst,
+                        "b2_per_step": per_step,
+                        "b2_launches": counts[0] + counts0[0],
+                        "b2_backward_launches": counts[1] + counts0[1],
+                        "max_memory_allocated_bytes": peak})
+        del st, step, init_state
+        torch.cuda.empty_cache()
+    del grads_1
+    part("b_dense", {"one_device": {"step0_loss": loss_1,
+                                    "losses": one_losses,
+                                    "step_walls_s": one_walls,
+                                    "step_wall_s": sum(one_walls[1:])
+                                    / (steps - 1),
+                                    "max_memory_allocated_bytes": one_peak},
+                     "layouts": layouts,
+                     "wall_s": time.perf_counter() - t0})
+
+    # (c) the Switch MoE
+    t0 = time.perf_counter()
+    moe_params = models.params_from_jax(random_lm_params(np, moe_cfg, seed))
+    mesh = card_mesh(np, torch, parallel, (2, 2, 2),
+                     ("data", "model", "expert"), dev)
+    moe_info = {}
+    for factor in (moe_cfg.expert_capacity_factor, 0.5):
+        c = dataclasses.replace(moe_cfg, expert_capacity_factor=factor)
+        lm = models.TransformerLM(c, device=dev)
+        one, one_init = lm.make_sharded_train_step(learning_rate=lr)
+        dropped = counters.get("moe.dropped_tokens")
+        st = one_init(moe_params)
+        one_loss = float(lm.loss_and_grads(st["params"], tokens,
+                                           targets)[0])
+        one_dropped = counters.get("moe.dropped_tokens") - dropped
+        step, init_state = lm.make_sharded_train_step(
+            mesh, expert_axis="expert", learning_rate=lr)
+        mst = init_state(moe_params)
+        dropped = counters.get("moe.dropped_tokens")
+        (loss0, _), counts0 = launches(lambda: step.loss_and_grads(
+            mst, tokens, targets))
+        mesh_dropped = counters.get("moe.dropped_tokens") - dropped
+        assert abs(float(loss0) - one_loss) <= 1e-5 * abs(one_loss), \
+            (factor, float(loss0), one_loss)
+        assert mesh_dropped == one_dropped, (factor, mesh_dropped,
+                                             one_dropped)
+        info = {"step0_loss": float(loss0), "one_device_loss": one_loss,
+                "dropped_tokens": mesh_dropped,
+                "b2_per_step": counts0[0]}
+        assert counts0 == (c.n_layers * 4,) * 2, counts0
+        if factor == moe_cfg.expert_capacity_factor:
+            st, one_losses, one_walls = wall_steps(torch, one, st, tokens,
+                                                   targets, steps)
+            torch.cuda.reset_peak_memory_stats()
+            (mst, losses, walls), counts = launches(lambda: wall_steps(
+                torch, step, mst, tokens, targets, steps))
+            assert counts == (steps * c.n_layers * 4,) * 2, counts
+            assert all(np.isfinite(losses)) and losses[-1] < losses[0], \
+                losses
+            info.update(losses=losses, step_walls_s=walls,
+                        step_wall_s=sum(walls[1:]) / (steps - 1),
+                        one_device_step_walls_s=one_walls,
+                        one_device_step_wall_s=sum(one_walls[1:])
+                        / (steps - 1),
+                        max_memory_allocated_bytes=
+                        torch.cuda.max_memory_allocated())
+        else:
+            # layer 0's Switch FFN on random activations: the same tokens
+            # dropped on one shard and on a (data 2, expert 2) mesh
+            assert mesh_dropped > 0, "capacity factor 0.5 dropped nothing"
+            lp = moe_params
+            w = {n: lp[f"layers.0.moe.{n}"].to(dev)
+                 for n in ("router", "w1", "w2")}
+            h = torch.from_numpy(rng.standard_normal(
+                (batch * seq, c.d_model), dtype=np.float32)).to(dev)
+            y1, aux1 = moe.switch_ffn(h, w, capacity_factor=factor)
+            y2, aux2 = moe.switch_ffn(
+                h, w, capacity_factor=factor,
+                mesh=card_mesh(np, torch, parallel, (2, 2),
+                               ("data", "expert"), dev),
+                expert_axis="expert")
+            drop1 = (y1 == 0).all(dim=1)
+            assert torch.equal(drop1, (y2 == 0).all(dim=1))
+            torch.testing.assert_close(y2, y1, rtol=1e-5, atol=1e-5)
+            assert abs(float(aux1) - float(aux2)) <= 1e-6 * float(aux1)
+            info["layer0_switch_dropped"] = int(drop1.sum())
+            del h, y1, y2
+        moe_info[str(factor)] = info
+        del st, mst, step, one, lm
+        torch.cuda.empty_cache()
+    part("c_moe", {"mesh": {"data": 2, "model": 2, "expert": 2},
+                   "experts": moe_cfg.num_experts, "by_capacity_factor":
+                   moe_info, "wall_s": time.perf_counter() - t0})
+
+    # (d) the GPipe pipeline
+    t0 = time.perf_counter()
+    mesh = card_mesh(np, torch, parallel, (2, 3), ("data", "pipe"), dev)
+    step, init_state = model.make_pipelined_train_step(
+        mesh, num_microbatches=4, learning_rate=lr)
+    st = init_state(params)
+    torch.cuda.reset_peak_memory_stats()
+    (st, losses, walls), counts = launches(lambda: wall_steps(
+        torch, step, st, tokens, targets, steps))
+    assert abs(losses[0] - loss_1) <= 1e-5 * abs(loss_1), (losses, loss_1)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    per_step = 4 * 2 * cfg.n_layers  # microbatches x data shards x layers
+    assert counts == (steps * per_step,) * 2, counts
+    part("d_pipeline", {"mesh": {"data": 2, "pipe": 3},
+                        "layers_a_stage": cfg.n_layers // 3,
+                        "microbatches": 4, "losses": losses,
+                        "step_walls_s": walls,
+                        "step_wall_s": sum(walls[1:]) / (steps - 1),
+                        "one_device_step_wall_s": sum(one_walls[1:])
+                        / (steps - 1),
+                        "b2_per_step": per_step,
+                        "max_memory_allocated_bytes":
+                        torch.cuda.max_memory_allocated(),
+                        "wall_s": time.perf_counter() - t0})
+    del st, step, init_state, params, model
+    torch.cuda.empty_cache()
+
+    # (e) logistic regression on a data mesh
+    t0 = time.perf_counter()
+    lrng = np.random.default_rng(13)
+    n, d = logreg_rows, logreg_features
+    x = torch.from_numpy(lrng.standard_normal((n, d), dtype=np.float32))
+    w_true = lrng.standard_normal(d) / np.sqrt(d) * 4.0
+    y = torch.from_numpy((lrng.uniform(size=n) < 1.0 / (1.0 + np.exp(
+        -(x.numpy() @ w_true)))).astype(np.float32))
+    x, y = x.to(dev), y.to(dev)
+    lreg = models.LogisticRegression(d, device=dev)
+    mstep = lreg.make_sharded_train_step(
+        card_mesh(np, torch, parallel, (8,), ("data",), dev), lr=1.0)
+    ostep = lreg.make_sharded_train_step(None, lr=1.0)
+    mp = op = lreg.init()
+    lwalls, owalls, lloss = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mp, ml = mstep(mp, x, y)
+        torch.cuda.synchronize()
+        lwalls.append(time.perf_counter() - t1)
+        op, ol = ostep(op, x, y)
+        torch.cuda.synchronize()
+        owalls.append(time.perf_counter() - t1 - lwalls[-1])
+        assert abs(float(ml) - float(ol)) <= 1e-6 * abs(float(ol)), (ml, ol)
+        # to 1e-6 of the parameters' max-abs (b alone can be near 0)
+        top = max(float(t.abs().max()) for t in op.values())
+        for key in mp:
+            err = float((mp[key] - op[key]).abs().max())
+            assert err <= 1e-6 * top, (key, err, top)
+        lloss.append(float(ml))
+    assert lloss[-1] < lloss[0], lloss
+    part("e_logreg", {"rows": n, "features": d, "mesh": {"data": 8},
+                      "losses": lloss, "step_walls_s": lwalls,
+                      "one_device_step_walls_s": owalls,
+                      "wall_s": time.perf_counter() - t0})
+    del x, y
+
+    # (f) the train_lm demo on (data 2, model 4)
+    t0 = time.perf_counter()
+    mesh = card_mesh(np, torch, parallel, (2, 4), ("data", "model"), dev)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_lm_mesh_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    first, total, every = demo_steps
+    (_, losses), counts = launches(lambda: train_lm.train(
+        mesh, n_steps=first, checkpoint_root=root + "/a",
+        checkpoint_every=every))
+    _, more = train_lm.train(mesh, n_steps=total, checkpoint_root=root
+                             + "/a", checkpoint_every=every, resume=True)
+    _, whole = train_lm.train(mesh, n_steps=total, checkpoint_root=root
+                              + "/b", checkpoint_every=10 * total)
+    shutil.rmtree(root, ignore_errors=True)
+    assert len(losses) == first and len(more) == total - first
+    np.testing.assert_allclose(more, whole[first:], rtol=1e-4, atol=1e-5)
+    assert whole[-1] < whole[0], (whole[0], whole[-1])
+    assert counts[0] == counts[1] == first * 2 * 8, counts
+    part("f_train_lm_demo", {"mesh": {"data": 2, "model": 4},
+                             "first_loss": whole[0],
+                             "final_loss": whole[-1],
+                             "resumed_losses": more,
+                             "wall_s": time.perf_counter() - t0})
+    return {"compare_launches": {"flash_attention": compare_fa},
+            "parts": sorted(out)}
+
+
 # flash_attention against its f64 plain version: f32 to 2e-5 (the JAX
 # tests' bound, tests/test_kernels.py): 3xTF32 products, about f32's own
 # rounding, summed in another order; bf16 and f16 to 1e-2: exact 16-bit
@@ -5748,7 +6153,9 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
     the rebalanced layout, 2,816,902 rows);
     flash_attention and its backward at the transformer's [8, 2048, 8,
     64] causal in f32 (the model's) and bf16 (the backward when ``fab``,
-    its module, is given: an earlier checkout has none)."""
+    its module, is given: an earlier checkout has none), then in f32 at
+    phase 5f's per-shard shapes [1, 2048, 8, 64], [4, 2048, 2, 64] and
+    [4, 2048, 4, 64]."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     # phase 3l's 200,000-row frame: the first rows of phase 2's keys
     small_s = int(np.unique(np.random.default_rng(2).integers(
@@ -5820,13 +6227,22 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
               time_segment_sum(np, torch, segment_reduce, 2_816_902, 1,
                                100_000, torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
+    # B2 at the transformer's shape, then at the mesh steps' per-shard
+    # shapes (f32, causal): (data 8) and a pipeline microbatch's data
+    # shard [1, 2048, 8, 64], (data 2, model 4) [4, 2048, 2, 64],
+    # (data 2, model 2, expert 2) [4, 2048, 4, 64]
+    mesh_shapes = ((1, 8), (4, 2), (4, 4))
     flash_shapes = [time_flash(np, torch, fa, dt, flush)
-                    for dt in (torch.float32, torch.bfloat16)]
+                    for dt in (torch.float32, torch.bfloat16)] + [
+        time_flash(np, torch, fa, torch.float32, flush, b=b, h=h)
+        for b, h in mesh_shapes]
     emit({"phase": "flash_attention_timing", "ok": True,
           "shapes": flash_shapes})
     backward_shapes = [] if fab is None else [
         time_flash_backward(np, torch, fa, fab, dt, flush)
-        for dt in (torch.float32, torch.bfloat16)]
+        for dt in (torch.float32, torch.bfloat16)] + [
+        time_flash_backward(np, torch, fa, fab, torch.float32, flush, b=b,
+                            h=h) for b, h in mesh_shapes]
     if backward_shapes:
         emit({"phase": "flash_attention_backward_timing", "ok": True,
               "shapes": backward_shapes})
@@ -6049,6 +6465,20 @@ def main(argv=None) -> int:
             got["flash_attention_backward"] > 0, \
             f"{name} did not launch the flash forward and backward: {got}"
 
+    mesh = {}
+
+    def run_mesh():
+        mesh.update(phase_transformer_mesh(np, torch, fa, fab, models))
+        return mesh
+
+    mesh_path = run_path(torch, (("transformer_mesh_8x2048", run_mesh),),
+                         counters)
+    mesh_fa = mesh_path["flash_attention"] \
+        - mesh["compare_launches"]["flash_attention"]
+    assert mesh_fa > 0 and mesh_path["flash_attention_backward"] > 0, \
+        f"the mesh steps did not launch the flash forward and backward: " \
+        f"{mesh_path}"
+
     t0 = time.perf_counter()
     info = phase_kernel_checks(np, torch, segment_reduce)
     emit({"phase": "kernel_vs_plain", "ok": True,
@@ -6078,7 +6508,7 @@ def main(argv=None) -> int:
          "source": "tensorframes_tpu_torch/csrc/flash_attention.cu",
          "replaces": "tensorframes_tpu/ops/flash_attention.py:122",
          "launches": lm_path["flash_attention"]
-         + train_path["flash_attention"],
+         + train_path["flash_attention"] + mesh_fa,
          **{k: flash_shapes[0][k] for k in keys},
          "at": flash_shapes[0]["shape"], "by_shape": flash_shapes},
         {"name": "flash_attention_backward", "route": "cuda",
@@ -6088,7 +6518,8 @@ def main(argv=None) -> int:
                  "its plain attention (tensorframes_tpu/ops/"
                  "flash_attention.py:148-157, _xla_attention) with XLA's "
                  "autodiff",
-         "launches": train_path["flash_attention_backward"],
+         "launches": train_path["flash_attention_backward"]
+         + mesh_path["flash_attention_backward"],
          **{k: backward_shapes[0][k] for k in keys},
          "at": backward_shapes[0]["shape"], "by_shape": backward_shapes}]})
 

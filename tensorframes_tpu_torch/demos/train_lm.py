@@ -5,11 +5,13 @@
    ``TensorFrame`` whose partitions are the batches, and its ``blocks()``
    are the data loader;
  - the **train step**: ``TransformerLM.make_sharded_train_step`` (adam) on
-   one device; on the card, attention's forward and backward are the
-   port's CUDA kernels;
+   one device or over a ``data`` x ``model`` mesh (tensor-parallel
+   parameters, data-parallel batch); on the card, attention's forward and
+   backward are the port's CUDA kernels;
  - **checkpoint / resume**: ``utils.checkpoint.save_step`` /
    ``restore_step``: stop anywhere, resume with every tensor restored to
-   its device, and continue as if never interrupted.
+   its device (a mesh state is saved as its global state and placed on
+   the same mesh again), and continue as if never interrupted.
 
 The task is next-token prediction on modular-increment sequences
 (``tokens[t+1] = (tokens[t] + step) % vocab`` with a per-sequence step of
@@ -31,6 +33,7 @@ import torch
 
 import tensorframes_tpu_torch as tft
 from tensorframes_tpu_torch.models import TransformerConfig, TransformerLM
+from tensorframes_tpu_torch.models.transformer import as_mesh
 from tensorframes_tpu_torch.utils import checkpoint as ckpt_lib
 
 __all__ = ["corpus_frame", "train", "main"]
@@ -70,24 +73,34 @@ def train(mesh=None, *, n_steps: int = 40, batch: int = 16,
           resume: bool = False,
           config: Optional[TransformerConfig] = None,
           learning_rate: float = 3e-3) -> Tuple[Dict, List[float]]:
-    """Train on the package's default device (``mesh``: ``None`` or one
-    device); returns ``(final_state, per-step losses)``.
+    """Train on ``mesh`` (``None``: the package's default device; a
+    ``parallel.DeviceMesh``, its ``model`` axis used when it has one);
+    returns ``(final_state, per-step losses)``; a mesh run's state is its
+    global state (``step.gather``).
 
     With ``checkpoint_root`` + ``checkpoint_every``, saves the train state
     every C steps; with ``resume=True``, restores the latest step first
     and continues from there (cold start when nothing is saved)."""
     model = TransformerLM(config or _config(vocab))
+    mesh = as_mesh(mesh)
+    data_axis = mesh.data_axis if mesh is not None else "data"
+    model_axis = "model" if mesh is not None and \
+        "model" in mesh.axis_names else None
     step, init_state = model.make_sharded_train_step(
-        mesh, learning_rate=learning_rate)
+        mesh, data_axis=data_axis, model_axis=model_axis,
+        learning_rate=learning_rate)
+    # a mesh state is checkpointed whole and placed again on restore
+    whole = getattr(step, "gather", lambda s: s)
+    place = getattr(step, "place", lambda s: s)
 
     state = init_state()
     start = 0
     if resume and checkpoint_root:
-        restored, at = ckpt_lib.restore_step(checkpoint_root, state)
+        restored, at = ckpt_lib.restore_step(checkpoint_root, whole(state))
         if restored is not None:
-            state, start = restored, at
+            state, start = place(restored), at
     if start >= n_steps:
-        return state, []
+        return whole(state), []
 
     df = corpus_frame(n_batches=8, batch=batch, seq_len=seq_len,
                       vocab=vocab)
@@ -100,8 +113,8 @@ def train(mesh=None, *, n_steps: int = 40, batch: int = 16,
         losses.append(float(loss))
         if (checkpoint_root and checkpoint_every
                 and (i + 1) % checkpoint_every == 0):
-            ckpt_lib.save_step(checkpoint_root, i + 1, state)
-    return state, losses
+            ckpt_lib.save_step(checkpoint_root, i + 1, whole(state))
+    return whole(state), losses
 
 
 def main(checkpoint_root: Optional[str] = None) -> Dict:

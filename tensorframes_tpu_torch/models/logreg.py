@@ -7,8 +7,10 @@ demo drives them: the model rides into the computation as constants,
 ``reduce_blocks`` sum across partitions, combined on the host.
 
 Parameters are ``{"w": [d], "b": []}`` tensors on the model's device
-(``None``: the package default). The mesh-parallel step runs on one device
-only until the mesh layer is ported (ROADMAP A item 7b).
+(``None``: the package default). The single-program step also runs over
+a data mesh (``make_sharded_train_step(mesh)``): batch rows split over the
+data shards, the gradient the global mean summed across shards in shard
+order.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .transformer import _named_args_fn, mesh_size
+from .transformer import _named_args_fn, as_mesh
 
 __all__ = ["LogisticRegression"]
 
@@ -146,23 +148,54 @@ class LogisticRegression:
     # -- the single-program step ----------------------------------------------
     def make_sharded_train_step(self, mesh=None, lr: float = 0.1):
         """The train step as one program: ``params, loss = step(params, x,
-        y)``, plain gradient descent on the model's device, the loss that
-        of the parameters it was given.
+        y)``, plain gradient descent, the loss that of the parameters it
+        was given.
 
-        One device only: a mesh of more devices (the data-parallel step,
-        its gradient all-reduced over the mesh's data axis) raises
-        ``NotImplementedError``: ROADMAP A item 7b."""
-        if mesh_size(mesh) != 1:
-            raise NotImplementedError(
-                f"a mesh of {mesh_size(mesh)} devices: the data-parallel "
-                f"logistic-regression step over a mesh is not ported yet: "
-                f"ROADMAP A item 7b (parallel)")
+        ``mesh`` ``None`` (or of one device): on the model's device. A
+        ``DeviceMesh`` (or a list of devices) of more: the batch rows are
+        split over the data axis in contiguous blocks, each shard's
+        summed loss and its gradients computed on its device, then summed
+        across shards in shard order and divided by the batch's rows: the
+        global mean the JAX package's allreduce gives. The new parameters
+        and the loss come back on the model's device."""
+        mesh = as_mesh(mesh)
+        if mesh is None or mesh.num_devices == 1:
+            def step(params, x, y):
+                x = torch.as_tensor(x).to(self.device)
+                y = torch.as_tensor(y).to(self.device)
+                with torch.no_grad():
+                    loss = self.loss(params, x, y)
+                return self.sgd_step(params, x, y, lr=lr), loss
+
+            return step
+        devs = mesh.shard_devices()
 
         def step(params, x, y):
-            x = torch.as_tensor(x).to(self.device)
-            y = torch.as_tensor(y).to(self.device)
-            with torch.no_grad():
-                loss = self.loss(params, x, y)
-            return self.sgd_step(params, x, y, lr=lr), loss
+            x, y = torch.as_tensor(x), torch.as_tensor(y)
+            n = x.shape[0]
+            grads = {}
+            nll = None
+            for dev, xb, yb in zip(devs, torch.tensor_split(x, len(devs)),
+                                   torch.tensor_split(y, len(devs))):
+                leaves = {k: torch.as_tensor(v).detach().to(dev)
+                          .requires_grad_() for k, v in params.items()}
+                with torch.enable_grad():
+                    xb = xb.to(dev, leaves["w"].dtype)
+                    yb = yb.to(dev, leaves["w"].dtype)
+                    z = xb @ leaves["w"] + leaves["b"]
+                    s = torch.sum(_nll(z, yb))
+                    g = torch.autograd.grad(s, list(leaves.values()))
+                for k, gk in zip(leaves, g):
+                    gk = gk.to(self.device)
+                    grads[k] = gk if k not in grads else grads[k] + gk
+                s = s.detach().to(self.device)
+                nll = s if nll is None else nll + s
+            w = torch.as_tensor(params["w"]).to(self.device)
+            reg = 0.5 * self.l2 * torch.sum(w * w)
+            grads["w"] = grads["w"] / n + self.l2 * w
+            grads["b"] = grads["b"] / n
+            new = {k: torch.as_tensor(p).to(self.device) - lr * grads[k]
+                   for k, p in params.items()}
+            return new, nll / n + reg
 
         return step

@@ -16,11 +16,13 @@ the high-cardinality shuffle route), the shuffle (``dexchange``,
 (``elastic.py``: device-loss recovery at every op's dispatch, skew
 rebalancing, ``admit_devices``, ``grow_mesh``, ``probe_device``) and the
 fused distributed plan (``DistributedFrame.lazy()``, ``plan/dist.py``).
-The other public names of the JAX package's layer stay in this namespace
-and raise ``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when
-called: ring attention and the multi-process cluster
-(``torch.distributed`` with NCCL, the counterpart of the JAX package's
-multi-host ``initialize``).
+Ring attention and the ring allreduce (``ring.py``), the Switch MoE
+(``moe.py``) and the GPipe schedule (``pipeline.py``) are ported too; the
+transformer's mesh steps stand on them. The other public names of the
+JAX package's layer stay in this namespace and raise
+``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when called: the
+multi-process cluster (``torch.distributed`` with NCCL, the counterpart of
+the JAX package's multi-host ``initialize``).
 """
 
 from .collectives import COMBINERS
@@ -29,6 +31,7 @@ from .distributed import (DistributedFrame, daggregate, dfilter, distribute,
 from .elastic import admit_devices, grow_mesh, probe_device
 from .exchange import dexchange, shuffle_daggregate, shuffle_enabled
 from .mesh import DeviceMesh, local_mesh
+from .ring import ring_allreduce, ring_attention
 
 __all__ = [
     "DeviceMesh", "local_mesh",
@@ -54,8 +57,6 @@ def _not_yet(name: str, module: str):
     return missing
 
 
-ring_attention = _not_yet("ring_attention", "ring.py")
-ring_allreduce = _not_yet("ring_allreduce", "ring.py")
 cluster_mesh = _not_yet("cluster_mesh", "cluster.py")
 distribute_local = _not_yet("distribute_local", "cluster.py")
 initialize = _not_yet("initialize", "cluster.py")

@@ -118,6 +118,21 @@ class DeviceMesh:
         return [LogicalDevice(i, d) for i, d in
                 zip(self.flat_ids(), self.devices.reshape(-1))]
 
+    def axis_size(self, axis: Optional[str]) -> int:
+        """The size of ``axis``; 1 for ``None``."""
+        return 1 if axis is None else self.shape[axis]
+
+    def device_at(self, **coords: int) -> torch.device:
+        """The device of the slot at ``coords`` (axis name -> index); an
+        axis not named is taken at index 0, so a part split over some axes
+        runs on the first slot of the others."""
+        for name in coords:
+            if name not in self.axis_names:
+                raise ValueError(f"Mesh has axes {self.axis_names}; no "
+                                 f"{name!r} axis")
+        return self.devices[tuple(coords.get(a, 0)
+                                  for a in self.axis_names)]
+
     def shard_devices(self) -> List[torch.device]:
         """The device of each data shard, in shard order: the first device
         along every other axis (a shard is replicated over those)."""

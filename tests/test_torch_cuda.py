@@ -1662,3 +1662,123 @@ def test_card_shard_times_reach_the_skew_tracker_cumulative(cuda,
     comp = [ev for ev in trace.events if ev.etype == "shard_compute"]
     assert [ev.args["device"] for ev in comp] == list(range(8))
     assert [ev.dur for ev in comp] == times
+
+
+# -- the transformer on a mesh of card shards ---------------------------------
+
+MESH_CFG = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64)
+
+
+def _shards(device, shape, names):
+    from tensorframes_tpu_torch import parallel
+
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    devs[:] = [torch.device(device)] * devs.size
+    return parallel.DeviceMesh(devs.reshape(shape), names,
+                               data_axis=names[0])
+
+
+def _mesh_run(device, make, steps=3):
+    """``steps`` adam steps of ``make(model, mesh-of(device))`` from the
+    JAX package's initial parameters on one numpy batch: ``(losses,
+    global parameters on the CPU, B2 forward and backward launches)``."""
+    cfg, build = make
+    jm = JaxLM(JaxConfig(**cfg))
+    params = params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(0))))
+    model = TransformerLM(TransformerConfig(**cfg), device=device)
+    step, init_state, to_init = build(model, device)
+    state = init_state(to_init(params, cfg))
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg["vocab_size"], (8, 8)))
+    before = (fa.launches, fab.launches)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, tok, torch.roll(tok, -1, 1))
+        losses.append(float(loss))
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    counts = (fa.launches - before[0], fab.launches - before[1])
+    whole = step.gather(state, torch.device("cpu"))["params"]
+    return losses, whole, counts
+
+
+def _stacked(params, cfg):
+    layers = {n: torch.stack([params[f"layers.{i}.{n}"]
+                              for i in range(cfg["n_layers"])])
+              for n in ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")}
+    P = 2
+    return {"outer": {n: params[n] for n in ("embed", "ln_f", "head")},
+            "stages": {n: a.reshape((P, cfg["n_layers"] // P) + a.shape[1:])
+                       for n, a in layers.items()}}
+
+
+_MESH_CASES = {
+    # name: (config, build(model, device) -> (step, init_state, to_init),
+    #        B2 launches a step: layers x (data, model) shards)
+    "data8": (MESH_CFG, lambda m, d: m.make_sharded_train_step(
+        _shards(d, (8,), ("data",)), learning_rate=1e-2)
+        + (lambda p, c: p,), 2 * 8),
+    "data2_model4": (MESH_CFG, lambda m, d: m.make_sharded_train_step(
+        _shards(d, (2, 4), ("data", "model")), learning_rate=1e-2)
+        + (lambda p, c: p,), 2 * 8),
+    "data2_model2_seq2": (MESH_CFG, lambda m, d: m.make_sharded_train_step(
+        _shards(d, (2, 2, 2), ("data", "model", "seq")), seq_axis="seq",
+        learning_rate=1e-2) + (lambda p, c: p,), 0),
+    "moe_data2_model2_expert2": (
+        dict(MESH_CFG, num_experts=4), lambda m, d: m.make_sharded_train_step(
+            _shards(d, (2, 2, 2), ("data", "model", "expert")),
+            expert_axis="expert", learning_rate=1e-2)
+        + (lambda p, c: p,), 2 * 4),
+    "pipeline_data2_pipe2": (
+        dict(MESH_CFG, n_layers=4), lambda m, d: m.make_pipelined_train_step(
+            _shards(d, (2, 2), ("data", "pipe")), learning_rate=1e-2)
+        + (_stacked,), 4 * 2 * 2),
+}
+
+
+@pytest.mark.parametrize("case", list(_MESH_CASES))
+def test_mesh_train_steps_on_the_card_match_the_cpu(cuda, case):
+    """The dense, MoE and pipelined mesh steps on 8 (or 4) logical shards
+    of the card against the same steps on CPU slots: losses to 2e-5
+    relative (step 0 to 1e-5), parameters after 3 adam steps to 1e-4 of
+    each one's max-abs (B2's 3xTF32 products against the CPU's f32 ones);
+    B2 and its backward launched once per layer and (data, model) shard,
+    or microbatch and data shard, a step (none through the ring)."""
+    cfg, build, per_step = _MESH_CASES[case]
+    ttf.set_default_device("cpu")
+    want_losses, want, _ = _mesh_run("cpu", (cfg, build))
+    ttf.set_default_device("cuda")
+    losses, got, counts = _mesh_run("cuda", (cfg, build))
+    for i, (a, b) in enumerate(zip(losses, want_losses)):
+        assert abs(a - b) <= (1e-5 if i == 0 else 2e-5) * abs(b), (i, a, b)
+    flat = got if "stages" not in got else {
+        **{f"o.{k}": v for k, v in got["outer"].items()},
+        **{f"s.{k}": v for k, v in got["stages"].items()}}
+    ref = want if "stages" not in want else {
+        **{f"o.{k}": v for k, v in want["outer"].items()},
+        **{f"s.{k}": v for k, v in want["stages"].items()}}
+    for name, w in ref.items():
+        err = float((flat[name] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+    assert counts == (3 * per_step,) * 2, counts
+
+
+def test_ring_and_allreduce_on_the_card_match_the_cpu(cuda):
+    from tensorframes_tpu_torch import parallel
+
+    rng = np.random.default_rng(44)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, 64, 4, 16), dtype=np.float32)) for _ in range(3))
+    kw = dict(seq_axis="seq", causal=True, batch_axis="data",
+              head_axis="model")
+    names = ("data", "seq", "model")
+    want = parallel.ring_attention(q, k, v, _shards("cpu", (2, 2, 2), names),
+                                   **kw)
+    got = parallel.ring_attention(q.cuda(), k.cuda(), v.cuda(),
+                                  _shards("cuda", (2, 2, 2), names), **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    x = torch.from_numpy(rng.random((8, 1001), dtype=np.float32))
+    torch.testing.assert_close(
+        parallel.ring_allreduce(x.cuda(), _shards("cuda", (8,), ("data",)))
+        .cpu(), x.sum(0).expand(8, -1), rtol=1e-6, atol=0)

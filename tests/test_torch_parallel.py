@@ -1,6 +1,7 @@
 """The port's parallel layer (``tensorframes_tpu_torch/parallel/``) against
 the JAX package's on the same seeded frames: the cases of
-``tests/test_parallel.py`` that the port has (all but the ring cases;
+``tests/test_parallel.py`` that the port has (the ring cases are in
+``tests/test_torch_ring.py``;
 ``TestDSort``, ``TestColumnsort`` and the sort of
 ``TestHostMeshConformance`` are in ``tests/test_torch_dsort.py``) and
 ``tests/test_elastic.py``'s ``TestHotKeySalting``, each run through both
@@ -997,8 +998,14 @@ def test_unported_routes_raise_naming_their_item(meshes, monkeypatch):
     assert tpar.admit_devices(dist) is dist  # no candidate: a no-op
     assert tpar.grow_mesh(meshes["torch"], []) is meshes["torch"]
     assert tpar.probe_device(torch.device("cpu")) is True
-    for name in ("ring_attention", "ring_allreduce", "cluster_mesh",
-                 "distribute_local", "initialize"):
+    # the ring collectives are ported (tests/test_torch_ring.py); the
+    # cluster still raises
+    for name in ("ring_attention", "ring_allreduce"):
+        assert name in tpar.__all__ and name in jpar.__all__
+    x = torch.arange(16.0).reshape(8, 2)
+    torch.testing.assert_close(tpar.ring_allreduce(x, meshes["torch"]),
+                               x.sum(0).expand(8, 2).contiguous())
+    for name in ("cluster_mesh", "distribute_local", "initialize"):
         assert name in tpar.__all__ and name in jpar.__all__
         with pytest.raises(NotImplementedError, match=f"{name}.*A item 7b"):
             getattr(tpar, name)()

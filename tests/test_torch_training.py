@@ -186,25 +186,43 @@ def test_init_state_draws_or_takes_parameters():
 
 
 def test_multi_device_mesh_and_mesh_axes_raise():
+    """The mesh steps are ported (``test_torch_mesh_training.py``): a list
+    of devices is a one-axis data mesh whose step equals the one-device
+    step, model, seq and expert axes are accepted (each acting only where
+    the mesh has it), and only a mesh of another type raises, as does a
+    pipelined step over a mesh without a pipe axis."""
     model = TransformerLM(TransformerConfig(**CFG), device="cpu")
     two = [torch.device("cpu"), torch.device("cpu")]
-    # the port's train step takes no mesh type until A item 7b: the JAX package's mesh, of one
-    # device or more, is refused like a mesh of two devices
-    jax_meshes = [DeviceMesh(Mesh(np.array(jax.devices()[:n]), ("data",)),
-                             data_axis="data") for n in (1, 2)]
-    assert port_transformer.mesh_size(two) == 2
-    for mesh in [two] + jax_meshes:
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            model.make_sharded_train_step(mesh)
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            LogisticRegression(4, device="cpu").make_sharded_train_step(mesh)
-    for axis in ("model_axis", "seq_axis", "expert_axis"):
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            model.make_sharded_train_step(None, **{axis: "x"})
-    with pytest.raises(NotImplementedError, match="A item 7b"):
+    jax_mesh = DeviceMesh(Mesh(np.array(jax.devices()[:2]), ("data",)),
+                          data_axis="data")
+    assert port_transformer.as_mesh(two).shape == {"data": 2}
+    assert port_transformer.as_mesh(None) is None
+    with pytest.raises(TypeError, match="parallel.DeviceMesh"):
+        model.make_sharded_train_step(jax_mesh)
+    with pytest.raises(TypeError, match="parallel.DeviceMesh"):
+        LogisticRegression(4, device="cpu").make_sharded_train_step(jax_mesh)
+    tok, tgt = _batch()
+    params = port_transformer.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, JaxLM(JaxConfig(**CFG)).init()))
+    runs = []
+    for mesh, axes in [(None, {}), (two, {}),
+                       (None, {"model_axis": "x", "seq_axis": "y",
+                               "expert_axis": "z"}),
+                       (two, {"seq_axis": "seq", "expert_axis": "e"})]:
+        step, init_state = model.make_sharded_train_step(
+            mesh, learning_rate=LR, **axes)
+        state, loss = step(init_state(params), tok, tgt)
+        runs.append(float(loss))
+    np.testing.assert_allclose(runs, runs[0], rtol=1e-6)
+    lr = LogisticRegression(4, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(8, 4)).astype(np.float32))
+    y = (x[:, 0] > 0).to(torch.float32)
+    a, la = lr.make_sharded_train_step(two)(lr.init(), x, y)
+    b, lb = lr.make_sharded_train_step(None)(lr.init(), x, y)
+    torch.testing.assert_close(la, lb, rtol=1e-6, atol=0)
+    with pytest.raises(KeyError, match="pipe"):
         model.make_pipelined_train_step(two)
-    assert port_transformer.mesh_size(None) == 1
-    assert port_transformer.mesh_size((torch.device("cpu"),)) == 1
 
 
 def test_trained_model_continues_sequence():

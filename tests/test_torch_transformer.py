@@ -277,18 +277,35 @@ def test_init_is_seeded_and_scaled():
 
 
 def test_unported_paths_raise(pair, monkeypatch):
-    _, params, tm = pair
+    """The mesh paths and the MoE layers are ported (their parity is in
+    ``test_torch_mesh_training.py`` and ``test_torch_moe_pipeline.py``):
+    a mesh of another type than ``parallel.DeviceMesh`` is refused, a
+    ``seq_axis`` without a mesh is ignored as in the JAX package, a MoE
+    model builds and ``params_from_jax`` carries a layer's ``"moe"``
+    dict; the cluster (multi-process meshes) still raises."""
+    jm, params, tm = pair
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A item 7b"):
+    with pytest.raises(TypeError, match="parallel.DeviceMesh"):
         tm.apply(tok, mesh=object(), seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="A item 7b"):
-        tm.loss(tok, tok, seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TransformerLM(TransformerConfig(**SMALL, num_experts=4),
-                      device="cpu")
-    moe = dict(params, layers=[{**params["layers"][0], "moe": {}}])
-    with pytest.raises(NotImplementedError, match="A12"):
-        params_from_jax(moe)
+    tgt = torch.ones((1, 4), dtype=torch.int32)
+    want = jm.loss(params, jnp.zeros((1, 4), jnp.int32),
+                   jnp.ones((1, 4), jnp.int32), seq_axis="seq")
+    np.testing.assert_allclose(float(tm.loss(tok, tgt, seq_axis="seq")),
+                               float(want), rtol=TOL)
+    moe = TransformerLM(TransformerConfig(**SMALL, num_experts=4),
+                        device="cpu")
+    assert tuple(moe.layers[0].moe.w1.shape) == (4, 32, 64)
+    layer = {**params["layers"][0], "moe": {
+        "router": np.zeros((32, 4), np.float32),
+        "w1": np.zeros((4, 32, 64), np.float32),
+        "w2": np.zeros((4, 64, 32), np.float32)}}
+    del layer["w1"], layer["w2"]
+    state = params_from_jax(dict(params, layers=[layer]))
+    assert "layers.0.moe.w1" in state and "layers.0.w1" not in state
+    from tensorframes_tpu_torch import parallel as tpar
+    for name in ("cluster_mesh", "distribute_local", "initialize"):
+        with pytest.raises(NotImplementedError, match="A item 7b"):
+            getattr(tpar, name)()
     # the default device is cuda: without a GPU the model refuses to build
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     prev = ttf.default_device()
