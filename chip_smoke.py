@@ -63,6 +63,30 @@ paths through its public entry points and checks every result:
    8 segment_sum launches a fold. The path is traced, so each mesh op's
    shard times feed the skew tracker: 2c, 2d and every part of 2e but (c)
    must leave the layout alone (``mesh.rebalances`` unmoved);
+2f. the multi-process cluster (``cluster_2x4_20M``, :func:`phase_cluster`):
+   rank processes (``subprocess``, importing only the port, numpy and
+   torch; :data:`CLUSTER_RANK`) joined through ``parallel.initialize``
+   with ``TFT_COORDINATOR`` on a free local port, ``TFT_REQUIRE_CLUSTER=1``
+   and a hard wall limit that kills every rank, each rank holding 4
+   logical shards of the card, over phase 2's 20M rows split unevenly
+   (11M to rank 0, 9M to rank 1, so the pads sit per process): (a) two
+   ranks sharing the card under gloo run the JAX package's cluster
+   worker's ten steps (``dmap_blocks`` and ``collect_frame``,
+   ``dreduce_blocks`` monoid and generic, ``daggregate`` monoid with host
+   keys, generic, device keys and composite device keys, ``dfilter``,
+   ``dsort`` by columnsort across the processes, checkpoint save and
+   resume per process), each against numpy over the global rows on both
+   ranks (f64 sums to rtol 1e-12), bit-identical across the ranks, B1 on
+   each rank's 4 shards; (b) a one-rank world through NCCL
+   (``dreduce_blocks`` and ``daggregate`` by device keys, against numpy:
+   the NCCL path's plumbing on the card, no traffic between cards); (c)
+   ``backend="nccl"`` for two ranks on the one card, refused with
+   ``ClusterInitError``
+   naming the card within the bootstrap deadline (the outcome printed);
+   (d) the ported ``analytics`` demo over 2M CSV rows on 8 logical shards
+   of the card, against numpy over the file; a JSON line a part with the
+   backend, rows a rank, ``shard_valid``, the step walls, the bytes
+   through the host, B1's launches and the card's name and power limit;
 3. the k-means centre update: ``aggregate({"f": "sum"})`` over a 2M x 64
    f32 vector column grouped by 1,024 keys, against numpy f64 to rtol 1e-5;
 3b. the lazy query path from a file: the 20M-row workload written with
@@ -243,9 +267,12 @@ paths through its public entry points and checks every result:
    worker's admission probe passed on the card, a repeated dashboard
    chain (pure programs) answered warm from the durable tier with no
    dispatch; (d) the port's chaos drill (``tools.chaos_soak``) at seed
-   11, rate 0.3 over ``worker|preempt|disk|oom``, two rounds: bit-equal
-   to the fault-free run, every failure classified, no invariant
-   violation, the same firings replayed, the card's bytes back; (e)
+   11, rate 0.3 over its default ``device|worker|preempt|disk``, two
+   rounds, each of which runs the fused distributed plan over 8 shards of
+   the card (a shard lost under the device site, re-admitted after the
+   round), every site firing: bit-equal to the fault-free run, every
+   failure classified, no invariant violation, the same firings
+   replayed, the card's bytes back; (e)
    ``TFT_FABRIC=0``: one query bit-equal to a plain scheduler's;
 4. the transformer LM at the JAX package's default width (vocab 32,000,
    d_model 512, 8 heads, 6 layers, d_ff 2,048, f32), weights from a numpy
@@ -301,8 +328,9 @@ paths through its public entry points and checks every result:
    beside the plain version, one library call and its bound.
 
 Each phase prints one JSON line. Then come a ``{"kernels": [...]}`` line
-with each kernel's launches during its main path (phases 1-3m, 2b and
-2c included, for segment_sum, the child processes of phases 3h and 3l included, phases 4-5f
+with each kernel's launches during its main path (phases 1-3m, 2b-2f
+included, for segment_sum, the child processes of phases 3h and 3l and
+the rank processes of phase 2f included, phases 4-5f
 for flash_attention, 5b-5f for its backward; 5f's launches that only
 served as the ring's reference left out), the card's name and power
 limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any
@@ -986,6 +1014,613 @@ def phase_elastic(ttf, np, torch, segment_reduce, n=20_000_000,
         ("rebalanced after (c)", counters.get("mesh.rebalances") - rb0 - 1)
     del dist, zdist
     return out
+
+
+# the ten steps of the JAX package's cluster worker (tests/cluster_worker.py),
+# run by each rank of phase 2f and of tests/test_torch_cluster.py
+CLUSTER_STEPS = ("dmap", "dreduce_monoid", "dreduce_generic",
+                 "daggregate_monoid", "daggregate_generic",
+                 "daggregate_device_keys", "dfilter", "dsort",
+                 "daggregate_composite_keys", "checkpoint_resume")
+
+CLUSTER_RANK = r'''
+import hashlib
+import json
+import os
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+cfg = json.loads(sys.argv[1])
+rank = int(os.environ["TFT_PROCESS_ID"])
+world = int(os.environ["TFT_NUM_PROCESSES"])
+device = cfg["device"]
+
+import tensorframes_tpu_torch as ttf
+from tensorframes_tpu_torch import parallel as par
+from tensorframes_tpu_torch.ops import segment_reduce
+from tensorframes_tpu_torch.parallel import cluster
+from tensorframes_tpu_torch.resilience import ClusterInitError
+from tensorframes_tpu_torch.utils import checkpoint as ckpt
+from tensorframes_tpu_torch.utils.tracing import counters
+
+ttf.set_default_device(device)
+if device == "cuda":
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+report = {"rank": rank, "world": world}
+
+
+def done(code):
+    print(json.dumps(report), flush=True)
+    sys.exit(code)
+
+
+t0 = time.perf_counter()
+try:
+    multi = par.initialize(backend=cfg.get("backend"))
+except ClusterInitError as e:
+    report.update(refused=True, error=str(e),
+                  bootstrap_s=time.perf_counter() - t0)
+    done(0)
+import torch.distributed as tdist
+
+report.update(refused=False, multi=multi, backend=tdist.get_backend(),
+              bootstrap_s=time.perf_counter() - t0)
+dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+mesh = par.cluster_mesh(local_devices=[dev] * cfg["shards"])
+assert mesh.is_cluster and mesh.num_data_shards == cfg["shards"] * world
+
+# the global rows, the same on every rank; each rank distributes its own
+rows = cfg["rows"]
+n = sum(rows)
+lo, hi = sum(rows[:rank]), sum(rows[:rank + 1])
+if cfg["data"] == "worker":
+    # the JAX worker's rows: rank r's block is arange(rows[r]) + 1000 r
+    k = np.concatenate([np.arange(m) % 5 for m in rows]).astype(np.int64)
+    x = np.concatenate([np.arange(m, dtype=np.float64) + 1000 * r
+                        for r, m in enumerate(rows)])
+    ka, kb = k, np.concatenate([np.arange(m) % 3 for m in rows]).astype(
+        np.int64)
+else:
+    # phase 2's reference workload: key in [0, keys), x uniform f64
+    rng = np.random.default_rng(cfg["seed"])
+    k = rng.integers(0, cfg["keys"], n)
+    x = rng.random(n)
+    ka, kb = k % 200, k // 1000
+v = np.stack([x, -x], 1)
+t0 = time.perf_counter()
+dist = par.distribute_local({"k": k[lo:hi], "x": x[lo:hi], "v": v[lo:hi]},
+                            mesh)
+assert dist.num_rows == n, dist.num_rows
+report.update(rows_here=hi - lo, shard_valid=dist.shard_valid.tolist(),
+              distribute_s=time.perf_counter() - t0)
+
+
+OP_S = [0.0]
+
+
+def op(fn):
+    """``fn()``, its wall (to a synchronize on the card) added to the
+    step's op time: the checks against numpy are not timed."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    OP_S[0] += time.perf_counter() - t0
+    return out
+
+
+def cols(frame):
+    blocks = frame.blocks()
+    return {c: np.concatenate([np.asarray(b.columns[c]) for b in blocks])
+            for c in frame.schema.names}
+
+
+def digest(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+REF = {}
+
+
+def by_key(key, values, reduce):
+    """numpy's per-key ``reduce``, keys ascending: sums by ``bincount``,
+    other reductions over one stable sort of the keys, kept for ``k``."""
+    uk, inv = REF.get(id(key)) or (None, None)
+    if uk is None:
+        uk, inv = np.unique(key, return_inverse=True)
+        if key is k:
+            REF[id(key)] = (uk, inv)
+    if reduce is np.add:
+        if values.ndim == 1:
+            return uk, np.bincount(inv, values, minlength=len(uk))
+        return uk, np.stack([np.bincount(inv, values[:, c],
+                                         minlength=len(uk))
+                             for c in range(values.shape[1])], 1)
+    order = REF.get(("order", id(key)))
+    if order is None:
+        order = np.argsort(inv, kind="stable")
+        if key is k:
+            REF[("order", id(key))] = order
+    starts = np.flatnonzero(np.r_[True, np.diff(inv[order]) != 0])
+    return uk, reduce.reduceat(values[order], starts)
+
+
+def close(got, want, rtol):
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
+
+
+def check_sums(out, key, vals, rtol=1e-12):
+    uk, want = by_key(key, vals, np.add)
+    np.testing.assert_array_equal(out["k"], uk)
+    close(out["x"], want, rtol)
+
+
+def step_dmap():
+    z = op(lambda: cols(par.dmap_blocks(lambda x: {"z": x * 2.0 + 1.0},
+                                        dist).collect_frame()))["z"]
+    # collected in global row order: rank 0's rows, then rank 1's
+    np.testing.assert_array_equal(z, x * 2.0 + 1.0)
+    return digest(z)
+
+
+def step_dreduce_monoid():
+    red = op(lambda: par.dreduce_blocks({"x": "sum", "v": "min"}, dist))
+    close(red["x"], x.sum(), 1e-12)
+    np.testing.assert_array_equal(red["v"], v.min(0))
+    return digest(red["x"], red["v"])
+
+
+def step_dreduce_generic():
+    red = op(lambda: par.dreduce_blocks(
+        lambda x_input: {"x": torch.sqrt((x_input ** 2).sum(0))},
+        dist.select("x")))
+    close(red["x"], np.sqrt((x ** 2).sum()), 1e-9)
+    return digest(red["x"])
+
+
+def step_daggregate_monoid():
+    out = op(lambda: cols(par.daggregate({"x": "sum", "v": "max"}, dist,
+                                         "k")))
+    check_sums(out, k, x)
+    np.testing.assert_array_equal(out["v"], by_key(k, v, np.maximum)[1])
+    return digest(out["k"], out["x"], out["v"])
+
+
+def step_daggregate_generic():
+    out = op(lambda: cols(par.daggregate(
+        lambda x_input: {"x": torch.sqrt((x_input ** 2).sum(0))},
+        dist.select(["k", "x"]), "k")))
+    uk, sq = by_key(k, x ** 2, np.add)
+    np.testing.assert_array_equal(out["k"], uk)
+    close(out["x"], np.sqrt(sq), 1e-9)
+    return digest(out["k"], out["x"])
+
+
+def step_daggregate_device_keys():
+    out = op(lambda: cols(par.daggregate(
+        {"x": "sum"}, dist.select(["k", "x"]), "k",
+        max_groups=cfg["max_groups"])))
+    check_sums(out, k, x)
+    return digest(out["k"], out["x"])
+
+
+def step_dfilter():
+    flt = op(lambda: par.dfilter(lambda x: x < cfg["below"], dist))
+    keep = x < cfg["below"]
+    assert flt.count() == int(keep.sum()), flt.count()
+    red = op(lambda: par.dreduce_blocks({"x": "sum"}, flt.select("x")))
+    close(red["x"], x[keep].sum(), 1e-12)
+    return digest(flt.shard_valid, red["x"])
+
+
+def step_dsort():
+    flt = par.dfilter(lambda x: x < cfg["below"], dist)
+    srt = op(lambda: par.dsort("x", flt.select("x"), descending=True))
+    assert srt.shard_valid is None
+    got = op(lambda: cols(srt.collect_frame()))["x"]
+    np.testing.assert_array_equal(got, np.sort(x[x < cfg["below"]])[::-1])
+    return digest(got)
+
+
+def step_daggregate_composite_keys():
+    dist2 = par.distribute_local({"k": ka[lo:hi], "k2": kb[lo:hi],
+                                  "x": x[lo:hi]}, mesh)
+    out = op(lambda: cols(par.daggregate(
+        {"x": "sum"}, dist2, ["k", "k2"],
+        max_groups=cfg["composite_groups"])))
+    pair = ka * (int(kb.max()) + 1) + kb
+    up, want = by_key(pair, x, np.add)
+    np.testing.assert_array_equal(out["k"] * (int(kb.max()) + 1)
+                                  + out["k2"], up)
+    close(out["x"], want, 1e-12)
+    return digest(out["k"], out["k2"], out["x"])
+
+
+def step_checkpoint_resume():
+    # each rank writes and reads only its own shards; the restored
+    # columns sit on the same slots
+    state = {"x": dist.columns["x"], "v": dist.columns["v"]}
+    op(lambda: ckpt.save(cfg["ckpt"], state))
+    like = {c: a.like([torch.zeros_like(s) for s in a.shards])
+            for c, a in state.items()}
+    back = op(lambda: ckpt.restore(cfg["ckpt"], like=like))
+    for c in state:
+        a, b = state[c], back[c]
+        assert b.cluster is mesh and b.rows == a.rows
+        for so, sn in zip(a.shards, b.shards):
+            assert sn.device == so.device
+            assert torch.equal(so, sn)
+    # the global view of what came back (one allgather a column)
+    gx, gv = back["x"].numpy(), back["v"].numpy()
+    valid = np.repeat(dist.shard_valid, len(gx) // len(dist.shard_valid))
+    mask = np.arange(len(gx)) % (len(gx) // len(dist.shard_valid)) < valid
+    np.testing.assert_array_equal(gx[mask], x)
+    np.testing.assert_array_equal(gv[mask], v)
+    return digest(gx, gv)
+
+
+def step_dmap_trim():
+    # a global program: every process sees the whole padded array
+    got = op(lambda: cols(par.dmap_blocks(
+        lambda x: {"s": x.sum().reshape(1)}, dist,
+        trim=True).collect_frame()))["s"]
+    assert got.shape == (1,)
+    close(got[0], x.sum(), 1e-12)
+    return digest(got)
+
+
+def step_daggregate_sketch():
+    # the sketch route reads the value columns' global host copies
+    from tensorframes_tpu_torch import relational as rel
+
+    it = (k * 7) % 13
+    d3 = par.distribute_local({"k": k[lo:hi], "x": x[lo:hi],
+                               "it": it[lo:hi]}, mesh)
+    out = cols(par.daggregate({"x": "sum", "it": rel.approx_distinct(
+        bits=10)}, d3, "k"))
+    check_sums(out, k, x)
+    return digest(*[out[c] for c in sorted(out)])
+
+
+def step_distribute_global():
+    # every process holds the whole frame: distribute places each
+    # process's own shards of it
+    d = par.distribute(ttf.frame({"k": k, "x": x}), mesh)
+    assert d.shard_valid is None and d.num_rows == n
+    red = op(lambda: par.dreduce_blocks({"x": "sum"}, d))
+    close(red["x"], x.sum(), 1e-12)
+    out = op(lambda: cols(par.daggregate({"x": "sum"}, d, "k")))
+    check_sums(out, k, x)
+    return digest(red["x"], out["k"], out["x"])
+
+
+def step_cluster_refusals():
+    from tensorframes_tpu_torch import relational as rel
+
+    for call in (lambda: par.dexchange("k", dist),
+                 lambda: par.shuffle_daggregate({"x": "sum"}, dist, "k"),
+                 lambda: par.admit_devices(dist),
+                 lambda: rel.sort_merge_join(
+                     ttf.frame({"k": k[:4]}), ttf.frame({"k": k[:4]}),
+                     on="k", mesh=mesh)):
+        try:
+            call()
+        except NotImplementedError as e:
+            assert "cluster mesh" in str(e), e
+        else:
+            raise AssertionError("a cluster mesh was not refused")
+    assert dist.lazy() is dist
+    return digest(np.zeros(1))
+
+
+steps = {name: globals()["step_" + name] for name in cfg["steps"]}
+report["steps"] = {}
+failed = None
+for name, fn in steps.items():
+    if failed is not None:
+        print(f"[rank {rank}] STEP {name} SKIP", flush=True)
+        continue
+    b1 = segment_reduce.launches
+    host0 = counters.get("mesh.interstage_host_bytes")
+    OP_S[0] = 0.0
+    t0 = time.perf_counter()
+    try:
+        d = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    except Exception:
+        failed = name
+        print(f"[rank {rank}] STEP {name} FAIL", flush=True)
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        continue
+    report["steps"][name] = {
+        "wall_s": OP_S[0], "step_s": time.perf_counter() - t0, "digest": d,
+        "b1_launches": segment_reduce.launches - b1,
+        "host_bytes": counters.get("mesh.interstage_host_bytes") - host0}
+    print(f"[rank {rank}] STEP {name} OK", flush=True)
+report["failed"] = failed
+report["b1_launches"] = segment_reduce.launches
+if failed is None:
+    tdist.barrier()
+cluster.shutdown()
+done(1 if failed else 0)
+'''
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cluster(cfg: dict, world: int = 2, timeout: float = 300.0,
+                env: dict = None) -> list:
+    """Spawn ``world`` rank processes of :data:`CLUSTER_RANK` from the
+    repo's root (each imports only the port, numpy and torch), joined on
+    a free local port with ``TFT_REQUIRE_CLUSTER=1``. Each rank's output
+    goes to a file of its own (a full pipe would stall a rank inside a
+    collective). Past ``timeout`` seconds every rank is killed and
+    ``TimeoutError`` raised. Returns one dict a rank: its exit code,
+    output and final JSON report."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs = []
+    for r in range(world):
+        out = tempfile.TemporaryFile(mode="w+")
+        child_env = dict(os.environ, TFT_COORDINATOR=f"127.0.0.1:{port}",
+                         TFT_NUM_PROCESSES=str(world),
+                         TFT_PROCESS_ID=str(r), TFT_REQUIRE_CLUSTER="1",
+                         **(env or {}))
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", CLUSTER_RANK, json.dumps(cfg)],
+            cwd=root, stdout=out, stderr=subprocess.STDOUT, env=child_env,
+            text=True), out))
+    end = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(end - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        for p, _ in procs:
+            p.kill()
+        for p, _ in procs:
+            p.wait()
+        raise TimeoutError(
+            f"cluster ranks did not finish within {timeout} s: "
+            + " | ".join(_read_out(o)[-1500:] for _, o in procs))
+    runs = []
+    for p, out in procs:
+        text = _read_out(out)
+        lines = text.strip().splitlines()
+        try:
+            rep = json.loads(lines[-1]) if lines else None
+        except ValueError:
+            rep = None
+        runs.append({"rc": p.returncode, "out": text, "report": rep})
+    return runs
+
+
+def _read_out(f) -> str:
+    f.seek(0)
+    text = f.read()
+    f.close()
+    return text
+
+
+def demo_kept_rows(np, n: int, seed: int = 0) -> int:
+    """The rows ``demos.analytics.make_csv(n=n, seed=seed)`` writes that
+    its pipeline's filter keeps (the same generator, drawn the same
+    way)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, 4, n)
+    rng.integers(0, 8, n)
+    rng.normal(10.0, 3.0, n)
+    return int((rng.random(n) >= 0.05).sum())
+
+
+def smi_card() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def cluster_ranks(runs, backend: str) -> list:
+    """Every rank's report after a run of :data:`CLUSTER_RANK`: each rank
+    exited 0 with every step passed, on ``backend``; raises otherwise."""
+    reps = []
+    for r, run in enumerate(runs):
+        rep = run["report"]
+        assert run["rc"] == 0 and rep is not None \
+            and rep.get("failed") is None and not rep.get("refused"), \
+            f"rank {r} failed (rc {run['rc']}):\n{run['out'][-4000:]}"
+        assert rep["backend"] == backend, (r, rep["backend"], backend)
+        reps.append(rep)
+    return reps
+
+
+def phase_cluster(ttf, np, torch, segment_reduce,
+                  rows=(11_000_000, 9_000_000), keys=100_000, shards=4,
+                  seed=0, csv_rows=2_000_000, one_rank_backend="nccl",
+                  device="cuda", timeout=300.0, out=None) -> dict:
+    """The multi-process cluster (phase 2f, ``cluster_2x4_20M``): rank
+    processes of :data:`CLUSTER_RANK`, each holding ``shards`` logical
+    shards of the card, joined through ``TFT_COORDINATOR`` on a free local
+    port with ``TFT_REQUIRE_CLUSTER=1`` (a failed bootstrap fails the part)
+    and killed, failing the phase, past ``timeout`` seconds. The rows are
+    phase 2's (key in [0, ``keys``), x uniform f64), split unevenly,
+    ``rows[r]`` to rank r, so the pads sit per process:
+
+    (a) gloo, two ranks sharing the card: the ten steps of the JAX
+        package's cluster worker, each checked on both ranks against numpy
+        over the global rows (f64 sums to rtol 1e-12), bit-identical
+        across the ranks, its wall to a ``cuda.synchronize`` on both; B1
+        launched on each rank's shards (``shards`` a float-sum aggregate);
+    (b) ``one_rank_backend`` (NCCL) in a one-rank world on the card:
+        ``dreduce_blocks`` and ``daggregate`` (device keys) over all the
+        rows through the NCCL group, against numpy: the NCCL path's
+        plumbing and its collectives on the card (one card: no traffic
+        between cards);
+    (c) ``backend="nccl"`` with two ranks on the one card: NCCL takes one
+        rank per card, so ``initialize`` must raise ``ClusterInitError``
+        within the bootstrap deadline naming the shared card (were the
+        ranks to join, (a)'s steps would run under it instead);
+    (d) the ``analytics`` demo over ``csv_rows`` CSV rows on 8 logical
+        shards of the card in this process, against numpy over the file.
+
+    Each part prints a JSON line with the backend, the rows per rank,
+    ``shard_valid``, the step walls, the bytes through the host, B1's
+    launches and the card's name and power limit. ``out["child_launches"]``
+    receives the ranks' B1 launches."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "build", "cluster_ckpt")
+    card = smi_card()
+    env = {"TFT_BOOTSTRAP_TIMEOUT": "120"}
+    base = {"device": device, "shards": shards, "rows": list(rows),
+            "data": "reference", "seed": seed, "keys": keys,
+            "max_groups": 131_072, "composite_groups": 32_768,
+            "below": 0.75, "ckpt": ckpt, "backend": None}
+    float_aggs = ("daggregate_monoid", "daggregate_device_keys",
+                  "daggregate_composite_keys")
+    child = 0
+
+    def part(name, t0, reps, **extra):
+        emit({"phase": "cluster_2x4_20M", "part": name,
+              "wall_s": time.perf_counter() - t0, "card": card,
+              "backend": reps[0]["backend"] if reps else None,
+              "rows_per_rank": [r["rows_here"] for r in reps],
+              "shard_valid": reps[0]["shard_valid"] if reps else None,
+              "bootstrap_s": [r["bootstrap_s"] for r in reps],
+              "step_walls": [{s: v["wall_s"] for s, v in r["steps"].items()}
+                             for r in reps],
+              "step_with_checks_s": [{s: v["step_s"]
+                                      for s, v in r["steps"].items()}
+                                     for r in reps],
+              "host_bytes": [{s: v["host_bytes"]
+                              for s, v in r["steps"].items()} for r in reps],
+              "b1_launches": [r["b1_launches"] for r in reps], **extra})
+
+    # (a) gloo, two ranks sharing the card
+    t0 = time.perf_counter()
+    runs = run_cluster(dict(base, steps=list(CLUSTER_STEPS)), world=2,
+                       timeout=timeout, env=env)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    reps = cluster_ranks(runs, "gloo")
+    for step in CLUSTER_STEPS:
+        got = {r["steps"][step]["digest"] for r in reps}
+        assert len(got) == 1, f"{step}: the ranks' results differ"
+    for rep in reps:
+        assert rep["rows_here"] == rows[rep["rank"]]
+        for step in float_aggs:
+            assert rep["steps"][step]["b1_launches"] == \
+                (shards if device == "cuda" else 0), (step, rep["steps"])
+        child += rep["b1_launches"]
+    part("a_gloo_two_ranks_one_card", t0, reps)
+
+    # (b) a one-rank world through the NCCL group
+    t0 = time.perf_counter()
+    runs = run_cluster(dict(base, rows=[sum(rows)],
+                            steps=["dreduce_monoid",
+                                   "daggregate_device_keys"],
+                            backend=one_rank_backend),
+                       world=1, timeout=timeout, env=env)
+    reps = cluster_ranks(runs, one_rank_backend)
+    assert reps[0]["steps"]["daggregate_device_keys"]["b1_launches"] == \
+        (shards if device == "cuda" else 0)
+    child += reps[0]["b1_launches"]
+    part("b_one_rank_world", t0, reps,
+         proves="the NCCL backend's bootstrap, its group and its "
+                "collectives (allgathers of partials, tables and key "
+                "uniques) on the card; one card moves no bytes between "
+                "cards, so cross-card traffic is not measured")
+
+    # (c) NCCL asked for two ranks on the one card
+    t0 = time.perf_counter()
+    runs = run_cluster(dict(base, steps=list(CLUSTER_STEPS),
+                            backend="nccl"), world=2, timeout=timeout,
+                       env=env)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    refused = [bool(r["report"] and r["report"].get("refused"))
+               for r in runs]
+    if all(refused):
+        shared = torch.cuda.get_device_name(0) if device == "cuda" \
+            else "CPU"
+        for run in runs:
+            rep = run["report"]
+            assert run["rc"] == 0 and shared in rep["error"], rep
+            assert rep["bootstrap_s"] < float(env["TFT_BOOTSTRAP_TIMEOUT"])
+        outcome = "refused"
+        detail = {"error": runs[0]["report"]["error"],
+                  "bootstrap_s": [r["report"]["bootstrap_s"]
+                                  for r in runs]}
+        reps = []
+    else:
+        reps = cluster_ranks(runs, "nccl")
+        for step in CLUSTER_STEPS:
+            assert len({r["steps"][step]["digest"] for r in reps}) == 1
+        child += sum(r["b1_launches"] for r in reps)
+        outcome = "ran"
+        detail = {}
+    emit({"phase": "cluster_2x4_20M", "part": "c_nccl_two_ranks_one_card",
+          "wall_s": time.perf_counter() - t0, "card": card,
+          "outcome": outcome, **detail})
+
+    # (d) the analytics demo on 8 logical shards of the card
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.demos import analytics
+
+    t0 = time.perf_counter()
+    path = os.path.join(root, "build", "data", "readings.csv")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    analytics.make_csv(path, n=csv_rows, sites=4, sensors=8, seed=0)
+    csv_s = time.perf_counter() - t0
+    mesh = parallel.DeviceMesh(np.array(
+        [torch.device(device, 0) if device == "cuda"
+         else torch.device("cpu")] * 8, dtype=object))
+    b0 = segment_reduce.launches
+    t1 = time.perf_counter()
+    ranked = analytics.pipeline(path, mesh=mesh)
+    pipeline_s = time.perf_counter() - t1
+    launches = segment_reduce.launches - b0
+    got = host_cols(np, ranked)
+    raw = np.loadtxt(path, delimiter=",", skiprows=1)
+    keep = raw[:, 2] >= 0
+    assert int(keep.sum()) == demo_kept_rows(np, csv_rows)
+    cell = raw[keep, 0].astype(np.int64) * 8 + raw[keep, 1].astype(np.int64)
+    want = np.bincount(cell, raw[keep, 2], minlength=32)
+    np.testing.assert_allclose(want[got["site"].astype(np.int64) * 8
+                                    + got["sensor"]], got["value"],
+                               rtol=1e-12, atol=0)
+    assert len(got["value"]) == int((np.bincount(cell, minlength=32)
+                                     > 0).sum())
+    assert (np.diff(got["value"]) <= 0).all(), "not ranked by total"
+    assert launches == (8 if device == "cuda" else 0), launches
+    os.remove(path)
+    emit({"phase": "cluster_2x4_20M", "part": "d_analytics_demo",
+          "wall_s": time.perf_counter() - t0, "card": card,
+          "csv_rows": csv_rows, "csv_s": csv_s, "pipeline_s": pipeline_s,
+          "groups": len(got["value"]), "b1_launches": launches})
+    if out is not None:
+        out["child_launches"] = child
+    return {"ranks": 2, "shards_per_rank": shards, "rows": list(rows),
+            "child_launches": child, "c_outcome": outcome}
 
 
 def host_cols(np, frame) -> dict:
@@ -4507,8 +5142,9 @@ def phase_fabric_three_workers(ttf, np, torch, segment_reduce, served,
     worker's admission probe passed on the card, a repeated dashboard
     chain (pure programs) answered warm from the durable tier with no
     dispatch; (d) the port's chaos drill (``tools.chaos_soak.run_drill``)
-    at seed 11, rate 0.3 over ``worker|preempt|disk|oom``,
-    ``drill_rounds`` rounds at the drill's own small size, the card's
+    at seed 11, rate 0.3 over its default ``device|worker|preempt|disk``
+    (each site firing), ``drill_rounds`` rounds at the drill's own small
+    size, the card's
     bytes in use back at their value before it; (e) ``TFT_FABRIC=0``: one
     query bit-equal to a plain scheduler's. ``device="cpu"`` rehearses it
     on the CPU."""
@@ -4820,7 +5456,7 @@ def phase_fabric_three_workers(ttf, np, torch, segment_reduce, served,
     shutil.rmtree(drill_dir, ignore_errors=True)
     fired = sorted({site for site, _ in report["firings"]})
     chaos_counts = {k: v - c0.get(k, 0) for k, v in counts("chaos.").items()}
-    assert {"worker", "preempt", "disk"} <= set(fired), fired
+    assert {"device", "worker", "preempt", "disk"} <= set(fired), fired
     assert all(kind != "permanent" for kind, _ in report["failures"])
     assert counters.get("invariants.violations") == v0
     assert chaos_soak.check_prefix_replay(
@@ -6150,7 +6786,10 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
     one-shard mesh, 2.5M and 20M rows into 2,000,000; the sketch route's
     scalar sum, 2.5M rows into 100) and of phase 2e (a surviving shard after
     a device loss, 2,857,143 f64 rows into 100,000 groups, and a shard of
-    the rebalanced layout, 2,816,902 rows);
+    the rebalanced layout, 2,816,902 rows) and of phase 2f (a rank's
+    shard, 2,750,000 f64 rows into 100,000, 131,073 and 32,769 groups; a
+    shard of the one-rank world, 5M rows into 131,073; a shard of the
+    analytics demo's kept rows, into its 65-slot table);
     flash_attention and its backward at the transformer's [8, 2048, 8,
     64] causal in f32 (the model's) and bf16 (the backward when ``fab``,
     its module, is given: an earlier checkout has none), then in f32 at
@@ -6225,7 +6864,22 @@ def phase_timings(np, torch, segment_reduce, fa, fab=None) -> tuple:
               time_segment_sum(np, torch, segment_reduce, -(-20_000_000 // 7),
                                1, 100_000, torch.float64, flush),
               time_segment_sum(np, torch, segment_reduce, 2_816_902, 1,
-                               100_000, torch.float64, flush)]
+                               100_000, torch.float64, flush),
+              # phase 2f: a rank's shard (11M rows over 4, padded) with
+              # host keys, device keys and the two-key table; a shard of
+              # the one-rank world (20M over 4); a shard of the analytics
+              # demo's kept rows over 8 (S = max_groups + 1)
+              time_segment_sum(np, torch, segment_reduce, 2_750_000, 1,
+                               100_000, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_750_000, 1,
+                               131_073, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 2_750_000, 1,
+                               32_769, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce, 5_000_000, 1,
+                               131_073, torch.float64, flush),
+              time_segment_sum(np, torch, segment_reduce,
+                               -(-demo_kept_rows(np, 2_000_000) // 8), 1,
+                               65, torch.float64, flush)]
     emit({"phase": "kernel_timing", "ok": True, "shapes": shapes})
     # B2 at the transformer's shape, then at the mesh steps' per-shard
     # shapes (f32, causal): (data 8) and a pipeline microbatch's data
@@ -6260,11 +6914,7 @@ def static_plan(phase, *args, **kwargs) -> dict:
 
 
 def print_card() -> None:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi_card(), flush=True)
 
 
 def no_rebalance(run) -> dict:
@@ -6372,6 +7022,7 @@ def main(argv=None) -> int:
     per_phase = {}
     shipped = {}  # the child process's launches (phase 3h)
     served = {}  # the child process's launches (phase 3l)
+    ranks = {}  # the cluster's rank processes' launches (phase 2f)
     frame_path = run_path(torch, (
         ("readme_x_plus_3", lambda: phase_readme(ttf, np)),
         ("reference_workload_20M",
@@ -6385,6 +7036,8 @@ def main(argv=None) -> int:
                                                     segment_reduce))),
         ("elastic_20M",
          lambda: phase_elastic(ttf, np, torch, segment_reduce)),
+        ("cluster_2x4_20M",
+         lambda: phase_cluster(ttf, np, torch, segment_reduce, out=ranks)),
         ("kmeans_centre_update_2Mx64", lambda: phase_kmeans(ttf, np)),
         ("plan_parquet_20M",
          lambda: static_plan(phase_plan_parquet, ttf, np, torch,
@@ -6431,6 +7084,10 @@ def main(argv=None) -> int:
         "the shuffle's aggregates never launched segment_sum"
     assert per_phase["elastic_20M"]["segment_sum"] > 0, \
         "the elastic mesh's aggregates never launched segment_sum"
+    assert per_phase["cluster_2x4_20M"]["segment_sum"] == 8 and \
+        ranks["child_launches"] >= 2 * 3 * 4 + 4, \
+        "the cluster's ranks or the analytics demo did not launch " \
+        "segment_sum on every shard"
     assert per_phase["serve_three_tenants_20M"]["segment_sum"] > 0 and \
         served["child_launches"] > 0, \
         "the served aggregates never launched segment_sum"
@@ -6501,7 +7158,7 @@ def main(argv=None) -> int:
          "source": "tensorframes_tpu_torch/csrc/segment_sum.cu",
          "replaces": "tensorframes_tpu/ops/segment_reduce.py:75",
          "launches": frame_path["segment_sum"] + shipped["child_launches"]
-         + served["child_launches"],
+         + served["child_launches"] + ranks["child_launches"],
          **{k: shapes[0][k] for k in keys},
          "at": shapes[0]["shape"], "by_shape": shapes},
         {"name": "flash_attention", "route": "cuda",

@@ -13,11 +13,13 @@ by kind.
 
 The serving fabric's decisions (placement, re-placement, rebalance, a
 worker's crash and loss, a query's resume on a survivor, restarts and
-admission probes) and a join's route render as lines of their own, and
-:func:`doctor` shows the open fabric and merges per-worker flight dumps.
-The JAX package's lines for the mesh and the distributed plan, and
-``doctor``'s mesh line, are ``ROADMAP.md`` A item 7b (the mesh
-remainders); a record of an unknown kind renders as ``key=value``.
+admission probes), a join's route, and the mesh's and the distributed
+plan's (a device lost and the mesh shrunk, devices re-admitted, a skew
+rebalance, an exchange's imbalance, hot keys salted, a fused stage
+replayed per op) render as lines of their own, in the JAX package's
+words; :func:`doctor` shows the mesh and the open fabric and merges
+per-worker flight dumps. A record of an unknown kind renders as
+``key=value``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from .report import _fmt_bytes
 __all__ = ["why", "doctor"]
 
 # kinds that indicate something went wrong: doctor() surfaces these (the
-# JAX package's list, whose mesh kinds no port layer records yet)
+# JAX package's list)
 ANOMALY_KINDS = (
     "serve.shed", "serve.reject", "serve.over_quota", "serve.preempt",
     "serve.admission_preempt", "serve.cancel", "resilience.giveup",
@@ -128,6 +130,10 @@ def _detail(r: Dict[str, Any]) -> str:
     if k == "plan.oom_fallback":
         return (f"fused plan hit an unsplittable OOM ({r.get('error')}); "
                 f"whole forcing re-ran per-op")
+    if k == "dplan.fallback":
+        return (f"fused mesh program failed ({r.get('error')}, "
+                f"kind {r.get('error_kind')}); recorded chain replayed "
+                f"per-op")
     if k == "plan.result_cache_hit":
         return (f"result cache HIT: {r.get('blocks')} block(s) / "
                 f"{_fmt_bytes(r.get('bytes') or 0)} served with zero "
@@ -138,6 +144,31 @@ def _detail(r: Dict[str, Any]) -> str:
     if k == "plan.result_cache_evict":
         return (f"{r.get('entries')} result-cache entr(ies) "
                 f"LRU-evicted under the budget")
+    if k == "mesh.shrink":
+        return (f"device {r.get('device')} LOST during "
+                f"{r.get('op')!r}: mesh shrunk "
+                f"{r.get('devices_before')} -> "
+                f"{r.get('devices_after')} device(s), "
+                f"{r.get('reshard_rows')} row(s) re-sharded through "
+                f"the host")
+    if k == "mesh.grow":
+        return (f"device(s) {r.get('devices')} re-admitted after "
+                f"probe+warm-up: mesh grown {r.get('devices_before')} "
+                f"-> {r.get('devices_after')}")
+    if k == "mesh.rebalance":
+        return (f"persistent skew {r.get('ratio')} (> TFT_SKEW_WARN="
+                f"{r.get('threshold')} for {r.get('streak')} "
+                f"dispatches): rows re-partitioned {r.get('before')} "
+                f"-> {r.get('after')}")
+    if k == "mesh.exchange_skew":
+        return (f"exchange partition imbalance {r.get('ratio')} "
+                f"(> TFT_SKEW_WARN={r.get('threshold')}) during "
+                f"{r.get('op')!r}: {r.get('rows')} row(s), per-shard "
+                f"{r.get('per_shard')}")
+    if k == "mesh.salt":
+        return (f"{r.get('count')} hot key group(s) (> "
+                f"{r.get('fraction')} of rows, TFT_HOT_KEY_FRACTION) "
+                f"salted across {r.get('slots')} slot(s)")
     if k == "memory.spill":
         return (f"spilled {r.get('name')} "
                 f"({_fmt_bytes(r.get('bytes') or 0)}) to pinned host "
@@ -376,6 +407,12 @@ def doctor(max_per_kind: int = 5,
             f"{mem['overflow_admissions']} overflow admission(s)")
     else:
         lines.append("  memory   : unlimited (no ledger budget)")
+    mesh = snap["mesh"]
+    lines.append(
+        f"  mesh     : {mesh['visible_devices']} visible device(s) · "
+        f"lost pool {mesh['lost_pool'] or 'empty'} · "
+        f"{mesh['shrinks']} shrink(s) / {mesh['grows']} grow(s) / "
+        f"{mesh['rebalances']} rebalance(s)")
     serve = snap["serve"]
     if serve.get("running"):
         lines.append(

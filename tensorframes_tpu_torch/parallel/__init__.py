@@ -1,7 +1,7 @@
 """Distribution layer: device meshes, sharded frames, mesh collectives.
 
 The port's counterpart of ``tensorframes_tpu/parallel/``, single-controller
-as the JAX package is: one process drives every device of a
+within a process as the JAX package is: one process drives every device of a
 :class:`DeviceMesh` (an array of ``torch.device`` objects with named
 axes and one logical id per slot). Partitions become shards of every
 column, one per device of the data axis; a mesh reduce's combine becomes
@@ -18,13 +18,16 @@ rebalancing, ``admit_devices``, ``grow_mesh``, ``probe_device``) and the
 fused distributed plan (``DistributedFrame.lazy()``, ``plan/dist.py``).
 Ring attention and the ring allreduce (``ring.py``), the Switch MoE
 (``moe.py``) and the GPipe schedule (``pipeline.py``) are ported too; the
-transformer's mesh steps stand on them. The other public names of the
-JAX package's layer stay in this namespace and raise
-``NotImplementedError`` naming ``ROADMAP.md`` A item 7b when called: the
-multi-process cluster (``torch.distributed`` with NCCL, the counterpart of
-the JAX package's multi-host ``initialize``).
+transformer's mesh steps stand on them. So is the multi-process cluster
+(``cluster.py``): ``initialize`` joins the processes into one
+``torch.distributed`` group (gloo or NCCL, chosen from where the ranks
+are), ``cluster_mesh`` builds a mesh over every process's slots and
+``distribute_local`` places each process's own rows on its own shards;
+every d-op then runs across the processes, each holding its own shards,
+with bit-identical results on every process.
 """
 
+from .cluster import cluster_mesh, distribute_local, initialize
 from .collectives import COMBINERS
 from .distributed import (DistributedFrame, daggregate, dfilter, distribute,
                           dmap_blocks, dreduce_blocks, dsort)
@@ -44,19 +47,3 @@ __all__ = [
     "cluster_mesh", "distribute_local", "initialize",
 ]
 
-
-def _not_yet(name: str, module: str):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"parallel.{name} ({module}) is not ported to "
-            f"tensorframes_tpu_torch yet: ROADMAP.md A item 7b")
-
-    missing.__name__ = missing.__qualname__ = name
-    missing.__doc__ = (f"The JAX package's ``parallel.{name}`` "
-                       f"({module}); raises until ROADMAP.md A item 7b.")
-    return missing
-
-
-cluster_mesh = _not_yet("cluster_mesh", "cluster.py")
-distribute_local = _not_yet("distribute_local", "cluster.py")
-initialize = _not_yet("initialize", "cluster.py")

@@ -76,7 +76,8 @@ from ..shape import Unknown
 from ..utils.logging import get_logger
 from ..utils.tracing import counters, span
 from . import elastic as _elastic
-from .collectives import COMBINERS
+from .collectives import (COMBINERS, allgather_object, allgather_var,
+                          gather_shard_parts, route_pieces)
 from .mesh import DeviceMesh
 
 __all__ = ["DistributedFrame", "ShardedArray", "distribute", "dmap_blocks",
@@ -108,18 +109,32 @@ def _check_executor() -> None:
 class ShardedArray:
     """One device column of a :class:`DistributedFrame`: a tensor per
     data shard, each on its shard's device, in shard order. Its global
-    view is the shards' rows concatenated (``shape``, ``numpy()``)."""
+    view is the shards' rows concatenated (``shape``, ``numpy()``).
 
-    __slots__ = ("shards",)
+    On a cluster mesh (``cluster.cluster_mesh``) a process holds only its
+    own shards (``mesh.local_shards()``): ``cluster`` is the mesh and
+    ``rows`` every shard's row count in global shard order. ``gather`` and
+    ``numpy`` then assemble the global array with one allgather, so every
+    process must call them together."""
 
-    def __init__(self, shards: Sequence[torch.Tensor]):
+    __slots__ = ("shards", "cluster", "rows")
+
+    def __init__(self, shards: Sequence[torch.Tensor], cluster=None,
+                 rows: Optional[Sequence[int]] = None):
         self.shards = list(shards)
+        self.cluster = cluster
+        self.rows = None if rows is None else tuple(int(r) for r in rows)
+
+    def like(self, shards: Sequence[torch.Tensor]) -> "ShardedArray":
+        """New shards laid out as these are (the same rows per shard)."""
+        return ShardedArray(shards, self.cluster, self.rows)
 
     @property
     def shape(self):
         first = self.shards[0]
-        return (sum(int(s.shape[0]) for s in self.shards),) + \
-            tuple(first.shape[1:])
+        n = (sum(self.rows) if self.cluster is not None
+             else sum(int(s.shape[0]) for s in self.shards))
+        return (n,) + tuple(first.shape[1:])
 
     @property
     def dtype(self) -> torch.dtype:
@@ -135,11 +150,18 @@ class ShardedArray:
                    for s in self.shards)
 
     def gather(self, device: torch.device) -> torch.Tensor:
-        """The global array, concatenated on ``device``."""
-        return torch.cat([s.to(device) for s in self.shards])
+        """The global array, concatenated on ``device`` (a collective on a
+        cluster mesh: every process's shards, in shard order)."""
+        local = torch.cat([s.to(device) for s in self.shards])
+        if self.cluster is None:
+            return local
+        return torch.cat(allgather_var(self.cluster.group, local))
 
     def numpy(self) -> np.ndarray:
-        """The global array on the host (one copy per shard)."""
+        """The global array on the host (one copy per shard; one
+        allgather on a cluster mesh)."""
+        if self.cluster is not None:
+            return to_host(self.gather(self.shards[0].device))
         return np.concatenate([to_host(s) for s in self.shards])
 
     def __array__(self, dtype=None, copy=None):
@@ -151,21 +173,36 @@ class ShardedArray:
                 f"shards={len(self.shards)})")
 
 
+def _sharded(mesh: DeviceMesh, shards: Sequence[torch.Tensor],
+             rows: Sequence[int]) -> ShardedArray:
+    """The shards this process holds as a column of ``mesh``, whose data
+    shards have ``rows`` rows each (recorded on a cluster mesh, where the
+    other processes' shards are not here to count)."""
+    if mesh.is_cluster:
+        return ShardedArray(shards, mesh, rows)
+    return ShardedArray(shards)
+
+
 def _place(mesh: DeviceMesh, a: np.ndarray, rows: Sequence[int],
            dtype: torch.dtype) -> ShardedArray:
     """Place a host array on the mesh: ``rows[i]`` rows, in order, on
-    data shard ``i``'s device, as ``dtype``."""
+    data shard ``i``'s device, as ``dtype`` (a cluster process places the
+    rows of its own shards only)."""
+    held = set(mesh.local_shards())
     out, lo = [], 0
-    for r, d in zip(rows, mesh.shard_devices()):
-        out.append(to_device(a[lo:lo + r], dtype, d))
+    for s, (r, d) in enumerate(zip(rows, mesh.shard_devices())):
+        if s in held:
+            out.append(to_device(a[lo:lo + r], dtype, d))
         lo += r
-    return ShardedArray(out)
+    return _sharded(mesh, out, rows)
 
 
 def _shard_rows(dist) -> List[int]:
     """The row count of each data shard of ``dist``."""
     for c in dist.columns.values():
         if isinstance(c, ShardedArray):
+            if c.rows is not None:
+                return list(c.rows)
             return [int(s.shape[0]) for s in c.shards]
     S = dist.mesh.num_data_shards
     return [dist.padded_rows // S] * S
@@ -184,9 +221,10 @@ def _split_global(mesh: DeviceMesh, t: torch.Tensor) -> ShardedArray:
     chunks of :meth:`DistributedFrame.per_shard_valid` (equal shards when
     it tiles the data axis; some chunks may be empty otherwise)."""
     devices = mesh.shard_devices()
-    bounds = np.cumsum([0] + _chunk_rows(int(t.shape[0]), len(devices)))
-    return ShardedArray([t[int(a):int(b)].to(d) for a, b, d in
-                         zip(bounds[:-1], bounds[1:], devices)])
+    rows = _chunk_rows(int(t.shape[0]), len(devices))
+    bounds = np.cumsum([0] + rows)
+    return _sharded(mesh, [t[int(bounds[s]):int(bounds[s + 1])].to(devices[s])
+                           for s in mesh.local_shards()], rows)
 
 
 def _read_global(a) -> np.ndarray:
@@ -284,7 +322,7 @@ class _ShardClock:
 
     def __init__(self, trace, mesh: DeviceMesh):
         self.ts = trace.clock()
-        self.devices = mesh.shard_devices()
+        self.devices = mesh.local_shard_devices()
         self.cuda = all(d.type == "cuda" for d in self.devices)
         self.starts = {}
         if self.cuda:
@@ -335,7 +373,9 @@ def _trace_shards(trace, op: str, dist=None, mesh=None) -> _ShardClock:
             rows = dist.per_shard_valid()
         except ValueError:
             rows = None
-    for i, dev in enumerate(mesh.shard_devices()):
+    devices = mesh.shard_devices()
+    for i in mesh.local_shards():
+        dev = devices[i]
         trace.add("shard", name=f"{op} shard {i}", device=i,
                   device_name=str(dev),
                   rows=(int(rows[i]) if rows is not None else None),
@@ -352,7 +392,7 @@ def _trace_done(trace, op: str, clock: _ShardClock,
     for i, dur in enumerate(durs):
         trace.add("shard_compute", name=f"{op} d{i}", ts=clock.ts,
                   dur=dur, device=i, track=DEVICE_TRACK_BASE + i)
-    if mesh is not None and len(durs) >= 2:
+    if mesh is not None and len(durs) >= 2 and not mesh.is_cluster:
         _elastic.note_dispatch(mesh, op, durs)
     trace.add("mesh_dispatch", name=op, ts=clock.ts,
               dur=max(trace.clock() - clock.ts, 0.0))
@@ -519,6 +559,11 @@ class DistributedFrame:
                 f"  exchange: partition imbalance {ex['ratio']:.2f} "
                 f"(threshold {ex['threshold']:.2f}{flag}); per-shard "
                 f"rows {ex['per_shard']}")
+        if self.mesh.is_cluster:
+            g = self.mesh.group
+            lines.append(f"  cluster: process {g.rank} of {g.size} "
+                         f"({g.backend}) holds shards "
+                         f"{self.mesh.local_shards()}")
         for f in self.schema:
             col = self.columns[f.name]
             if isinstance(col, np.ndarray):
@@ -542,6 +587,17 @@ class DistributedFrame:
                 f"rows={self.num_rows} mesh={self.mesh!r}")
 
 
+def _refuse_host_columns(schema: Schema) -> None:
+    """Host-side columns are process-local: a cluster mesh refuses them,
+    before any collective (the JAX package's check and wording)."""
+    for f in schema:
+        if not f.dtype.tensor:
+            raise ValueError(
+                f"column {f.name!r}: non-tensor (string) columns are not "
+                f"supported across processes — drop them with select() or "
+                f"key on an integer column")
+
+
 def _host_side_column(a: np.ndarray, field, padded_rows: int) -> np.ndarray:
     """Pad a non-tensor (string) column for the host-side ride-along:
     such columns cannot live on a device, so they travel in the same
@@ -560,6 +616,8 @@ def distribute(df: TensorFrame, mesh: DeviceMesh) -> DistributedFrame:
     global array, one per data-shard device (pad rows, zero filled, make
     up the remainder; ``num_rows`` remembers the truth)."""
     _check_executor()
+    if mesh.is_cluster:
+        _refuse_host_columns(df.schema)
     with span("distribute.concat"):
         merged = Block.concat(df.blocks(), df.schema)
     n = merged.num_rows
@@ -585,7 +643,8 @@ def distribute(df: TensorFrame, mesh: DeviceMesh) -> DistributedFrame:
             mem_mgr.make_room(int(a.nbytes))
         with span("distribute.device_put"):
             cols[f.name] = _place(mesh, a, [padded // shards] * shards, dd)
-    if mem_mgr is not None and mem_mgr.spill_enabled:
+    if mem_mgr is not None and mem_mgr.spill_enabled \
+            and not mesh.is_cluster:
         # the frame's device columns become one LRU spill candidate: cold
         # mesh frames move to pinned host buffers under pressure and fault
         # back transparently on the next column access
@@ -670,18 +729,24 @@ def _dmap_blocks(fetches, dist: DistributedFrame, trim: bool,
     clock = (_trace_shards(trace, "dmap_blocks", dist)
              if trace is not None else None)
 
+    held = mesh.local_shards()
+    if trim:
+        # a cluster gathers the inputs with one allgather per column
+        # before the dispatch (and its retries) can start
+        dev0 = mesh.local_shard_devices()[0]
+        gathered = {n: dist.columns[n].gather(dev0)
+                    for n in comp.input_names}
+
     def _dispatch():
         _faults.check("dmap")
         if clock is not None:
             clock.marks.clear()  # a retried attempt times its own shards
         with span("dmap_blocks.dispatch"):
             if trim:
-                dev0 = mesh.shard_devices()[0]
-                return [_call(comp, {n: dist.columns[n].gather(dev0)
-                                     for n in comp.input_names})]
+                return [_call(comp, gathered)]
             parts = []
-            for s in range(mesh.num_data_shards):
-                parts.append(_call(comp, {n: dist.columns[n].shards[s]
+            for j in range(len(held)):
+                parts.append(_call(comp, {n: dist.columns[n].shards[j]
                                           for n in comp.input_names}))
                 if clock is not None:
                     clock.mark()
@@ -697,12 +762,15 @@ def _dmap_blocks(fetches, dist: DistributedFrame, trim: bool,
             f"Distributed map fetches disagree on output row count: "
             f"{rows}")
     n_out = rows[names[0]] if names else dist.padded_rows
-    if not trim and any(int(p[f].shape[0]) != r for p, r in zip(
-            parts, _shard_rows(dist)) for f in names):
-        raise ValueError(
-            f"Distributed map output changed the row count ({n_out} vs "
-            f"{dist.padded_rows}); use trim=True for row-count-changing "
-            f"(global) computations")
+    in_rows = _shard_rows(dist)
+    if not trim:
+        if any(int(p[f].shape[0]) != in_rows[s] for p, s in zip(
+                parts, held) for f in names):
+            raise ValueError(
+                f"Distributed map output changed the row count ({n_out} "
+                f"vs {dist.padded_rows}); use trim=True for "
+                f"row-count-changing (global) computations")
+        n_out = dist.padded_rows  # a cluster process counted its own
     if row_aligned is None:
         row_aligned = n_out == dist.padded_rows
     elif row_aligned and n_out != dist.padded_rows:
@@ -712,7 +780,7 @@ def _dmap_blocks(fetches, dist: DistributedFrame, trim: bool,
     cols = {} if trim else {n: dist.columns[n] for n in dist.columns}
     for f in names:
         cols[f] = (_split_global(mesh, parts[0][f]) if trim
-                   else ShardedArray([p[f] for p in parts]))
+                   else _sharded(mesh, [p[f] for p in parts], in_rows))
     num_rows = dist.num_rows if row_aligned else n_out
     # row-aligned outputs keep the input's pad layout; a fresh global
     # result (row_aligned=False) has no pad rows at all
@@ -783,9 +851,10 @@ def _dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
              if trace is not None else None)
     new_shards: Dict[str, list] = {n: [] for n in tensor_names}
     counts, keeps = [], []
+    held = mesh.local_shards()
     with span("dfilter.dispatch"):
-        for s in range(S):
-            local = {n: dist.columns[n].shards[s] for n in tensor_names}
+        for j, s in enumerate(held):
+            local = {n: dist.columns[n].shards[j] for n in tensor_names}
             m = _call(comp, {n: local[n] for n in comp.input_names})[pname]
             rowid = torch.arange(m.shape[0], device=m.device)
             keep = (m != 0) & (rowid < int(counts_in[s]))
@@ -800,16 +869,24 @@ def _dfilter(predicate, dist: DistributedFrame) -> DistributedFrame:
     if trace is not None:
         _trace_done(trace, "dfilter", clock, mesh)
     counters.inc("mesh.dispatches")
-    dev0 = mesh.shard_devices()[0]
+    dev0 = mesh.local_shard_devices()[0]
     counts_host = to_host(torch.stack([c.to(dev0) for c in counts])
                           ).astype(np.int64)
+    if mesh.is_cluster:
+        # every process's survivor counts, in shard order
+        got = allgather_object(mesh.group, counts_host.tolist())
+        counts_host = np.zeros(S, np.int64)
+        for r, part in enumerate(got):
+            owned = [s for s, p in enumerate(mesh.shard_processes())
+                     if p == r]
+            counts_host[owned] = part
     # the survivor counts (and, with host ride-alongs, the keep mask)
     # cross to the host between this op and the next
     counters.inc("mesh.interstage_host_bytes", 4 * S)
     from ..plan.nodes import record_selectivity
     record_selectivity(comp, dist.num_rows, int(counts_host.sum()))
-    new_cols: Dict[str, object] = {n: ShardedArray(new_shards[n])
-                                   for n in tensor_names}
+    new_cols: Dict[str, object] = {
+        n: dist.columns[n].like(new_shards[n]) for n in tensor_names}
     if host_names:
         counters.inc("mesh.interstage_host_bytes", dist.padded_rows)
         bounds = np.concatenate([[0], np.cumsum(
@@ -910,8 +987,17 @@ def _dsort_external_if_needed(keys, dist: DistributedFrame,
         return None
     total = sum(_memory.value_nbytes(dist.columns, f.name)
                 for f in dist.schema if f.dtype.tensor)
+    if dist.mesh.is_cluster:
+        # every process sees the same global size: all refuse together
+        total = sum(allgather_object(dist.mesh.group, total))
     if total <= threshold:
         return None
+    if dist.mesh.is_cluster:
+        raise NotImplementedError(
+            "dsort's external sort on a cluster mesh: the frame outgrows "
+            "the device budget and the external sort merges on one host; "
+            "raise the budget (TFT_MEM_SORT_FRACTION) or sort on a "
+            "single-process mesh")
     _validate_dsort_keys(dist.schema, keys)
     return _dsort_external(keys, dist, descending, mgr)
 
@@ -1045,8 +1131,8 @@ def _dsort_local(dist: DistributedFrame, keys, descending: bool,
     pad rows sink behind every real row, a NaN or an ``iinfo.max`` key
     included. Returns ``(columns, order)``."""
     mesh = dist.mesh
-    dev0 = mesh.shard_devices()[0]
-    valid = torch.cat([v.to(dev0) for v in _valid_dev(dist).shards])
+    dev0 = mesh.local_shard_devices()[0]
+    valid = _valid_dev(dist).gather(dev0)
     named = {n: dist.columns[n].gather(dev0) for n in tensor_names}
     order = lexsort_order(
         [(~valid).to(torch.int8)]
@@ -1054,27 +1140,6 @@ def _dsort_local(dist: DistributedFrame, keys, descending: bool,
     cols = [_split_global(mesh, named[n].index_select(0, order))
             for n in tensor_names]
     return cols, order
-
-
-def _reslice(parts: Sequence[torch.Tensor], sizes: Sequence[int],
-             devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """The rows of ``parts`` (one tensor per shard, in shard order) cut
-    into consecutive pieces of ``sizes`` rows, piece ``i`` on
-    ``devices[i]``; rows past ``sum(sizes)`` are dropped."""
-    bounds = np.concatenate([[0], np.cumsum([int(p.shape[0])
-                                             for p in parts])])
-    out, lo = [], 0
-    for size, dev in zip(sizes, devices):
-        hi = lo + int(size)
-        pieces = []
-        for j, p in enumerate(parts):
-            a, b = max(lo, int(bounds[j])), min(hi, int(bounds[j + 1]))
-            if a < b:
-                pieces.append(p[a - int(bounds[j]):b - int(bounds[j])]
-                              .to(dev))
-        out.append(torch.cat(pieces) if len(pieces) != 1 else pieces[0])
-        lo = hi
-    return out
 
 
 def _dsort_columnsort(dist: DistributedFrame, keys, descending: bool,
@@ -1095,12 +1160,17 @@ def _dsort_columnsort(dist: DistributedFrame, keys, descending: bool,
     < frame pad 1 < internal pad 2) is the most significant key and the
     global row id the least, so every step's order is total and the
     result stable; internal pad rows sort behind the frame's own pads and
-    the first ``padded`` rows are the frame's layout. Returns
-    ``(columns, order)``, the order as the global row id of each output
-    row."""
+    the first ``padded`` rows are the frame's layout, cut back into shards
+    of ``padded / S`` rows at the end. Every move between shards is a
+    :func:`~.collectives.route_pieces` exchange, so on a cluster mesh each
+    process sorts its own shards and the pieces bound for another
+    process's shards cross in one ``all_to_all_single`` per exchange and
+    column. Returns ``(columns, order)``, the order as the global row id
+    of each output row."""
     mesh = dist.mesh
     devs = mesh.shard_devices()
     S = len(devs)
+    held = mesh.local_shards()
     padded = dist.padded_rows
     r = padded // S
     # internal rows per shard: a multiple of 2S, >= 2(S-1)^2 (Leighton's
@@ -1113,9 +1183,10 @@ def _dsort_columnsort(dist: DistributedFrame, keys, descending: bool,
     valid = _valid_dev(dist)
 
     # a shard's state: [flag, rowid, col_0, col_1, ...], rp rows each
-    state = []
-    for s, dev in enumerate(devs):
-        flag = torch.cat([torch.where(valid.shards[s], 0, 1).to(torch.int8),
+    state = {}
+    for j, s in enumerate(held):
+        dev = devs[s]
+        flag = torch.cat([torch.where(valid.shards[j], 0, 1).to(torch.int8),
                           torch.full((pad_n,), 2, dtype=torch.int8,
                                      device=dev)])
         rowid = torch.cat([s * r + torch.arange(r, device=dev),
@@ -1123,10 +1194,11 @@ def _dsort_columnsort(dist: DistributedFrame, keys, descending: bool,
                                        device=dev)])
         cols = []
         for n in tensor_names:
-            c = dist.columns[n].shards[s]
+            c = dist.columns[n].shards[j]
             cols.append(torch.cat([c, c.new_zeros((pad_n,)
                                                   + tuple(c.shape[1:]))]))
-        state.append([flag, rowid] + cols)
+        state[s] = [flag, rowid] + cols
+    width = 2 + len(tensor_names)
 
     def colsort(st):
         order = lexsort_order(
@@ -1134,50 +1206,76 @@ def _dsort_columnsort(dist: DistributedFrame, keys, descending: bool,
                        for i in key_idx] + [st[1]])
         return [t.index_select(0, order) for t in st]
 
-    def deal(parts):
-        return [torch.cat([p[d::S].to(devs[d]) for p in parts])
-                for d in range(S)]
+    def exchange(st, cut, sizes, assemble):
+        """Move every state tensor: ``cut(src, t)`` gives the pieces of
+        shard ``src``'s tensor by destination shard, ``assemble(dst, i,
+        pieces)`` the new tensor from the pieces that reached ``dst``, in
+        source order."""
+        out = {s: [] for s in held}
+        for i in range(width):
+            pieces = {}
+            for s in held:
+                for d, piece in cut(s, st[s][i]).items():
+                    pieces[(s, d)] = piece
+            got = route_pieces(mesh, pieces, sizes, st[held[0]][i])
+            for d in held:
+                srcs = sorted(a for a, b in sizes if b == d)
+                out[d].append(assemble(d, i, [got[(a, d)] for a in srcs]))
+        return out
 
-    def undeal(parts):
-        return [torch.stack([p[d * q:(d + 1) * q].to(devs[d])
-                             for p in parts], 1)
-                .reshape((rp,) + tuple(parts[0].shape[1:]))
-                for d in range(S)]
-
-    def exchange(fn, st):
-        moved = [fn([sh[i] for sh in st]) for i in range(len(st[0]))]
-        return [[m[s] for m in moved] for s in range(S)]
-
+    every = {(a, b): q for a in range(S) for b in range(S)}
     with torch.no_grad():
-        state = [colsort(st) for st in state]                       # 1
-        state = exchange(deal, state)                               # 2
-        state = [colsort(st) for st in state]                       # 3
-        state = exchange(undeal, state)                             # 4
-        state = [colsort(st) for st in state]                       # 5
-        shifted = []                                                # 6
-        for s, dev in enumerate(devs):
-            top = []
-            for i, t in enumerate(state[s]):
-                if s:
-                    prev = state[s - 1][i][h:].to(dev)
-                elif i == 0:
-                    prev = torch.full((rp - h,), -16, dtype=torch.int8,
-                                      device=dev)
-                else:
-                    prev = t.new_zeros((rp - h,) + tuple(t.shape[1:]))
-                top.append(torch.cat([prev, t[:h]]))
-            shifted.append(top)
-        shifted = [colsort(st) for st in shifted]                   # 7
-        out = []                                                    # 8
-        for s, dev in enumerate(devs):
-            nxt = (shifted[s + 1] if s < S - 1 else None)
-            out.append([torch.cat([b[h:], (nxt[i][:h].to(dev)
-                                            if nxt is not None
-                                            else state[s][i][h:])])
-                        for i, b in enumerate(shifted[s])])
-        sizes = [r] * S
-        order = ShardedArray(_reslice([o[1] for o in out], sizes, devs))
-        cols = [ShardedArray(_reslice([o[2 + j] for o in out], sizes, devs))
+        state = {s: colsort(st) for s, st in state.items()}          # 1
+        state = exchange(                                              # 2
+            state, lambda s, t: {d: t[d::S] for d in range(S)}, every,
+            lambda d, i, ps: torch.cat(ps))
+        state = {s: colsort(st) for s, st in state.items()}          # 3
+        state = exchange(                                              # 4
+            state, lambda s, t: {d: t[d * q:(d + 1) * q]
+                                 for d in range(S)}, every,
+            lambda d, i, ps: torch.stack(ps, 1).reshape(
+                (rp,) + tuple(ps[0].shape[1:])))
+        state = {s: colsort(st) for s, st in state.items()}          # 5
+
+        def top(d, i, ps):                                             # 6
+            t = state[d][i]
+            if ps:
+                prev = ps[0]
+            elif i == 0:
+                prev = torch.full((rp - h,), -16, dtype=torch.int8,
+                                  device=t.device)
+            else:
+                prev = t.new_zeros((rp - h,) + tuple(t.shape[1:]))
+            return torch.cat([prev, t[:h]])
+
+        shifted = exchange(
+            state, lambda s, t: {s + 1: t[h:]} if s < S - 1 else {},
+            {(a, a + 1): rp - h for a in range(S - 1)}, top)
+        shifted = {s: colsort(st) for s, st in shifted.items()}      # 7
+
+        def bottom(d, i, ps):                                          # 8
+            tail = ps[0] if ps else state[d][i][h:]
+            return torch.cat([shifted[d][i][h:], tail])
+
+        out = exchange(
+            shifted, lambda s, t: {s - 1: t[:h]} if s else {},
+            {(a + 1, a): h for a in range(S - 1)}, bottom)
+
+        # the first S * r rows, back into shards of r rows
+        spans = {}
+        for a in range(S):
+            for b in range(S):
+                lo, hi = max(b * r, a * rp), min((b + 1) * r, (a + 1) * rp)
+                if lo < hi:
+                    spans[(a, b)] = (lo - a * rp, hi - a * rp)
+        out = exchange(
+            out, lambda s, t: {b: t[lo:hi] for (a, b), (lo, hi)
+                               in spans.items() if a == s},
+            {k: hi - lo for k, (lo, hi) in spans.items()},
+            lambda d, i, ps: torch.cat(ps) if len(ps) != 1 else ps[0])
+        rows = [r] * S
+        order = _sharded(mesh, [out[s][1] for s in held], rows)
+        cols = [_sharded(mesh, [out[s][2 + j] for s in held], rows)
                 for j in range(len(tensor_names))]
     return cols, order
 
@@ -1264,21 +1362,23 @@ def _collective_reduce(col_combiners: Mapping[str, str],
             trace.add("collective", name=combs[name].ici, ts=clock.ts,
                       column=name, op="dreduce_blocks")
     result = {}
+    mesh = dist.mesh
+    home = mesh.local_shard_devices()[0]
     with span("dreduce_blocks.collective_dispatch"):
         # shard by shard (each shard's partials of every column, then the
         # collectives), so a traced dispatch can time each shard
         parts: Dict[str, list] = {name: [] for name in names}
-        for s in range(dist.mesh.num_data_shards):
+        for j, s in enumerate(mesh.local_shards()):
             for name in names:
-                p = _collective_partial(combs[name],
-                                        dist.columns[name].shards[s],
-                                        valid[s])
-                if p is not None:
-                    parts[name].append(p)
+                parts[name].append(_collective_partial(
+                    combs[name], dist.columns[name].shards[j], valid[s]))
             if clock is not None:
                 clock.mark()
         for name in names:
-            out = combs[name].collective(parts[name])
+            # a cluster's partials meet on every process in shard order
+            every = gather_shard_parts(mesh, parts[name], home)
+            out = combs[name].collective([p for p in every
+                                          if p is not None])
             result[name] = _host_result(out, dist.schema[name])
     if trace is not None:
         _trace_done(trace, "dreduce_blocks", clock, dist.mesh)
@@ -1305,7 +1405,8 @@ def _generic_reduce(fetches, dist: DistributedFrame) -> Dict[str, np.ndarray]:
         raise ValueError("reduce on an empty distributed frame")
     names = sorted(fetch_names)
     arrays = {f: dist.columns[f] for f in names}
-    if dist.shard_valid is not None or dist.padded_rows % S:
+    if dist.shard_valid is not None or dist.padded_rows % S \
+            or mesh.is_cluster:
         ids_host = np.where(dist.valid_row_mask(), 0, -1).astype(np.int32)
         ids = _place(mesh, ids_host, _shard_rows(dist), torch.int32)
         final_t = _segmented_fold(comp, names, mesh, arrays, ids, 1)
@@ -1388,7 +1489,8 @@ def _monoid_group_plan(dist: DistributedFrame, keys):
     salting is cached per (frame, keys, threshold) like the ids."""
     ids, uniques, _, _, num_groups = _cached_group_ids(dist, keys, None)
     salt_plan = None
-    if dist.mesh.num_data_shards > 1:
+    # a cluster mesh never salts: the salt plan reads every row's id
+    if dist.mesh.num_data_shards > 1 and not dist.mesh.is_cluster:
         frac = _elastic.salt_fraction()
         if frac is not None:
             skey = ("salt", tuple(keys), frac)
@@ -1413,6 +1515,8 @@ def _host_group_ids(dist: DistributedFrame, keys):
     pad rows marked ``-1`` (dropped by every consumer). Returns
     ``(ids, uniques, num_groups)``.
     """
+    if dist.mesh.is_cluster:
+        return _cluster_group_ids(dist, keys)
     schema = dist.schema
     mask = dist.valid_row_mask()
     key_host = []
@@ -1437,14 +1541,62 @@ def _host_group_ids(dist: DistributedFrame, keys):
     return ids, fact.uniques, fact.num_groups
 
 
+def _cluster_group_ids(dist: DistributedFrame, keys):
+    """:func:`_host_group_ids` across the processes of a cluster mesh:
+    each process factorizes the keys of its own valid rows, the processes'
+    small unique-key tables meet in one allgather, every process
+    factorizes their concatenation (in process order) into the same
+    global table, and maps its own ids into it. Returns ``(ids, uniques,
+    num_groups)``, the same on every process."""
+    mesh = dist.mesh
+    schema = dist.schema
+    rows = _shard_rows(dist)
+    counts = dist.per_shard_valid()
+    held = mesh.local_shards()
+    key_local = []
+    for k in keys:
+        col = dist.columns[k]
+        if len(col.shards[0].shape) != 1:
+            raise _ops.InvalidTypeError(
+                f"Key column {k!r} must be scalar-typed")
+        a = np.concatenate([to_host(col.shards[j][:int(counts[s])])
+                            for j, s in enumerate(held)])
+        key_local.append(to_storage_dtype(a, schema[k].dtype))
+    with span("aggregate.factorize_keys"):
+        if len(key_local[0]):
+            fact = _ops._factorize_keys(key_local)
+            local_ids, uniques = fact.ids, fact.uniques
+        else:
+            local_ids = np.empty(0, np.int64)
+            uniques = [a[:0] for a in key_local]
+        tables = allgather_object(mesh.group, uniques)
+        glob = _ops._factorize_keys(
+            [np.concatenate([t[i] for t in tables])
+             for i in range(len(keys))])
+        off = sum(len(t[0]) for t in tables[:mesh.group.rank])
+        remap = glob.ids[off:off + len(uniques[0])]
+    ids_local = remap[local_ids].astype(np.int32)
+    out, lo = [], 0
+    devs = mesh.shard_devices()
+    for s in held:
+        n = int(counts[s])
+        piece = np.full(rows[s], -1, np.int32)  # -1: pad, dropped
+        piece[:n] = ids_local[lo:lo + n]
+        lo += n
+        out.append(to_device(piece, torch.int32, devs[s]))
+    return _sharded(mesh, out, rows), glob.uniques, glob.num_groups
+
+
 def _valid_dev(dist: DistributedFrame) -> ShardedArray:
     """The valid-row mask, made on each shard's device: a shard's valid
     rows are its first ``per_shard_valid()`` rows (a prefix frame's and a
     ``dfilter`` result's alike), so no mask crosses from the host."""
     counts = dist.per_shard_valid()
-    return ShardedArray([torch.arange(r, device=d) < int(c) for r, d, c in
-                         zip(_shard_rows(dist), dist.mesh.shard_devices(),
-                             counts)])
+    rows = _shard_rows(dist)
+    devs = dist.mesh.shard_devices()
+    return _sharded(dist.mesh, [torch.arange(rows[s], device=devs[s])
+                                < int(counts[s])
+                                for s in dist.mesh.local_shards()], rows)
 
 
 def _device_group_ids(dist: DistributedFrame, key: str, max_groups: int,
@@ -1492,6 +1644,13 @@ def _build_device_ids(kc: ShardedArray, vm: ShardedArray, max_groups: int):
                                 for k, v in zip(kc.shards, vm.shards)]).any()
     uniq_all = torch.unique(torch.cat([torch.unique(m).to(dev0)
                                        for m in masked]))
+    if kc.cluster is not None:
+        # the processes' sorted uniques (and sentinel flags) meet in one
+        # allgather each; one more unique makes the same table everywhere
+        group = kc.cluster.group
+        uniq_all = torch.unique(torch.cat(allgather_var(group, uniq_all)))
+        sentinel_hit = torch.stack(allgather_var(
+            group, sentinel_hit.reshape(1))).any()
     uniq = torch.full((max_groups + 1,), sentinel, dtype=kc.dtype,
                       device=dev0)
     take = min(max_groups + 1, int(uniq_all.shape[0]))
@@ -1501,15 +1660,15 @@ def _build_device_ids(kc: ShardedArray, vm: ShardedArray, max_groups: int):
     for m, v in zip(masked, vm.shards):
         pos = torch.searchsorted(uniq.to(m.device), m).to(torch.int32)
         ids.append(torch.where(v, pos, -1))
-    return ShardedArray(ids), uniq, count, sentinel_hit
+    return kc.like(ids), uniq, count, sentinel_hit
 
 
 def _combine_ids(acc: ShardedArray, ids_k: ShardedArray,
                  radix: int) -> ShardedArray:
     """Mixed-radix combination of dense per-key ids (int32 throughout, as
     the JAX package keeps it)."""
-    return ShardedArray([a * radix + b for a, b in zip(acc.shards,
-                                                       ids_k.shards)])
+    return acc.like([a * radix + b for a, b in zip(acc.shards,
+                                                   ids_k.shards)])
 
 
 def _device_key_ids(dist: DistributedFrame, keys, max_groups: int):
@@ -1657,7 +1816,8 @@ def _shuffle_route(num_groups: int, mesh: DeviceMesh) -> bool:
     shard, with the shuffle on (``TFT_SHUFFLE``)."""
     from .exchange import shuffle_agg_groups_threshold, shuffle_enabled
     thr = shuffle_agg_groups_threshold()
-    return (thr is not None and shuffle_enabled()
+    # a cluster mesh keeps the dense tables (the exchange is single-process)
+    return (thr is not None and shuffle_enabled() and not mesh.is_cluster
             and num_groups > thr and mesh.num_data_shards > 1)
 
 
@@ -1758,11 +1918,14 @@ def _daggregate(fetches, dist: DistributedFrame, keys,
         for f in fetch_names:
             trace.add("collective", name=COMBINERS[col_combiners[f]].ici,
                       ts=clock.ts, column=f, op="daggregate")
+    home = mesh.local_shard_devices()[0]
     with span("daggregate.dispatch"):
         parts = _shard_tables(fetch_names, col_combiners, dist.columns,
                               prog_ids, prog_groups, clock)
-        tables = [to_host(COMBINERS[col_combiners[f]].collective(parts[f]))
-                  for f in fetch_names]
+        # a cluster's tables meet on every process in shard order
+        tables = [to_host(COMBINERS[col_combiners[f]].collective(
+            gather_shard_parts(mesh, parts[f], home)))
+            for f in fetch_names]
     if trace is not None:
         _trace_done(trace, "daggregate", clock, mesh)
     counters.inc("mesh.dispatches")
@@ -1838,7 +2001,7 @@ def _daggregate_sketch(fetches, dist: DistributedFrame, keys,
     ids_host = ids_dev.numpy()
     ids = ids_host[ids_host >= 0].astype(np.int64)
     mask = dist.valid_row_mask()
-    dev0 = dist.mesh.shard_devices()[0]
+    dev0 = dist.mesh.local_shard_devices()[0]
     sketch_cols: Dict[str, np.ndarray] = {}
     with span("daggregate.sketch_fold"):
         for f in sorted(sketches):
@@ -1896,7 +2059,7 @@ def _segmented_fold(comp, names, mesh: DeviceMesh, arrays, ids: ShardedArray,
     :class:`~..engine.ops.FoldBatchingError`.
     """
     pair_v, single_v, op = _ops._fold_functions(comp, names)
-    dev0 = mesh.shard_devices()[0]
+    dev0 = mesh.local_shard_devices()[0]
     tabs, present = [], []
     trace = current_trace()
     clock = (_trace_shards(trace, "daggregate", mesh=mesh)
@@ -1928,6 +2091,13 @@ def _segmented_fold(comp, names, mesh: DeviceMesh, arrays, ids: ShardedArray,
             present.append(p.to(dev0))
             if clock is not None:
                 clock.mark()
+        if mesh.is_cluster:
+            # every shard's table on every process, in shard order
+            every = {f: gather_shard_parts(mesh, [t[f] for t in tabs], dev0)
+                     for f in names}
+            tabs = [{f: every[f][s] for f in names}
+                    for s in range(mesh.num_data_shards)]
+            present = gather_shard_parts(mesh, present, dev0)
         acc, acc_p = tabs[0], present[0]
         for s in range(1, len(tabs)):
             comb = _ops._fold_call(pair_v, comp, acc, tabs[s])

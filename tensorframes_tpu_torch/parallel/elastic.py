@@ -100,7 +100,7 @@ from ..utils.env import env_bool, env_float, env_int
 from ..utils.logging import get_logger
 from ..utils.tracing import counters, gauge
 from . import mesh as _mesh_mod
-from .mesh import DeviceMesh, LogicalDevice
+from .mesh import DeviceMesh, LogicalDevice, refuse_cluster
 
 __all__ = ["elastic_call", "enabled", "bypass", "lost_device_ids",
            "lost_pool", "shrink_mesh", "reshard", "note_dispatch",
@@ -148,6 +148,18 @@ def elastic_call(op: str, dist, run: Callable):
     """
     if _bypassed:
         return run(dist)
+    if dist.mesh.is_cluster:
+        # no recovery, growth or rebalance across processes: a loss on
+        # one process cannot reshard another's rows
+        try:
+            _faults.check("device")
+            return run(dist)
+        except Exception as e:  # noqa: BLE001 - reclassified below
+            if is_device_lost(e) and enabled():
+                raise NotImplementedError(
+                    f"{op}: elastic recovery on a cluster mesh is not "
+                    f"supported (ROADMAP.md section C): {e}") from e
+            raise
     dist = _maybe_grow(op, dist)
     dist = _maybe_rebalance(op, dist)
     rebalance = getattr(dist, "_rebalance", None)
@@ -483,6 +495,7 @@ def grow_mesh(mesh: DeviceMesh, devices: Sequence[LogicalDevice]
     appended on the data axis; ids already in the mesh are ignored). Only
     data-only meshes grow rectangularly, and only by devices of the type
     they run on; others raise."""
+    refuse_cluster(mesh, "grow_mesh")
     current = mesh.logical_devices()
     ids = {d.id for d in current}
     fresh = []
@@ -536,6 +549,7 @@ def admit_devices(target, devices: Optional[Sequence] = None,
     """
     dist = None
     mesh = target
+    refuse_cluster(getattr(target, "mesh", target), "admit_devices")
     if not isinstance(target, DeviceMesh):
         dist, mesh = target, target.mesh
     current_ids = set(mesh.flat_ids())

@@ -58,6 +58,7 @@ from ..utils.env import env_bool, env_int
 from ..utils.logging import get_logger
 from ..utils.tracing import counters, span
 from . import elastic as _elastic
+from .mesh import refuse_cluster
 
 __all__ = ["dexchange", "shuffle_daggregate", "shuffle_enabled",
            "shuffle_agg_groups_threshold", "exchange_hash_host"]
@@ -227,6 +228,7 @@ def dexchange(keys, dist):
     mesh returns ``dist`` itself."""
     from .distributed import _check_executor, _lazy_input
     _check_executor()
+    refuse_cluster(dist.mesh, "dexchange")
     if _lazy_input(dist) is not None:
         from ..plan import dist as _dplan
         dist = _dplan.materialize(dist)
@@ -434,6 +436,7 @@ def shuffle_daggregate(fetches, dist, keys) -> TensorFrame:
     one-shard mesh, sketch combiners and non-monoid fetches go to
     ``daggregate`` unchanged."""
     from .distributed import daggregate
+    refuse_cluster(dist.mesh, "shuffle_daggregate")
     keys = [keys] if isinstance(keys, str) else list(keys)
     if (not shuffle_enabled() or dist.mesh.num_data_shards <= 1
             or not _ops._monoid_mapping(fetches)

@@ -6,7 +6,11 @@ JAX package, one process drives every device of a mesh: a
 axes, and the default 1-axis ``data`` mesh is pure data parallelism (a
 shard of every column on each device of the data axis). Multi-process
 meshes (``torch.distributed`` with NCCL, the counterpart of the JAX
-package's ``cluster.initialize``) are ``ROADMAP.md`` A item 7b.
+package's ``cluster.initialize``) come from ``cluster.cluster_mesh``: a
+cluster mesh names every process's slots, each with the process that owns
+it (``processes``), and carries the process group its cross-process legs
+run over (``group``). Each process holds only its own shards
+(:meth:`DeviceMesh.local_shards`).
 
 :func:`local_mesh` enumerates the cards ``torch.cuda.device_count()``
 reports when the package's default device is CUDA (one H100: a 1-shard
@@ -26,7 +30,10 @@ equal devices), so a :class:`DeviceMesh` carries one logical id per slot
 in ``ids``, an int array of the same shape as ``devices``: the port's
 ``d.id``. :func:`local_mesh` numbers the visible devices 0..n-1; an
 explicit ``DeviceMesh(devices)`` numbers by position unless ``ids=`` is
-given. The elastic layer's shrink and grow carry the ids along.
+given. The elastic layer's shrink and grow carry the ids along. On a
+cluster mesh ids number globally, in process order, and a slot's identity
+also holds its process: ``cuda:0`` of process 0 and ``cuda:0`` of process 1
+are different slots.
 """
 
 from __future__ import annotations
@@ -39,28 +46,34 @@ import torch
 from ..device import default_device
 from ..utils.env import env_int
 
-__all__ = ["DeviceMesh", "LogicalDevice", "local_mesh"]
+__all__ = ["DeviceMesh", "LogicalDevice", "local_mesh", "refuse_cluster"]
 
 
 class LogicalDevice:
-    """One slot of a mesh: its logical ``id`` (the port's ``jax.Device.id``)
-    and the ``torch.device`` it runs on. Equal when both agree, so the
-    lost shards of one card stay distinct."""
+    """One slot of a mesh: its logical ``id`` (the port's ``jax.Device.id``),
+    the ``torch.device`` it runs on and the ``process`` that owns it (0 on a
+    single-controller mesh). Equal when all three agree, so the lost shards
+    of one card stay distinct, and so do the same card index of two
+    processes."""
 
-    __slots__ = ("id", "device")
+    __slots__ = ("id", "device", "process")
 
-    def __init__(self, id: int, device):
+    def __init__(self, id: int, device, process: int = 0):
         self.id = int(id)
         self.device = torch.device(device)
+        self.process = int(process)
 
     def __eq__(self, other):
         return (isinstance(other, LogicalDevice) and other.id == self.id
-                and other.device == self.device)
+                and other.device == self.device
+                and other.process == self.process)
 
     def __hash__(self):
-        return hash((self.id, str(self.device)))
+        return hash((self.id, str(self.device), self.process))
 
     def __repr__(self):
+        if self.process:
+            return f"LogicalDevice({self.id}, {self.device}, p{self.process})"
         return f"LogicalDevice({self.id}, {self.device})"
 
 
@@ -69,7 +82,8 @@ class DeviceMesh:
     shards the rows of a distributed frame."""
 
     def __init__(self, devices, axis_names: Sequence[str] = ("data",),
-                 data_axis: str = "data", ids=None):
+                 data_axis: str = "data", ids=None, processes=None,
+                 group=None):
         arr = np.empty(np.shape(devices), dtype=object)
         flat = [torch.device(d) for d in np.asarray(devices,
                                                     dtype=object).flat]
@@ -96,6 +110,17 @@ class DeviceMesh:
         if data_axis not in self.axis_names:
             raise ValueError(
                 f"Mesh has axes {self.axis_names}; no {data_axis!r} axis")
+        if processes is None:
+            processes = np.zeros(arr.shape, dtype=np.int64)
+        processes = np.asarray(processes, dtype=np.int64)
+        if processes.shape != arr.shape:
+            raise ValueError(
+                f"processes of shape {processes.shape} do not match devices "
+                f"of shape {arr.shape}")
+        # the process owning each slot; ``group`` is the cluster's process
+        # group (``cluster.ClusterGroup``), None on a single-controller mesh
+        self.processes = processes
+        self.group = group
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -115,8 +140,34 @@ class DeviceMesh:
 
     def logical_devices(self) -> List[LogicalDevice]:
         """Every slot as a :class:`LogicalDevice`, in flat order."""
-        return [LogicalDevice(i, d) for i, d in
-                zip(self.flat_ids(), self.devices.reshape(-1))]
+        return [LogicalDevice(i, d, p) for i, d, p in
+                zip(self.flat_ids(), self.devices.reshape(-1),
+                    self.processes.reshape(-1).tolist())]
+
+    @property
+    def is_cluster(self) -> bool:
+        """True for a mesh over the processes of a cluster
+        (``cluster.cluster_mesh``): its ops add cross-process legs."""
+        return self.group is not None
+
+    def shard_processes(self) -> List[int]:
+        """The process owning each data shard, in shard order."""
+        axis = self.axis_names.index(self.data_axis)
+        moved = np.moveaxis(self.processes, axis, 0)
+        return [int(p) for p in moved.reshape(moved.shape[0], -1)[:, 0]]
+
+    def local_shards(self) -> List[int]:
+        """The data shards this process holds, in shard order: every shard
+        of a single-controller mesh, this process's own of a cluster's."""
+        if self.group is None:
+            return list(range(self.num_data_shards))
+        me = self.group.rank
+        return [s for s, p in enumerate(self.shard_processes()) if p == me]
+
+    def local_shard_devices(self) -> List[torch.device]:
+        """The device of each data shard this process holds."""
+        devs = self.shard_devices()
+        return [devs[s] for s in self.local_shards()]
 
     def axis_size(self, axis: Optional[str]) -> int:
         """The size of ``axis``; 1 for ``None``."""
@@ -141,7 +192,20 @@ class DeviceMesh:
         return list(moved.reshape(moved.shape[0], -1)[:, 0])
 
     def __repr__(self):
+        if self.group is not None:
+            return (f"DeviceMesh({self.shape}, data_axis={self.data_axis!r}, "
+                    f"processes={self.group.size})")
         return f"DeviceMesh({self.shape}, data_axis={self.data_axis!r})"
+
+
+def refuse_cluster(mesh, op: str) -> None:
+    """Raise before any collective when ``op`` meets a cluster mesh it does
+    not run on: every process refuses alike, so no peer waits."""
+    if mesh is not None and getattr(mesh, "is_cluster", False):
+        raise NotImplementedError(
+            f"{op} on a cluster mesh is not supported: the JAX package "
+            f"neither defines nor tests it across processes (ROADMAP.md "
+            f"section C); run it on a single-process mesh")
 
 
 def _visible_devices() -> List[torch.device]:

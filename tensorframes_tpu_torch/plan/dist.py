@@ -321,8 +321,8 @@ class LazyDistributedFrame:
 def lazy_frame(dist):
     """``DistributedFrame.lazy()``: a recording view over ``dist``, or
     ``dist`` itself when recording cannot help (``TFT_FUSE=0``,
-    ``TFT_EXECUTOR=pjrt``, frames whose rows do not tile the data
-    axis)."""
+    ``TFT_EXECUTOR=pjrt``, multi-process (cluster) meshes, frames whose
+    rows do not tile the data axis)."""
     import os
 
     if getattr(dist, "_tft_lazy_dist", False):
@@ -331,6 +331,8 @@ def lazy_frame(dist):
         return dist
     if os.environ.get("TFT_EXECUTOR") == "pjrt":
         return dist  # the native route keeps the per-op dispatches
+    if dist.mesh.is_cluster:
+        return dist  # a cluster mesh's ops stay per op
     S = dist.mesh.num_data_shards
     if S < 1 or dist.padded_rows % S != 0:
         return dist  # non-tiling (global-result) frames stay per op

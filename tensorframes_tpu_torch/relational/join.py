@@ -661,6 +661,8 @@ def sort_merge_join(left: TensorFrame, right: TensorFrame, on,
     order). Output is key-sorted, stable by original row order within
     equal keys, and re-partitioned to the left frame's partition count.
     """
+    from ..parallel.mesh import refuse_cluster
+    refuse_cluster(mesh, "sort_merge_join(mesh=)")
     on = _validate_on(left.schema, right.schema,
                       [on] if isinstance(on, str) else list(on))
     from ..engine.ops import InvalidTypeError
@@ -820,6 +822,8 @@ def partitioned_hash_join(left: TensorFrame, right: TensorFrame, on,
     ``TFT_SHUFFLE=0`` falls back to the broadcast join, with the same
     result. Per-shard and global build bytes are recorded on the result
     as ``_partitioned_info`` when it is forced."""
+    from ..parallel.mesh import refuse_cluster
+    refuse_cluster(mesh, "partitioned_hash_join(mesh=)")
     if mesh is None:
         raise ValueError("partitioned_hash_join needs a mesh; use "
                          "broadcast_join for host-only frames")
@@ -1031,6 +1035,8 @@ def join(left: TensorFrame, right: TensorFrame, on,
     the keys are numeric. The choice is flight-recorded
     (``relational.join_route``; ``ttf.why()`` renders it), kept on the
     result as ``_join_route`` and rendered by ``explain()``."""
+    from ..parallel.mesh import refuse_cluster
+    refuse_cluster(mesh, "join(mesh=)")
     on_l = [on] if isinstance(on, str) else list(on)
     route = None
     if strategy is None:

@@ -22,6 +22,9 @@ Sites the port fires (:func:`sites`):
 ========== ===========================================================
 site        raised from
 ========== ===========================================================
+cluster_init ``parallel.cluster.initialize`` bootstrap attempt (retried
+            until the bootstrap deadline, then degraded or, under
+            ``TFT_REQUIRE_CLUSTER=1``, raised as ``ClusterInitError``)
 compile     ``engine.executor.BlockExecutor`` before the eager call. The
             port compiles nothing per shape; the site stays so that the
             JAX tests' fault schedules mean the same thing in both
@@ -59,10 +62,9 @@ device      ``parallel.elastic.elastic_call`` dispatch, device-loss
 ========== ===========================================================
 
 ``pad_compile`` has no counterpart: the port has no padding buckets, so
-there is no bucketed compile to fail. The other sites of the JAX package
-(``cluster_init``, ``pjrt_execute``) come with their layers
-(``ROADMAP.md`` A items 7b and 8); arming one now warns, as any unknown
-site does.
+there is no bucketed compile to fail. The JAX package's ``pjrt_execute``
+comes with the native execution core (``ROADMAP.md`` A item 8); arming
+it now warns, as any unknown site does.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ _log = get_logger("resilience.faults")
 # the site table, programmatically: site -> where it fires (the docstring
 # table's machine-readable twin)
 _SITES = {
+    "cluster_init": "parallel.cluster.initialize bootstrap attempt",
     "compile": "engine.executor.BlockExecutor before the eager call (kept "
                "so the JAX package's fault schedules carry over)",
     "dispatch": "engine.executor.BlockExecutor block dispatch",

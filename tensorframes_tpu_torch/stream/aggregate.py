@@ -314,9 +314,12 @@ class StreamingAggregation:
         self.watermark_delay = float(watermark_delay)
         self.max_state_rows = max_state_rows
         # mesh=: per-batch folds ride the mesh (module docstring); a 1-shard
-        # mesh (or None) keeps the single-device fold
+        # mesh (or None) keeps the single-device fold, and so does a
+        # cluster mesh: the batch's rows are this process's, not the
+        # global rows its shards would stand for
         self.mesh = mesh if (mesh is not None
-                             and mesh.num_data_shards > 1) else None
+                             and mesh.num_data_shards > 1
+                             and not mesh.is_cluster) else None
         if watermark_delay < 0:
             raise ValueError(
                 f"watermark_delay must be >= 0, got {watermark_delay}")

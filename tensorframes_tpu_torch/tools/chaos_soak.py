@@ -3,10 +3,11 @@
 The port's counterpart of ``tools/chaos_soak.py``. Every recovery path
 has a test that arms ONE fault site and asserts one contract. This
 tool is the composed version: the ``resilience/chaos.py`` schedule
-fires worker crashes, preemptions, OOMs and rotten persist artifacts
-*into each other* while a mixed workload runs (multi-tenant serving of
-map chains, a filter chain and keyed aggregates through the segment_sum
-kernel, a broadcast join, the durable tier, a bounded stream, park and
+fires device losses, worker crashes, preemptions, OOMs and rotten
+persist artifacts *into each other* while a mixed workload runs
+(multi-tenant serving of map chains, a filter chain and keyed aggregates
+through the segment_sum kernel, a broadcast join, the fused distributed
+plan over an 8-shard mesh, the durable tier, a bounded stream, park and
 resume), and asserts the global contract the per-site tests each assert
 locally:
 
@@ -25,16 +26,18 @@ Usage (standalone soak; on the default device, ``--device cpu`` for a
 host without a GPU):
 
     python -m tensorframes_tpu_torch.tools.chaos_soak --seed 42 \\
-        --rate 0.08 --sites worker,preempt,disk,oom --rounds 20
+        --rate 0.08 --sites device,worker,preempt,disk --rounds 20
 
 ``tests/test_torch_chaos.py`` imports :func:`run_drill` with small
 parameters; ``chip_smoke.py`` runs it on the card. The default sites are
-``worker|preempt|disk|oom``: the JAX drill's ``device`` site in the
-default schedule is ``ROADMAP.md`` A item 7b (the mesh remainders). The
-``batch`` site is not in the mix: a fault inside a stream batch is
-*skipped and counted* by contract, correct but lossy by design. An
-``oom`` inside a stream batch would be skipped the same way, so the
-stream's step is a ``map_rows``, whose OOM splits the batch instead.
+the JAX drill's, ``device|worker|preempt|disk``: the ``device`` site fires
+in the fused distributed plan's stage, the elastic layer shrinks the mesh
+and the lost shard is re-admitted after each round. ``oom`` stays
+selectable with ``--sites``. The ``batch`` site is not in the mix: a
+fault inside a stream batch is *skipped and counted* by contract, correct
+but lossy by design. An ``oom`` inside a stream batch would be skipped the
+same way, so the stream's step is a ``map_rows``, whose OOM splits the
+batch instead.
 """
 
 import argparse
@@ -44,8 +47,7 @@ import time
 
 import numpy as np
 
-# the JAX drill's `device` site in the default mix is ROADMAP A item 7b
-DEFAULT_SITES = ("worker", "preempt", "disk", "oom")
+DEFAULT_SITES = ("device", "worker", "preempt", "disk")
 
 
 def _host(v) -> np.ndarray:
@@ -97,6 +99,10 @@ def _twice(x):
     return {"z": x + x}
 
 
+def _three_x_less_one(x):
+    return {"z": x * 3.0 - 1.0}
+
+
 def run_workload(rounds, failures, persist_dir=None):
     """One pass of the mixed workload. Returns ``{key: digest}`` over
     every query result: the bit-identity record.
@@ -105,8 +111,11 @@ def run_workload(rounds, failures, persist_dir=None):
     fault-free and chaos passes are comparable; every surfaced failure
     lands in ``failures`` as ``(kind, repr)``."""
     from .. import api as _api
+    from .. import parallel as _par
     from .. import relational as rel
     from .. import stream
+    from ..device import default_device
+    from ..parallel import elastic as _elastic
     from ..memory import persist as _persist
     from ..plan import adaptive as _adaptive
     from ..serve import QueryScheduler, TenantQuota
@@ -161,6 +170,19 @@ def run_workload(rounds, failures, persist_dir=None):
                     {"k": np.arange(6.0), "w": np.arange(6.0) * 10})
                 results[("join", r)] = _digest(
                     rel.broadcast_join(left, right, on="k"))
+
+                # the fused distributed plan over 8 shards of the default
+                # device: the device site fires in its stage and the
+                # elastic layer shrinks the mesh; re-admit after, so the
+                # next round starts on all 8 shards again
+                dev = default_device()
+                mesh = _par.DeviceMesh(np.array([dev] * 8, dtype=object))
+                dist = _par.distribute(
+                    _api.frame({"x": np.arange(32.0) + r}), mesh)
+                out = _par.dmap_blocks(_three_x_less_one, dist.lazy())
+                results[("dist", r)] = _digest(out.collect_frame())
+                if _elastic.lost_pool():
+                    _par.admit_devices(mesh)
 
                 # the durable tier under rot: write one artifact and read
                 # it back a few times. Under chaos the disk site fails or

@@ -43,8 +43,9 @@ pytestmark = pytest.mark.chaos
 # the literal twin of faults.sites(): the conformance test greps test
 # sources for quoted site names, and test_site_table_matches_literals pins
 # this list to the real table
-PORT_SITES = ("batch", "compile", "device", "disk", "dispatch", "dmap",
-              "drain", "oom", "perf", "preempt", "worker")
+PORT_SITES = ("batch", "cluster_init", "compile", "device", "disk",
+              "dispatch", "dmap", "drain", "oom", "perf", "preempt",
+              "worker")
 
 
 @pytest.fixture(autouse=True)
@@ -262,7 +263,7 @@ class TestParity:
     def test_port_sites_are_the_jax_packages(self):
         assert set(faults.sites()) <= set(jfaults.sites())
         assert set(jfaults.sites()) - set(faults.sites()) == {
-            "cluster_init", "pad_compile", "pjrt_execute"}
+            "pad_compile", "pjrt_execute"}
 
 
 # -- the fault-site table --------------------------------------------------
@@ -400,17 +401,19 @@ class TestConformance:
 
 @pytest.mark.invariants
 def test_chaos_acceptance_drill(tmp_path):
-    """The mixed workload under a seeded 4-site schedule: bit-identity with
-    the fault-free run, zero leaks, every failure classified, exact
-    per-site replay of the seed. seed 11 at rate 0.3 fires the worker,
-    preempt and disk sites within two rounds (the drill asserts the rest
-    of the contract and raises on any breach)."""
+    """The mixed workload under the JAX drill's 4-site default schedule:
+    bit-identity with the fault-free run, zero leaks, every failure
+    classified, exact per-site replay of the seed. seed 11 at rate 0.3
+    fires the device (a shard of the fused mesh plan lost and
+    re-admitted), worker, preempt and disk sites within two rounds (the
+    drill asserts the rest of the contract and raises on any breach)."""
     t0 = time.perf_counter()
     report = chaos_soak.run_drill(seed=11, rate=0.3, rounds=2,
                                   persist_dir=str(tmp_path))
     fired_sites = {site for site, _ in report["firings"]}
-    assert {"worker", "preempt", "disk"} <= fired_sites, sorted(fired_sites)
-    assert report["sites"] == ["worker", "preempt", "disk", "oom"]
+    assert {"device", "worker", "preempt", "disk"} <= fired_sites, \
+        sorted(fired_sites)
+    assert report["sites"] == ["device", "worker", "preempt", "disk"]
     assert report["fired"] >= 3
     assert tracing.counters.get("chaos.fired") >= report["fired"]
     assert all(kind != "permanent" for kind, _ in report["failures"])

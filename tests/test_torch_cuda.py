@@ -1782,3 +1782,35 @@ def test_ring_and_allreduce_on_the_card_match_the_cpu(cuda):
     torch.testing.assert_close(
         parallel.ring_allreduce(x.cuda(), _shards("cuda", (8,), ("data",)))
         .cpu(), x.sum(0).expand(8, -1), rtol=1e-6, atol=0)
+
+
+def test_two_ranks_share_the_card_under_gloo(cuda, tmp_path):
+    """Two rank processes on the one card (gloo, 4 logical shards each):
+    the JAX cluster worker's dmap, monoid-aggregate and dsort steps at
+    its sizes, each checked against numpy in the rank, bit-identical
+    across the ranks, B1 launched on each rank's 4 shards."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    from tensorframes_tpu_torch.ops import _build
+
+    _build.build("segment_sum", "host_runtime")  # once, before the ranks
+    cfg = {"device": "cuda", "shards": 4, "rows": [23, 17],
+           "data": "worker", "seed": 0, "max_groups": 8,
+           "composite_groups": 16, "below": 500.0,
+           "ckpt": str(tmp_path / "ckpt"), "backend": None,
+           "steps": ["dmap", "daggregate_monoid", "dsort"]}
+    runs = chip_smoke.run_cluster(cfg, world=2, timeout=300,
+                                  env={"TFT_BOOTSTRAP_TIMEOUT": "120"})
+    reps = [r["report"] for r in runs]
+    for run, rep in zip(runs, reps):
+        assert run["rc"] == 0 and rep["failed"] is None, run["out"][-3000:]
+        assert rep["backend"] == "gloo"
+        assert rep["steps"]["daggregate_monoid"]["b1_launches"] == 4
+    for step in cfg["steps"]:
+        assert reps[0]["steps"][step]["digest"] == \
+            reps[1]["steps"][step]["digest"], step

@@ -159,7 +159,8 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "demos/groupby_scratch.py", "native.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/collectives.py",
             "parallel/elastic.py", "parallel/distributed.py",
-            "parallel/exchange.py", "plan/dist.py"} <= names
+            "parallel/exchange.py", "plan/dist.py", "parallel/cluster.py",
+            "demos/analytics.py"} <= names
     offenders = []
     for f in files:
         for mod in _imported_modules(f):
@@ -167,6 +168,24 @@ def test_no_jax_or_reference_imports_in_port_sources():
             if top in ("jax", "jaxlib", "ml_dtypes", "tensorframes_tpu"):
                 offenders.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not offenders, offenders
+
+
+def test_chip_smoke_rank_children_import_only_the_port():
+    """The cluster phase's rank processes (``chip_smoke.CLUSTER_RANK``)
+    import torch, numpy, the standard library and the port only."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    tree = ast.parse(chip_smoke.CLUSTER_RANK)
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add((node.module or "").split(".")[0])
+    third_party = mods - set(sys.stdlib_module_names)
+    assert third_party == {"numpy", "torch", "tensorframes_tpu_torch"}, \
+        third_party
 
 
 def test_demos_and_adaptive_run_without_jax():

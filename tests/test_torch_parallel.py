@@ -998,8 +998,8 @@ def test_unported_routes_raise_naming_their_item(meshes, monkeypatch):
     assert tpar.admit_devices(dist) is dist  # no candidate: a no-op
     assert tpar.grow_mesh(meshes["torch"], []) is meshes["torch"]
     assert tpar.probe_device(torch.device("cpu")) is True
-    # the ring collectives are ported (tests/test_torch_ring.py); the
-    # cluster still raises
+    # the ring collectives are ported (tests/test_torch_ring.py), and so
+    # is the cluster (tests/test_torch_cluster.py)
     for name in ("ring_attention", "ring_allreduce"):
         assert name in tpar.__all__ and name in jpar.__all__
     x = torch.arange(16.0).reshape(8, 2)
@@ -1007,8 +1007,11 @@ def test_unported_routes_raise_naming_their_item(meshes, monkeypatch):
                                x.sum(0).expand(8, 2).contiguous())
     for name in ("cluster_mesh", "distribute_local", "initialize"):
         assert name in tpar.__all__ and name in jpar.__all__
-        with pytest.raises(NotImplementedError, match=f"{name}.*A item 7b"):
-            getattr(tpar, name)()
+    for var in ("TFT_COORDINATOR", "TFT_NUM_PROCESSES", "TFT_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    # with no cluster configured the process stays single-process
+    assert tpar.initialize() is False
     assert sorted(tpar.__all__) == sorted(jpar.__all__)
     # the shuffle route is ported (tests/test_torch_shuffle.py): past the
     # threshold on 8 shards it routes; one shard never shuffles, nor does

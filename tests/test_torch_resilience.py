@@ -265,15 +265,16 @@ class TestFaults:
             assert str(ei.value).startswith("RESOURCE_EXHAUSTED")
 
     def test_sites_are_the_ports_and_chaos_waits(self, monkeypatch):
-        """The port's sites are the JAX package's but the mesh's and the
-        native core's; ``TFT_CHAOS`` is read at the first check, and a
+        """The port's sites are the JAX package's but the padding buckets'
+        and the native core's; ``TFT_CHAOS`` is read at the first check, and a
         spec the JAX package refuses (no sites) is refused with its
         message."""
         from tensorframes_tpu.resilience import chaos as jchaos
         from tensorframes_tpu_torch.resilience import chaos
         assert set(faults.sites()) == {"compile", "dispatch", "oom",
                                        "drain", "perf", "preempt", "disk",
-                                       "batch", "worker", "device", "dmap"}
+                                       "batch", "worker", "device", "dmap",
+                                       "cluster_init"}
         assert set(faults.sites()) <= set(jrz.faults.sites())
         monkeypatch.setenv("TFT_CHAOS", "seed:1,rate:0.5")
         monkeypatch.setattr(chaos, "_env_armed", False)

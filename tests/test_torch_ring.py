@@ -220,12 +220,17 @@ def test_untraced_ring_records_nothing():
     assert tobs.current_trace() is None
 
 
-def test_ring_is_exported_and_the_cluster_still_raises():
+def test_ring_and_the_cluster_are_exported(monkeypatch):
     from tensorframes_tpu import parallel as jpar
+    from tensorframes_tpu_torch.parallel import cluster
 
     assert tpar.ring_attention is tring.ring_attention
     assert tpar.ring_allreduce is tring.ring_allreduce
     assert sorted(tpar.__all__) == sorted(jpar.__all__)
     for name in ("cluster_mesh", "distribute_local", "initialize"):
-        with pytest.raises(NotImplementedError, match=f"{name}.*A item 7b"):
-            getattr(tpar, name)()
+        assert name in tpar.__all__
+        assert getattr(tpar, name) is getattr(cluster, name)
+    for var in ("TFT_COORDINATOR", "TFT_NUM_PROCESSES", "TFT_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert tpar.initialize() is False

@@ -282,7 +282,8 @@ def test_unported_paths_raise(pair, monkeypatch):
     a mesh of another type than ``parallel.DeviceMesh`` is refused, a
     ``seq_axis`` without a mesh is ignored as in the JAX package, a MoE
     model builds and ``params_from_jax`` carries a layer's ``"moe"``
-    dict; the cluster (multi-process meshes) still raises."""
+    dict; the cluster's entry points are exported like the JAX package's
+    and answer single-process when no cluster is configured."""
     jm, params, tm = pair
     tok = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(TypeError, match="parallel.DeviceMesh"):
@@ -302,10 +303,15 @@ def test_unported_paths_raise(pair, monkeypatch):
     del layer["w1"], layer["w2"]
     state = params_from_jax(dict(params, layers=[layer]))
     assert "layers.0.moe.w1" in state and "layers.0.w1" not in state
+    from tensorframes_tpu import parallel as jpar
     from tensorframes_tpu_torch import parallel as tpar
     for name in ("cluster_mesh", "distribute_local", "initialize"):
-        with pytest.raises(NotImplementedError, match="A item 7b"):
-            getattr(tpar, name)()
+        assert name in tpar.__all__
+    assert sorted(tpar.__all__) == sorted(jpar.__all__)
+    for var in ("TFT_COORDINATOR", "TFT_NUM_PROCESSES", "TFT_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert tpar.initialize() is False  # no cluster configured
     # the default device is cuda: without a GPU the model refuses to build
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     prev = ttf.default_device()
