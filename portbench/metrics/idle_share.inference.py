@@ -1,0 +1,9 @@
+"""``idle_share.inference``: percent of the traced window in which the
+card ran no kernel, copy or set (``torch.profiler``), in the inference
+cells."""
+
+from portbench.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
