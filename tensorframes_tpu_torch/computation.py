@@ -63,7 +63,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from . import dtypes as _dt
 from .shape import Shape, Unknown
-from .utils.tracing import histograms
+from .utils.tracing import histograms, span
 
 __all__ = [
     "TensorSpec",
@@ -239,8 +239,9 @@ class Computation:
                     for k, v in out.items()}
 
         t0 = time.perf_counter()
-        out_specs = _infer_outputs(dict_fn, specs, share_lead_symbol,
-                                   output_shapes)
+        with span("computation.capture"):
+            out_specs = _infer_outputs(dict_fn, specs, share_lead_symbol,
+                                       output_shapes)
         # what the port pays for a new program: capture's probes (the
         # performance sentinel's compile_s component reads this family)
         histograms.observe("compile_seconds", time.perf_counter() - t0,

@@ -718,19 +718,19 @@ class BlockExecutor:
                                 held=dev,
                                 device_out={s.name: out[s.name]
                                             for s in comp.outputs})
-        host = {}
-        for spec in comp.outputs:
-            t = _host_view(out[spec.name])
-            if cuda:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-            else:
-                h = t
-            host[spec.name] = h
-        event = None
-        if cuda:
-            event = torch.cuda.Event()
-            event.record()
+        if not cuda:
+            host = {s.name: _host_view(out[s.name]) for s in comp.outputs}
+            event = None
+        else:
+            with span("executor.stage_out"):
+                host = {}
+                for spec in comp.outputs:
+                    t = _host_view(out[spec.name])
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    host[spec.name] = h
+                event = torch.cuda.Event()
+                event.record()
         return PendingBlock(self, comp, arrays, row_local, False,
                             held=(dev, out), host=host, event=event)
 

@@ -147,6 +147,9 @@ class QueryTrace:
         self.dropped = 0
         # per-query span attribution: name -> [count, total_seconds]
         self.stages: Dict[str, List[float]] = {}
+        # events left to record once the card has done their work (a
+        # traced mesh dispatch's shard times): each returns True once added
+        self._deferred: List[Callable[[], bool]] = []
         self._lock = threading.Lock()
         self._max_events = (max_events if max_events is not None
                             else env_int("TFT_TRACE_MAX_EVENTS", 50_000))
@@ -169,6 +172,25 @@ class QueryTrace:
             self.events.append(ev)
         return ev
 
+    def defer(self, settle: Callable[[], bool]) -> None:
+        """Register events that can be read only later: ``settle()`` adds
+        them, without a wait, and returns True once it has. The trace calls
+        it when it finishes or is read (:meth:`settle`)."""
+        with self._lock:
+            self._deferred.append(settle)
+
+    def settle(self) -> None:
+        """Add the deferred events whose work has completed; the others
+        stay deferred. Never waits."""
+        if not self._deferred:
+            return
+        with self._lock:
+            todo, self._deferred = self._deferred, []
+        left = [fn for fn in todo if not fn()]
+        if left:
+            with self._lock:
+                self._deferred[:0] = left
+
     def add_stage(self, name: str, dt: float) -> None:
         with self._lock:
             st = self.stages.get(name)
@@ -179,6 +201,7 @@ class QueryTrace:
                 st[1] += dt
 
     def _finish(self, error: Optional[str] = None) -> None:
+        self.settle()
         try:  # the card's memory watermark at query end (None on CPU)
             from ..device import default_device
             from . import device as _device
@@ -250,6 +273,7 @@ class QueryTrace:
 
     # -- introspection -----------------------------------------------------
     def count(self, etype: str) -> int:
+        self.settle()
         with self._lock:
             return sum(1 for ev in self.events if ev.etype == etype)
 
@@ -277,6 +301,7 @@ class QueryTrace:
             "occupancy_mean": None, "slots": 0,
             "mesh": None, "hbm": None,
         }
+        self.settle()
         occ_total = 0.0
         occ_n = 0
         slots = set()
@@ -398,6 +423,7 @@ class QueryTrace:
         out.
         """
         pid = 1
+        self.settle()
         with self._lock:
             events = list(self.events)
         out: List[Dict[str, Any]] = []

@@ -59,8 +59,9 @@ shards together: ``native_mesh.py``).
 from __future__ import annotations
 
 import os
+import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -335,9 +336,10 @@ class _ShardClock:
     running maximum of those: equal shards give equal times, not a ramp
     that reads as skew. On a card the finishes are CUDA events recorded
     on the shard's stream after its work (:meth:`mark`), measured from one
-    start event per card; on the CPU, the host clock. Shards the dispatch
-    did not mark share what is left of its time. Made only while a trace
-    is active."""
+    start event per card and read only once they have completed
+    (:meth:`ready`), never waited for; on the CPU, the host clock. Shards
+    the dispatch did not mark share what is left of its time (:meth:`seal`).
+    Made only while a trace is active."""
 
     def __init__(self, trace, mesh: DeviceMesh):
         self.ts = trace.clock()
@@ -362,13 +364,21 @@ class _ShardClock:
         else:
             self.marks.append((d, time.perf_counter() - self.w0))
 
-    def durations(self) -> List[float]:
+    def seal(self) -> None:
+        """The dispatch is issued: mark the shards it did not mark."""
         while len(self.marks) < len(self.devices):
             self.mark()
+
+    def ready(self) -> bool:
+        """Whether every shard's finish can be read without a wait (a
+        stream's last event done means its earlier ones are too)."""
+        return not self.cuda or all(
+            ev.query() for ev in {d: ev for d, ev in self.marks}.values())
+
+    def durations(self) -> List[float]:
+        """The shards' times; on a card, only once :meth:`ready`."""
+        self.seal()
         if self.cuda:
-            # a stream's last event done means its earlier ones are too
-            for ev in {d: ev for d, ev in self.marks}.values():
-                ev.synchronize()
             ends = [(d, self.starts[d].elapsed_time(ev) / 1e3)
                     for d, ev in self.marks]
         else:
@@ -402,17 +412,73 @@ def _trace_shards(trace, op: str, dist=None, mesh=None) -> _ShardClock:
     return _ShardClock(trace, mesh)
 
 
+class _ShardTimes:
+    """One traced dispatch's per-shard times, recorded once they can be
+    read without a wait: ``shard_compute`` events, and the skew tracker's
+    input (``elastic.note_dispatch``) when ``mesh`` is given."""
+
+    __slots__ = ("trace", "op", "clock", "mesh", "done")
+
+    def __init__(self, trace, op: str, clock: _ShardClock,
+                 mesh: Optional[DeviceMesh]):
+        self.trace, self.op, self.clock, self.mesh = trace, op, clock, mesh
+        self.done = False
+
+    def settle(self) -> bool:
+        """Record the times if the shards' work has completed; True once
+        they are recorded."""
+        with _pending_lock:
+            if self.done:
+                return True
+            if not self.clock.ready():
+                return False
+            self.done = True
+        durs = self.clock.durations()
+        for i, dur in enumerate(durs):
+            self.trace.add("shard_compute", name=f"{self.op} d{i}",
+                           ts=self.clock.ts, dur=dur, device=i,
+                           track=DEVICE_TRACK_BASE + i)
+        mesh = self.mesh
+        if mesh is not None and len(durs) >= 2 and not mesh.is_cluster:
+            _elastic.note_dispatch(mesh, self.op, durs)
+        return True
+
+
+# traced dispatches whose shards were still running on a card when they
+# were issued; bounded, so a card that never answers cannot grow it
+_pending: "deque[_ShardTimes]" = deque(maxlen=256)
+_pending_lock = threading.Lock()
+
+
+def _settle_pending() -> None:
+    """Record the shard times of every earlier traced dispatch whose work
+    has completed."""
+    with _pending_lock:
+        todo = list(_pending)
+        _pending.clear()
+    left = [p for p in todo if not p.settle()]
+    if left:
+        with _pending_lock:
+            _pending.extendleft(reversed(left))
+
+
 def _trace_done(trace, op: str, clock: _ShardClock,
                 mesh: Optional[DeviceMesh] = None) -> None:
     """Per-shard ``shard_compute`` events and the op-level mesh dispatch
     span. When ``mesh`` is given the per-shard times also feed the
-    elastic layer's skew tracker (``elastic.note_dispatch``)."""
-    durs = clock.durations()
-    for i, dur in enumerate(durs):
-        trace.add("shard_compute", name=f"{op} d{i}", ts=clock.ts,
-                  dur=dur, device=i, track=DEVICE_TRACK_BASE + i)
-    if mesh is not None and len(durs) >= 2 and not mesh.is_cluster:
-        _elastic.note_dispatch(mesh, op, durs)
+    elastic layer's skew tracker (``elastic.note_dispatch``).
+
+    Nothing here waits for the card: shard times still running there stay
+    pending, and are recorded once their events have completed, when the
+    trace finishes or is read (``QueryTrace.settle``) or at the next
+    traced dispatch."""
+    clock.seal()
+    _settle_pending()
+    times = _ShardTimes(trace, op, clock, mesh)
+    if not times.settle():
+        with _pending_lock:
+            _pending.append(times)
+        trace.defer(times.settle)
     trace.add("mesh_dispatch", name=op, ts=clock.ts,
               dur=max(trace.clock() - clock.ts, 0.0))
 
@@ -2135,16 +2201,18 @@ def _shard_tables(fetch_names, col_combiners, columns, ids: ShardedArray,
                   groups: int, clock=None) -> Dict[str, List[torch.Tensor]]:
     """Every shard's ``[groups, ...]`` table of every fetch column
     (:func:`_shard_table`: B1 for a float sum), shard by shard so a traced
-    dispatch can time each shard. The one fragment of the eager, fused and
+    dispatch can time each shard, all under the span
+    ``daggregate.keyed_sum``. The one fragment of the eager, fused and
     streaming aggregate routes."""
     parts: Dict[str, List[torch.Tensor]] = {f: [] for f in fetch_names}
     cols = {f: columns[f] for f in fetch_names}
-    for s, i in enumerate(ids.shards):
-        for f in fetch_names:
-            parts[f].append(_shard_table(col_combiners[f],
-                                         cols[f].shards[s], i, groups))
-        if clock is not None:
-            clock.mark()
+    with span("daggregate.keyed_sum"):
+        for s, i in enumerate(ids.shards):
+            for f in fetch_names:
+                parts[f].append(_shard_table(col_combiners[f],
+                                             cols[f].shards[s], i, groups))
+            if clock is not None:
+                clock.mark()
     return parts
 
 

@@ -12,12 +12,18 @@ the active query trace through the span observer that
 window occupancy) under the same switch; gauges keep their own stat family
 (:meth:`Timings.gauges_snapshot`: ``count``/``mean``/``min``/``max``/
 ``last``), apart from the spans' ``count``/``total_s``. :data:`counters`
-and :data:`histograms` are always on. ``profile`` and ``dump_stats`` are
-not in this package yet.
+and :data:`histograms` are always on. :func:`profile` records a
+``torch.profiler`` trace of a body with the spans on; :func:`dump_stats`
+prints spans, gauges and counters in one report.
 
 Names keep the JAX package's. Spans: ``executor.convert`` (host->device,
 opened only when some input is on the host), ``executor.dispatch``,
-``executor.convert_back``, ``pipeline.submit`` / ``pipeline.drain``,
+``executor.convert_back``, ``executor.stage_out`` (a block's outputs into
+pinned host buffers, their non-blocking copies and the event, opened only
+when the outputs leave a card for the host), ``computation.capture`` (a
+new program's output-shape probes; a cached program opens none),
+``daggregate.keyed_sum`` (every shard's ``[groups, ...]`` table of a mesh
+aggregate, without its collective), ``pipeline.submit`` / ``pipeline.drain``,
 ``plan.execute`` (one fused forcing), ``io.parquet_read`` (one row group
 decoded), ``aggregate.factorize_keys`` / ``aggregate.segment_reduce`` /
 ``aggregate.sketch_fold``, ``join.probe`` (one probe block joined),
@@ -309,15 +315,23 @@ def _device_annotation(name: str):
     return record_function(name)
 
 
-@contextlib.contextmanager
-def span(name: str) -> Iterator[None]:
+# what span() returns while tracing is off: one shared context that does
+# nothing, so an untraced stage costs a global read and no allocation
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
     """Time a named host stage; a no-op when tracing is off.
 
     The profiler range is decoration: one that fails to open or to close
     neither loses the host timing nor masks the body's own exception."""
     if not _enabled:
-        yield
-        return
+        return _NULL_SPAN
+    return _timed_span(name)
+
+
+@contextlib.contextmanager
+def _timed_span(name: str) -> Iterator[None]:
     ann = _device_annotation(name)
     try:
         ann.__enter__()

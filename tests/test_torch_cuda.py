@@ -1632,7 +1632,8 @@ def test_card_shard_times_reach_the_skew_tracker_cumulative(cuda,
     """While a trace is active, a mesh op on the card times each shard
     with a CUDA event after its work, measured from one start event: the
     times reach ``note_dispatch`` in cumulative (non-decreasing) order,
-    one per shard, and land as ``shard_compute`` events."""
+    one per shard, and land as ``shard_compute`` events once the trace
+    is read after the work is done: the dispatch itself never waits."""
     from tensorframes_tpu_torch import parallel
     from tensorframes_tpu_torch.observability import events
     from tensorframes_tpu_torch.parallel import elastic
@@ -1650,6 +1651,8 @@ def test_card_shard_times_reach_the_skew_tracker_cumulative(cuda,
     try:
         parallel.dmap_blocks(lambda x: {"z": torch.sin(x) * x}, dist)
         trace = events.last_query()
+        torch.cuda.synchronize()
+        trace.settle()
     finally:
         tracing.disable()
         elastic._tracker.clear()
@@ -1662,6 +1665,52 @@ def test_card_shard_times_reach_the_skew_tracker_cumulative(cuda,
     comp = [ev for ev in trace.events if ev.etype == "shard_compute"]
     assert [ev.args["device"] for ev in comp] == list(range(8))
     assert [ev.dur for ev in comp] == times
+
+
+def test_traced_card_dispatch_records_no_event_wait(cuda, monkeypatch):
+    """A traced mesh op on the card calls no ``Event.synchronize``; its
+    shard times are recorded once the trace is read after the work."""
+    from tensorframes_tpu_torch import parallel
+    from tensorframes_tpu_torch.observability import events
+    from tensorframes_tpu_torch.utils import tracing
+
+    waits = []
+    real = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda ev: (waits.append(ev), real(ev)))
+    df = ttf.frame({"x": np.arange(400_000.0)}, num_partitions=2)
+    dist = parallel.distribute(df, _card_and_cpu_meshes(cuda, 8)["card"])
+    tracing.enable()
+    try:
+        parallel.dmap_blocks(lambda x: {"z": torch.sin(x) * x}, dist)
+        trace = events.last_query()
+    finally:
+        tracing.disable()
+    assert waits == []
+    torch.cuda.synchronize()
+    assert trace.count("shard_compute") == 8
+
+
+def test_outputs_staged_off_the_card_open_the_stage_out_span(cuda):
+    """A block whose outputs go to the host from the card opens
+    ``executor.stage_out`` once; one whose outputs stay there opens none."""
+    from tensorframes_tpu_torch.utils import tracing
+
+    comp = ttf.Computation.trace(
+        lambda x: {"z": x * 2.0},
+        [ttf.TensorSpec("x", ttf.dtypes.float32, ttf.Shape(-1))])
+    x = np.arange(1 << 16, dtype=np.float32)
+    tracing.timings.reset()
+    tracing.enable()
+    try:
+        out = ttf.BlockExecutor().submit(comp, {"x": x}).drain()
+        ttf.BlockExecutor().submit(comp, {"x": x}, keep_device=True).drain()
+        snap = tracing.timings.snapshot()
+    finally:
+        tracing.disable()
+        tracing.timings.reset()
+    np.testing.assert_array_equal(out["z"], x * 2.0)
+    assert snap["executor.stage_out"]["count"] == 1
 
 
 # -- the transformer on a mesh of card shards ---------------------------------
